@@ -1,0 +1,143 @@
+"""Build and load the port's CUDA kernels.
+
+`load()` compiles every `csrc/*.cu` with nvcc for Hopper (sm_90a) into one
+shared library with a plain C interface, at first use, and opens it with
+ctypes. The build lands in `build/<hash>/` inside this package (ignored by
+git), keyed by a hash of the sources, the generated table header and the
+flags, so a checkout builds its own kernels and a rebuild happens only when
+one of them changes. The constant tables the kernels read are generated from
+`ops/hca_tables.py` into that directory (`hca_tables.inc`), so the kernels
+and the plain PyTorch twins read the same fp32 bit patterns.
+
+Floating-point contract: `-fmad=false` and no fast-math flag, so every
+multiply and add rounds once, as in the JAX reference; `-ftz`, `-prec-div`
+and `-prec-sqrt` stay at their IEEE defaults.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import numpy as np
+
+_PKG = Path(__file__).resolve().parent
+CSRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas=-v")
+LIB_NAME = "libhca_kernels.so"
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry points: each launches one kernel on the given stream and returns
+# cudaGetLastError()
+SIGNATURES = {
+    "hca_side_info": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                      _P, _P, _P, _P, _P, _P],
+    "hca_coefficients": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "hca_transform": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                      _P, _P, _P, _P, _P, _P],
+}
+
+_lib = None
+#: wall seconds the last nvcc build took (None: loaded from an earlier build)
+BUILD_SECONDS = None
+#: nvcc's output of the last build (ptxas register/shared-memory report)
+BUILD_LOG = ""
+
+
+def _c_array(name: str, ctype: str, values) -> str:
+    body = ", ".join(values)
+    return (f"static __device__ const {ctype} {name}[{len(values)}] = "
+            f"{{{body}}};\n")
+
+
+def _f32_literals(arr) -> list:
+    return [float(x).hex() + "f" for x in
+            np.asarray(arr, np.float32).reshape(-1)]
+
+
+def tables_header() -> str:
+    """C++ source of the kernels' constant tables, from the Python tables."""
+    from .ops import hca_tables as T
+    from .ops import hca_unpack_device as U
+
+    val, adv = U.vlc_tables()
+    out = ["// generated by pycricodecs_tpu_torch/_build.py; do not edit\n",
+           "#pragma once\n", "#include <cstdint>\n"]
+    out.append(_c_array("kInvertTable", "uint8_t",
+                        [str(int(x)) for x in T.INVERT_TABLE]))
+    out.append(_c_array("kVlcValue", "int8_t",
+                        [str(int(x)) for x in val.reshape(-1)]))
+    out.append(_c_array("kVlcAdvance", "uint8_t",
+                        [str(int(x)) for x in adv.reshape(-1)]))
+    for name, arr in (("kScalingTable", T.SCALING_TABLE),
+                      ("kRangeTable", T.RANGE_TABLE),
+                      ("kScaleConversionTable", T.SCALE_CONVERSION_TABLE),
+                      ("kIntensityRatioTable", T.INTENSITY_RATIO_TABLE),
+                      ("kImdctSin", T.IMDCT_SIN),
+                      ("kImdctCos", T.IMDCT_COS),
+                      ("kImdctWindow", T.IMDCT_WINDOW)):
+        out.append(_c_array(name, "float", _f32_literals(arr)))
+    return "".join(out)
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin): "
+                           "the CUDA kernels cannot be built")
+    return path
+
+
+def build() -> Path:
+    """Compile the kernels unless this exact build exists; return the .so."""
+    global BUILD_SECONDS, BUILD_LOG
+    sources = sorted(CSRC_DIR.glob("*.cu"))
+    header = tables_header()
+    h = hashlib.sha256()
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(header.encode())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    out_dir = BUILD_DIR / h.hexdigest()[:16]
+    lib = out_dir / LIB_NAME
+    if lib.exists():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    # write-then-rename: a concurrent build never sees a partial file
+    inc_tmp = out_dir / f"hca_tables.inc.{os.getpid()}.tmp"
+    inc_tmp.write_text(header)
+    os.replace(inc_tmp, out_dir / "hca_tables.inc")
+    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, f"-I{out_dir}", "-o", str(tmp),
+           *map(str, sources)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    BUILD_SECONDS = time.perf_counter() - t0
+    BUILD_LOG = proc.stdout + proc.stderr
+    os.replace(tmp, lib)
+    return lib
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first use."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib

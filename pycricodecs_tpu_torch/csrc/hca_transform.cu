@@ -1,0 +1,209 @@
+// HCA decode transform kernel for Hopper (sm_90a): B3.
+//
+// Replaces (TPU Pallas kernel of the JAX package):
+//   B3 pycricodecs_tpu/ops/pallas_kernels.py transform_fused_pallas
+//      (body _make_transform_kernel), fed by hca_kernels._fused_transform
+// Plain PyTorch twin: pycricodecs_tpu_torch/ops/hca_kernels.py
+// (decode_transform_plain = reconstruct_spectra, imdct_butterflies,
+// window_overlap_add, quantize_pcm16), byte-equal by test.
+//
+// Computes, per (stream, frame): dequantise (SCALING[sf] * RANGE[res] * qc),
+// HFR from the static source-band map, intensity stereo on channel pairs,
+// the 7 add/sub + 7 twiddle stage IMDCT, windowed overlap-add, PCM16
+// quantise and channel interleave, writing i16 [B, F, 8, 128, C].
+//
+// What bounds it on this card: per output sample it reads 2 bytes of qc and
+// writes 2 bytes of PCM, and does ~14 butterfly stages of fp32 work, so it is
+// neither near the 3.35 TB/s HBM roofline nor near the fp32 peak; the cost is
+// the 14 block-wide barriers per subframe and the index math around them.
+//
+// Design: one 128-thread block per (stream, frame), one thread per band.
+// Channels are walked in units (a discrete channel, or a primary with its
+// intensity secondary, which needs the primary's post-HFR spectrum at the
+// same band and so the same thread). A unit's spectra live in shared memory
+// for the butterfly stages (ping-pong buffers). The overlap-add couples
+// subframe t only to t-1, so each block recomputes the previous frame's last
+// subframe as a one-row halo and blocks are independent: the TPU kernel's
+// sequential-grid carry and its 0/1 OLA/interleave matmuls are gone, and the
+// per-frame gain/HFR/ratio factors it took from XLA are table lookups here.
+// Every float op is one rounded IEEE multiply, add or subtract, in the JAX
+// reference order (the _rn intrinsics are never contracted; the build also
+// passes -fmad=false).
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "hca_tables.inc"  // generated by _build.py from ops/hca_tables.py
+
+#define HCA_MAX_CH 16
+
+namespace {
+
+struct TransformCfg {
+  int B, F, C;
+  int base_band, total_band;
+  int apply_hfr, hfr_groups, zero_band;
+  int partner[HCA_MAX_CH];       // secondary of a primary channel, else -1
+  int is_secondary[HCA_MAX_CH];
+  uint8_t hfr_is[128];
+  uint8_t hfr_src[128];
+  uint8_t hfr_group[128];
+};
+
+// gain * qc for band j of (frame row fi, channel c, subframe s)
+__device__ __forceinline__ float dequant(const int16_t* __restrict__ qc,
+                                         const uint8_t* __restrict__ sf,
+                                         const uint8_t* __restrict__ res,
+                                         size_t fc, int s, int j) {
+  const float gain = __fmul_rn(kScalingTable[sf[fc * 128 + j]],
+                               kRangeTable[res[fc * 128 + j]]);
+  return __fmul_rn(gain, (float)qc[(fc * 8 + s) * 128 + j]);
+}
+
+__global__ void __launch_bounds__(128)
+hca_transform_kernel(const int16_t* __restrict__ qc,
+                     const uint8_t* __restrict__ sf,
+                     const uint8_t* __restrict__ res,
+                     const uint8_t* __restrict__ inten, TransformCfg cfg,
+                     int16_t* __restrict__ out) {
+  __shared__ float buf[2][2][128];  // [ping-pong][unit channel][band]
+  __shared__ float prev[2][128];    // previous subframe's IMDCT output
+  const int bf = blockIdx.x;        // b * F + f
+  const int f = bf % cfg.F;
+  const int k = threadIdx.x;
+  const int C = cfg.C;
+  for (int c0 = 0; c0 < C; ++c0) {
+    if (cfg.is_secondary[c0]) continue;
+    const int c1 = cfg.partner[c0];
+    const int nch = c1 >= 0 ? 2 : 1;
+    prev[0][k] = 0.0f;
+    prev[1][k] = 0.0f;
+    for (int t = (f > 0 ? -1 : 0); t < 8; ++t) {
+      const size_t fi = (size_t)(t < 0 ? bf - 1 : bf);
+      const int s = t < 0 ? 7 : t;
+      const size_t fc0 = fi * C + c0;
+      // dequantise + HFR (non-secondary channels)
+      float v0 = dequant(qc, sf, res, fc0, s, k);
+      if (cfg.apply_hfr) {
+        if (cfg.hfr_is[k]) {
+          const int src = cfg.hfr_src[k];
+          const int g = sf[fc0 * 128 + 128 - cfg.hfr_groups + cfg.hfr_group[k]];
+          const int sci = max(g - (int)sf[fc0 * 128 + src] + 63, 0);
+          v0 = __fmul_rn(kScaleConversionTable[sci],
+                         dequant(qc, sf, res, fc0, s, src));
+        }
+        if (k == cfg.zero_band) v0 = 0.0f;
+      }
+      if (c1 >= 0) {
+        const size_t fc1 = fi * C + c1;
+        float v1 = dequant(qc, sf, res, fc1, s, k);
+        if (k >= cfg.base_band && k < cfg.total_band) {
+          const float rl = kIntensityRatioTable[inten[fc1 * 8 + s]];
+          const float rr = __fsub_rn(2.0f, rl);
+          v1 = __fmul_rn(v0, rr);
+          v0 = __fmul_rn(v0, rl);
+        }
+        buf[0][1][k] = v1;
+      }
+      buf[0][0][k] = v0;
+      __syncthreads();
+
+      // IMDCT part 1: add/sub tree (hca.cpp:1906-1935)
+      int in = 0;
+      for (int i = 0; i < 7; ++i) {
+        const int c2 = 64 >> i;
+        const int base = (k >> (7 - i)) << (7 - i);
+        const int r = k & ((128 >> i) - 1);
+        const int j = r < c2 ? r : r - c2;
+        for (int ch = 0; ch < nch; ++ch) {
+          const float a = buf[in][ch][base + 2 * j];
+          const float b = buf[in][ch][base + 2 * j + 1];
+          buf[in ^ 1][ch][k] = r < c2 ? __fadd_rn(a, b) : __fsub_rn(a, b);
+        }
+        in ^= 1;
+        __syncthreads();
+      }
+      // IMDCT part 2: twiddle stages (hca.cpp:1937-1972)
+      for (int i = 0; i < 7; ++i) {
+        const int c2 = 1 << i;
+        const int blk = k >> (i + 1);
+        const int base = blk << (i + 1);
+        const int r = k & ((2 << i) - 1);
+        const int j = r < c2 ? r : c2 - 1 - (r - c2);
+        const float sn = kImdctSin[i * 64 + blk * c2 + j];
+        const float cs = kImdctCos[i * 64 + blk * c2 + j];
+        for (int ch = 0; ch < nch; ++ch) {
+          const float s1 = buf[in][ch][base + j];
+          const float s2 = buf[in][ch][base + c2 + j];
+          buf[in ^ 1][ch][k] =
+              r < c2 ? __fsub_rn(__fmul_rn(s1, sn), __fmul_rn(s2, cs))
+                     : __fadd_rn(__fmul_rn(s1, cs), __fmul_rn(s2, sn));
+        }
+        in ^= 1;
+        __syncthreads();
+      }
+      // 14 stages: the spectrum is back in buf[0]
+
+      if (t >= 0) {
+        // windowed overlap-add (hca_kernels._window_overlap_add), PCM16
+        for (int ch = 0; ch < nch; ++ch) {
+          float wave;
+          if (k < 64) {
+            const float pv = __fmul_rn(kImdctWindow[127 - k], prev[ch][63 - k]);
+            wave = __fadd_rn(__fmul_rn(kImdctWindow[k], buf[0][ch][64 + k]), pv);
+          } else {
+            const int j = k - 64;
+            const float pv = __fmul_rn(kImdctWindow[63 - j], prev[ch][j]);
+            wave = __fsub_rn(__fmul_rn(kImdctWindow[64 + j], buf[0][ch][127 - j]), pv);
+          }
+          int v = __float2int_rz(__fmul_rn(wave, 32768.0f));
+          v = min(max(v, -32768), 32767);
+          const int c = ch == 0 ? c0 : c1;
+          out[(((size_t)bf * 8 + t) * 128 + k) * C + c] = (int16_t)v;
+        }
+      }
+      __syncthreads();
+      for (int ch = 0; ch < nch; ++ch) prev[ch][k] = buf[0][ch][k];
+    }
+    __syncthreads();
+  }
+}
+
+}  // namespace
+
+extern "C" int hca_transform(const void* qc, const void* sf, const void* res,
+                             const void* inten, int B, int F, int C,
+                             int base_band, int total_band, int apply_hfr,
+                             int hfr_groups, int zero_band,
+                             const int32_t* partner, const int32_t* hfr_is,
+                             const int32_t* hfr_src, const int32_t* hfr_group,
+                             void* out, void* stream) {
+  if (C < 1 || C > HCA_MAX_CH || B < 1 || F < 1)
+    return (int)cudaErrorInvalidValue;
+  TransformCfg cfg;
+  cfg.B = B;
+  cfg.F = F;
+  cfg.C = C;
+  cfg.base_band = base_band;
+  cfg.total_band = total_band;
+  cfg.apply_hfr = apply_hfr;
+  cfg.hfr_groups = hfr_groups;
+  cfg.zero_band = zero_band;
+  for (int c = 0; c < HCA_MAX_CH; ++c) {
+    cfg.partner[c] = -1;
+    cfg.is_secondary[c] = 0;
+  }
+  for (int c = 0; c < C; ++c) {
+    cfg.partner[c] = partner[c];
+    if (partner[c] >= 0) cfg.is_secondary[partner[c]] = 1;
+  }
+  for (int k = 0; k < 128; ++k) {
+    cfg.hfr_is[k] = (uint8_t)hfr_is[k];
+    cfg.hfr_src[k] = (uint8_t)hfr_src[k];
+    cfg.hfr_group[k] = (uint8_t)hfr_group[k];
+  }
+  const long long blocks = (long long)B * F;
+  hca_transform_kernel<<<(unsigned)blocks, 128, 0, (cudaStream_t)stream>>>(
+      (const int16_t*)qc, (const uint8_t*)sf, (const uint8_t*)res,
+      (const uint8_t*)inten, cfg, (int16_t*)out);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,368 @@
+"""HCA frame unpacker on the device: deciphered frame bytes -> quantised
+spectra, scalefactors, resolutions and intensities.
+
+Counterpart of pycricodecs_tpu/ops/hca_unpack_device.py. Frames are serial
+inside (each prefix code moves the bit cursor of the next) and independent
+of each other, so both phases run one frame per GPU thread:
+
+- `side_info` (kernel B1, csrc/hca_unpack.cu): per channel the scalefactor
+  delta codes with escapes, the v3 HFR extension copy, the v2 HFR scales or
+  the intensity values (v2 4-bit, v3 delta-coded with escapes), then the
+  resolutions from scalefactors, ATH curve and noise level. Also the bit
+  cursor where the spectra start and a per-frame error flag.
+- `coefficients` (kernel B2): 8 subframes x channels x coded_count prefix
+  symbols from that cursor.
+
+Each has a plain PyTorch twin beside it (`side_info_plain`,
+`coefficients_plain`): vectorised across frames, sequential over symbols,
+int64 arithmetic. A CUDA tensor goes to the kernel (or raises); a CPU tensor
+goes to the twin. Error conditions the host reference raises on (scalefactor
+delta out of range, v3 intensity out of range) come back as the `err` flag,
+as in the JAX unpacker. Reference anchors: hca.cpp:1290-1355
+(scalefactors), 1357-1434 (intensity), 1444-1494 (resolutions), 1513-1537
+(prefix codes).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import _build
+from . import cuda_kernels as ck
+from . import hca_tables as T
+
+VERSION_V200 = 0x0200
+
+# READ_BIT_TABLE / READ_VAL_TABLE rows (r = 0..7) packed 4 bits per code:
+# lo word = codes 0..7, hi word = codes 8..15; VAL nibbles store value + 8.
+# The same constants as the JAX unpacker (tests hold them equal to the
+# reference tables).
+_BIT_LO = [0x0, 0x2211, 0x33222222, 0x33333322,
+           0x33333333, 0x33333333, 0x44333333, 0x44444433]
+_BIT_HI = [0x0, 0x0, 0x0, 0x0,
+           0x44333333, 0x44444433, 0x44444444, 0x44444444]
+_VAL_LO = [0x88888888, 0x88887988, 0x6A779988, 0x5B6A7988,
+           0xAA779988, 0xAA779988, 0x6A779988, 0x5B6A7988]
+_VAL_HI = [0x88888888, 0x88888888, 0x88888888, 0x88888888,
+           0x4C55BB66, 0x3D4C5B66, 0x2E3D4C5B, 0x1F2E3D4C]
+
+#: kernel launches since import (or the last reset); see chip_smoke.py
+SIDE_INFO_LAUNCHES = 0
+COEFF_LAUNCHES = 0
+
+
+def vlc_tables():
+    """(value i8 [8, 16], advance u8 [8, 16]) prefix-code tables for
+    resolutions 0..7, unpacked from the nibble constants above."""
+    val = np.zeros((8, 16), np.int8)
+    adv = np.zeros((8, 16), np.uint8)
+    for r in range(8):
+        for code in range(16):
+            sh = (code & 7) * 4
+            vw, bw = ((_VAL_HI[r], _BIT_HI[r]) if code >= 8
+                      else (_VAL_LO[r], _BIT_LO[r]))
+            val[r, code] = ((vw >> sh) & 0xF) - 8
+            adv[r, code] = (bw >> sh) & 0xF
+    return val, adv
+
+
+def max_bit(r: torch.Tensor) -> torch.Tensor:
+    """MAX_BIT_TABLE closed form: 0, 2,3,3,4,4,4,4, then r-3."""
+    small = 2 + (r >= 2).long() + (r >= 4).long()
+    return torch.where(r == 0, 0, torch.where(r < 8, small, r - 3))
+
+
+class _Bits:
+    """Vectorised BitReader.peek over a batch of frames (one cursor per
+    frame): any read crossing the frame end, or of 0 bits, returns 0."""
+
+    def __init__(self, dec: torch.Tensor):
+        self.fs = dec.shape[1]
+        self.nbits = self.fs * 8
+        # 4 zero bytes past the end keep every 4-byte window in range
+        self.d = torch.nn.functional.pad(dec.to(torch.int64), (0, 4))
+        self.off = torch.arange(4, device=dec.device)
+
+    def peek(self, cur: torch.Tensor, count) -> torch.Tensor:
+        count = torch.as_tensor(count, dtype=torch.int64,
+                                device=cur.device).expand_as(cur)
+        bb = torch.clamp(cur >> 3, max=self.fs)
+        b = torch.gather(self.d, 1, bb[:, None] + self.off)
+        w = (b[:, 0] << 24) | (b[:, 1] << 16) | (b[:, 2] << 8) | b[:, 3]
+        val = (w >> (32 - (cur & 7) - count)) & ((1 << count) - 1)
+        ok = (count > 0) & (cur + count <= self.nbits)
+        return torch.where(ok, val, 0)
+
+
+class DeviceUnpacker:
+    """Unpacker for one stream config (`HcaInfo`), on `device`.
+
+    Call with uint8 [N, frame_size] stacked enciphered frames (sync and CRC
+    already checked); returns (qc i16 [N, C, 8, 128], sf u8 [N, C, 128],
+    res u8 [N, C, 128], inten u8 [N, C, 8], err bool [N]) on `device`."""
+
+    def __init__(self, info, device):
+        self.device = torch.device(device)
+        C = int(info.channels)
+        self.C = C
+        self.fs = int(info.frame_size)
+        self.version = int(info.version)
+        self.hfr = int(info.hfr_group_count)
+        self.min_res = int(info.min_resolution)
+        self.max_res = int(info.max_resolution)
+        self.coded = [int(x) for x in np.asarray(info.coded_count)]
+        self.ctype = [int(x) for x in np.asarray(info.channel_type)]
+        if any(c <= 0 for c in self.coded):
+            raise ValueError("zero coded_count needs the host unpacker")
+        if info.ms_stereo:
+            raise ValueError("ms_stereo unsupported")  # parse rejects too
+        self.ath = np.ascontiguousarray(info.ath, dtype=np.uint8)
+        self.cipher = np.ascontiguousarray(info.cipher, dtype=np.uint8)
+        # the substitution table on the device, or None for the identity
+        self._cipher_t = None
+        if not np.array_equal(self.cipher, np.arange(256, dtype=np.uint8)):
+            self._cipher_t = torch.from_numpy(self.cipher.copy()).to(
+                self.device)
+        # static per-channel scalefactor counts (incl. the v3 HFR extension)
+        self.cs_counts = []
+        self.extras = []
+        for c in range(C):
+            cs = self.coded[c]
+            extra = 0
+            if not (self.ctype[c] == T.STEREO_SECONDARY or self.hfr <= 0
+                    or self.version <= VERSION_V200):
+                extra = self.hfr
+                cs += extra
+            if cs > 128:
+                raise ValueError("Unpack error (scalefactor count)")
+            if cs >= 128 and extra:
+                # the host/reference path reads sf[cs] out of bounds here
+                raise ValueError("cs_count == 128 with HFR extension")
+            self.cs_counts.append(cs)
+            self.extras.append(extra)
+        self._chan = np.ascontiguousarray(
+            self.coded + self.cs_counts + self.extras + self.ctype,
+            dtype=np.int32)
+        self._coded = np.ascontiguousarray(self.coded, dtype=np.int32)
+
+    # -- decipher -----------------------------------------------------------
+
+    def decipher(self, frames: torch.Tensor) -> torch.Tensor:
+        """Frame bytes (on this unpacker's device) through the 256-entry
+        substitution table."""
+        if self._cipher_t is None:
+            return frames.contiguous()
+        return self._cipher_t[frames.long()]
+
+    # -- B1: side info ------------------------------------------------------
+
+    def side_info(self, dec: torch.Tensor):
+        """dec u8 [N, fs] deciphered frames -> (sf u8 [N, C, 128],
+        res u8 [N, C, 128], inten u8 [N, C, 8], cur i32 [N], err bool [N])."""
+        if dec.device.type == "cpu":
+            return self.side_info_plain(dec)
+        return self._side_info_cuda(dec)
+
+    def _side_info_cuda(self, dec):
+        global SIDE_INFO_LAUNCHES
+        N, C = dec.shape[0], self.C
+        ck.check_cuda(dec, "dec", torch.uint8, (N, self.fs))
+        dev = dec.device
+        sf = torch.empty((N, C, 128), dtype=torch.uint8, device=dev)
+        res = torch.empty((N, C, 128), dtype=torch.uint8, device=dev)
+        inten = torch.empty((N, C, 8), dtype=torch.uint8, device=dev)
+        cur = torch.empty((N,), dtype=torch.int32, device=dev)
+        err = torch.empty((N,), dtype=torch.bool, device=dev)
+        if N == 0:
+            return sf, res, inten, cur, err
+        rc = _build.load().hca_side_info(
+            ck.ptr(dec), N, self.fs, C, self.version, self.hfr,
+            self.min_res, self.max_res, ck.host_ptr(self._chan),
+            ck.host_ptr(self.ath), ck.ptr(sf), ck.ptr(res), ck.ptr(inten),
+            ck.ptr(cur), ck.ptr(err), ck.stream_ptr(dec))
+        if rc:
+            raise ck.launch_failed("hca_side_info", rc)
+        SIDE_INFO_LAUNCHES += 1
+        return sf, res, inten, cur, err
+
+    def side_info_plain(self, dec: torch.Tensor):
+        """Plain PyTorch twin of kernel B1 (mirrors the JAX unpacker's
+        _sf_symbol / _inten3_symbol / _resolutions arithmetic)."""
+        N, C, dev = dec.shape[0], self.C, dec.device
+        peek = _Bits(dec).peek
+        d2 = dec[:, 2].long()
+        d3 = dec[:, 3].long()
+        packed_noise = (((d2 << 1) | (d3 >> 7)) << 8) - (d3 & 0x7F)
+        cur = torch.full((N,), 32, dtype=torch.int64, device=dev)
+        err = torch.zeros((N,), dtype=torch.bool, device=dev)
+        sf_ch, inten_ch = [], []
+        for c in range(C):
+            cs = self.cs_counts[c]
+            sf = torch.zeros((N, 128), dtype=torch.int64, device=dev)
+            db = peek(cur, 3)
+            cur = cur + 3
+            v0 = peek(cur, 6)
+            has_first = db > 0
+            cur = cur + torch.where(has_first, 6, 0)
+            sf[:, 0] = torch.where(has_first, v0, 0)
+            is_abs = db >= 6
+            is_delta = (db >= 1) & (db <= 5)
+            expected = (1 << db) - 1
+            half = expected >> 1
+            dcount = torch.where(is_delta, db, 0)
+            value = sf[:, 0]
+            for i in range(1, cs):
+                delta = peek(cur, dcount)
+                vabs = peek(cur, 6)
+                esc = is_delta & (delta == expected)
+                vesc = peek(cur + dcount, 6)
+                test = value + delta - half
+                bad = is_delta & ~esc & ((test < 0) | (test >= 64))
+                vdelta = torch.where(esc, vesc, (value - half + delta) & 0x3F)
+                sf[:, i] = torch.where(is_abs, vabs,
+                                       torch.where(is_delta, vdelta, 0))
+                cur = cur + torch.where(
+                    is_abs, 6, torch.where(is_delta,
+                                           dcount + torch.where(esc, 6, 0),
+                                           0))
+                value = torch.where(is_delta, vdelta, value)
+                err = err | bad
+            for i in range(self.extras[c]):
+                # hca.cpp:1352-1355 - i=0 copies sf[cs] (a zero)
+                sf[:, 127 - i] = sf[:, cs - i]
+
+            inten = torch.zeros((N, 8), dtype=torch.int64, device=dev)
+            if self.ctype[c] == T.STEREO_SECONDARY:
+                v4 = peek(cur, 4)
+                flag = v4 < 15
+                if self.version <= VERSION_V200:
+                    # intensity[0] stored even when >= 15; the cursor
+                    # advances only when < 15
+                    step = torch.where(flag, 4, 0)
+                    cur = cur + step
+                    inten[:, 0] = v4
+                    for k in range(1, 8):
+                        inten[:, k] = torch.where(flag, peek(cur, 4), 0)
+                        cur = cur + step
+                else:
+                    cur = cur + 4
+                    db2 = peek(cur, 2)
+                    cur = cur + torch.where(flag, 2, 0)
+                    direct = flag & (db2 == 3)
+                    delta_m = flag & (db2 < 3)
+                    nb = torch.where(delta_m, db2 + 1, 0)
+                    bmax = (2 << db2) - 1
+                    value = v4
+                    inten[:, 0] = torch.where(flag, v4, 7)
+                    for k in range(1, 8):
+                        v4d = torch.where(direct, peek(cur, 4), 0)
+                        delta = torch.where(delta_m, peek(cur, nb), 0)
+                        esc = delta_m & (delta == bmax)
+                        vesc = peek(cur + nb, 4)
+                        vnew = torch.where(esc, vesc,
+                                           value - (bmax >> 1) + delta)
+                        err = err | (delta_m & ((vnew > 15) | (vnew < 0)))
+                        value = torch.where(delta_m, vnew, value)
+                        vi = torch.where(direct, v4d,
+                                         torch.where(delta_m, value, 7))
+                        inten[:, k] = vi & 0xFF
+                        cur = cur + torch.where(
+                            direct, 4, torch.where(
+                                delta_m, nb + torch.where(esc, 4, 0), 0))
+            elif self.version <= VERSION_V200 and self.hfr > 0:
+                for i in range(self.hfr):
+                    sf[:, 128 - self.hfr + i] = peek(cur, 6)
+                    cur = cur + 6
+            sf_ch.append(sf)
+            inten_ch.append(inten)
+        sf = torch.stack(sf_ch, dim=1)                      # [N, C, 128]
+        inten = torch.stack(inten_ch, dim=1)                # [N, C, 8]
+        res = self._resolutions_plain(sf, packed_noise)
+        return (sf.to(torch.uint8), res, inten.to(torch.uint8),
+                cur.to(torch.int32), err)
+
+    def _resolutions_plain(self, sf, packed_noise):
+        """calc_resolutions (hca.cpp:1444-1494) on [N, C, 128] int64."""
+        dev = sf.device
+        k = torch.arange(128, device=dev)
+        ath_t = torch.from_numpy(self.ath.astype(np.int64)).to(dev)
+        invert = torch.from_numpy(T.INVERT_TABLE.astype(np.int64)).to(dev)
+        coded = torch.tensor(self.coded, device=dev)[None, :, None]
+        noise_level = ath_t + ((packed_noise[:, None, None] + k) >> 8)
+        curve_pos = noise_level + 1 - ((5 * sf) >> 1)
+        inv = invert[torch.clamp(curve_pos, 0, 65)]
+        r = torch.where(curve_pos < 0, 15,
+                        torch.where(curve_pos <= 65, inv, 0))
+        r = torch.clamp(r, self.min_res, self.max_res)
+        r = torch.where(sf > 0, r, 0)
+        r = torch.where(k < coded, r, 0)
+        return r.to(torch.uint8)
+
+    # -- B2: coefficients ---------------------------------------------------
+
+    def coefficients(self, dec: torch.Tensor, res: torch.Tensor,
+                     cur: torch.Tensor) -> torch.Tensor:
+        """dec u8 [N, fs], res u8 [N, C, 128], cur i32 [N] (from
+        side_info) -> qc i16 [N, C, 8, 128], zero above coded_count."""
+        if dec.device.type == "cpu":
+            return self.coefficients_plain(dec, res, cur)
+        return self._coefficients_cuda(dec, res, cur)
+
+    def _coefficients_cuda(self, dec, res, cur):
+        global COEFF_LAUNCHES
+        N, C = dec.shape[0], self.C
+        ck.check_cuda(dec, "dec", torch.uint8, (N, self.fs))
+        ck.check_cuda(res, "res", torch.uint8, (N, C, 128))
+        ck.check_cuda(cur, "cur", torch.int32, (N,))
+        qc = torch.empty((N, C, 8, 128), dtype=torch.int16,
+                         device=dec.device)
+        if N == 0:
+            return qc
+        rc = _build.load().hca_coefficients(
+            ck.ptr(dec), ck.ptr(res), ck.ptr(cur), N, self.fs, C,
+            ck.host_ptr(self._coded), ck.ptr(qc), ck.stream_ptr(dec))
+        if rc:
+            raise ck.launch_failed("hca_coefficients", rc)
+        COEFF_LAUNCHES += 1
+        return qc
+
+    def coefficients_plain(self, dec, res, cur):
+        """Plain PyTorch twin of kernel B2 (the JAX unpacker's _vlc_symbol
+        in program order: subframe, channel, band)."""
+        N, C, dev = dec.shape[0], self.C, dec.device
+        peek = _Bits(dec).peek
+        val_np, adv_np = vlc_tables()
+        val = torch.from_numpy(val_np.astype(np.int64).reshape(-1)).to(dev)
+        adv_t = torch.from_numpy(adv_np.astype(np.int64).reshape(-1)).to(dev)
+        r_all = res.long()
+        bits_all = max_bit(r_all)
+        cur = cur.long()
+        qc = torch.zeros((N, C, 8, 128), dtype=torch.int16, device=dev)
+        for s in range(8):
+            for c in range(C):
+                for k in range(self.coded[c]):
+                    r = r_all[:, c, k]
+                    nbits = bits_all[:, c, k]
+                    code = peek(cur, nbits)
+                    big = r > 7
+                    v_big = (1 - ((code & 1) << 1)) * (code >> 1)
+                    adv_big = nbits - (v_big == 0).long()
+                    idx = torch.clamp(r, max=7) * 16 \
+                        + torch.where(big, 0, code)
+                    qc[:, c, s, k] = torch.where(big, v_big, val[idx]).to(
+                        torch.int16)
+                    cur = cur + torch.where(big, adv_big, adv_t[idx])
+        return qc
+
+    # -- full unpack --------------------------------------------------------
+
+    def __call__(self, frames):
+        """frames u8 [N, frame_size] (enciphered) -> (qc, sf, res, inten,
+        err) on this unpacker's device."""
+        if not torch.is_tensor(frames):
+            frames = torch.from_numpy(np.require(frames, np.uint8, ["C", "W"]))
+        frames = frames.to(self.device)
+        dec = self.decipher(frames)
+        sf, res, inten, cur, err = self.side_info(dec)
+        qc = self.coefficients(dec, res, cur)
+        return qc, sf, res, inten, err

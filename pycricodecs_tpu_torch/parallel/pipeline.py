@@ -1,0 +1,244 @@
+"""Batched HCA bank decode on one device.
+
+Counterpart of the device engine of pycricodecs_tpu/parallel/pipeline.py
+(`decode_batch`, `_decode_group`, `_decode_group_inner`):
+
+1. the host parses every header and groups streams by (config, sample rate,
+   cipher table);
+2. per chunk of up to 64 streams of a group, the host stacks the raw
+   enciphered frames, checks frame sync and CRC, and copies them to the
+   device;
+3. the device deciphers and unpacks the bitstream (kernels B1, B2) and runs
+   the transform to interleaved PCM16 (kernel B3);
+4. the PCM comes back to the host, which trims the encoder delay, zeroes the
+   tail of truncated streams and writes the WAVs.
+
+Only configs the device engine covers are decoded: a v3 stream with PNS
+noise (min_resolution 0) or a config the unpacker rejects raises
+NotImplementedError. On a CPU `device` the same path runs the kernels'
+plain PyTorch twins.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..models import hca as hca_model
+from ..ops import hca_frame, hca_kernels, hca_unpack_device
+from ..utils import hca_crypt
+from ..utils import wav as wavmod
+from ..utils.crc import crc16_batch
+
+SAMPLES_PER_FRAME = hca_model.SAMPLES_PER_FRAME
+CHUNK_STREAMS = 64
+
+
+@dataclass
+class DecodeStats:
+    """Per-call pipeline observability: stage timings + counts."""
+    streams: int = 0
+    groups: int = 0
+    frames: int = 0
+    failed_streams: int = 0
+    bytes_in: int = 0
+    samples_out: int = 0
+    unpack_seconds: float = 0.0   # host: stack frames, sync + CRC checks
+    device_seconds: float = 0.0   # H2D + kernel launches (asynchronous)
+    fetch_seconds: float = 0.0    # device->host PCM copy + trim
+    total_seconds: float = 0.0
+    device_unpack_streams: int = 0  # streams whose bitstream decode ran on-chip
+
+    def as_dict(self) -> dict:
+        return dict(self.__dict__)
+
+
+def _config_key(info: hca_frame.HcaInfo) -> tuple:
+    return (info.channels, info.version, info.frame_size,
+            info.min_resolution, info.max_resolution, info.total_band_count,
+            info.base_band_count, info.stereo_band_count,
+            info.bands_per_hfr_group, info.hfr_group_count,
+            info.channel_config, info.track_count, info.ath_type)
+
+
+def _describe(info: hca_frame.HcaInfo) -> str:
+    return (f"HCA v{info.version >> 8}.{info.version & 0xFF}, "
+            f"{info.channels} ch, frame_size {info.frame_size}, "
+            f"min_resolution {info.min_resolution}, bands "
+            f"{info.base_band_count}+{info.stereo_band_count}"
+            f"/{info.total_band_count}, hfr {info.hfr_group_count}x"
+            f"{info.bands_per_hfr_group}")
+
+
+def _unpacker(info: hca_frame.HcaInfo, device) -> \
+        hca_unpack_device.DeviceUnpacker:
+    """The group's unpacker, or NotImplementedError for configs outside
+    this engine (PNS noise; configs the unpacker rejects)."""
+    if info.min_resolution == 0:
+        raise NotImplementedError(
+            f"v3 PNS noise fill is not ported yet: {_describe(info)}")
+    try:
+        return hca_unpack_device.DeviceUnpacker(info, device)
+    except ValueError as exc:
+        raise NotImplementedError(
+            f"config not covered by the device unpacker ({exc}): "
+            f"{_describe(info)}") from exc
+
+
+def decode_batch(blobs: Sequence[bytes], key: int = 0, subkey: int = 0,
+                 subkeys: Optional[Sequence[int]] = None, *,
+                 device="cuda", return_arrays: bool = False,
+                 on_error: str = "raise",
+                 stats: Optional[DecodeStats] = None) -> List:
+    """Decode many HCA streams on `device` in batches.
+
+    on_error: "raise" aborts the batch on any corrupt stream; "isolate"
+    keeps going, and a failed stream comes back as its exception object.
+
+    Returns WAV bytes per stream, or (pcm16 [samples, C], HcaInfo) pairs
+    when return_arrays. Byte-equal to pycricodecs_tpu.parallel.decode_batch.
+    """
+    if on_error not in ("raise", "isolate"):
+        raise ValueError("on_error must be 'raise' or 'isolate'")
+    device = torch.device(device)
+    t_start = time.perf_counter()
+    infos: List = []
+    failures: dict = {}
+    for i, blob in enumerate(blobs):
+        blob = bytes(blob)
+        try:
+            hs = int.from_bytes(blob[6:8], "big")
+            info = hca_frame.parse_header(blob[:hs])
+        except ValueError as exc:  # HcaError: isolated per stream
+            if on_error == "raise":
+                raise
+            failures[i] = exc
+            infos.append(None)
+            continue
+        sk = subkeys[i] if subkeys is not None else subkey
+        info.set_key(hca_crypt.scramble_subkey(key, sk))
+        infos.append((info, blob, hs))
+
+    groups: dict = {}
+    for idx, entry in enumerate(infos):
+        if entry is None:
+            continue
+        info = entry[0]
+        groups.setdefault(
+            _config_key(info) + (int(info.sample_rate),
+                                 bytes(np.asarray(info.cipher, np.uint8))),
+            []).append(idx)
+    # every group's config must be covered before any decode starts
+    unpackers = {gk: _unpacker(infos[g[0]][0], device)
+                 for gk, g in groups.items()}
+
+    results: List = [None] * len(blobs)
+    for gk, group in groups.items():
+        up = unpackers[gk]
+        if on_error == "raise":
+            _decode_group(up, group, infos, results, stats)
+            continue
+        try:
+            _decode_group(up, group, infos, results, stats)
+        except hca_frame.HcaError:
+            # a stream in this group is corrupt: decode one by one so one
+            # bad member doesn't take down its group
+            for idx in group:
+                try:
+                    _decode_group(up, [idx], infos, results, stats)
+                except hca_frame.HcaError as exc:
+                    failures[idx] = exc
+
+    out = []
+    for i, entry in enumerate(infos):
+        if entry is None or i in failures:
+            out.append(failures[i])
+            continue
+        info, item = entry[0], results[i]
+        if return_arrays:
+            out.append((item, info))
+        else:
+            looping, loop_start, loop_end = hca_model.loop_points(info)
+            out.append(wavmod.write_wav(
+                item.reshape(-1), info.channels, info.sample_rate,
+                looping=looping, loop_start=loop_start, loop_end=loop_end))
+    if stats is not None:
+        stats.streams += len(blobs)
+        stats.groups += len(groups)
+        stats.failed_streams += len(failures)
+        stats.bytes_in += sum(len(b) for b in blobs)
+        stats.frames += sum(e[0].frame_count for e in infos if e is not None)
+        stats.samples_out += sum(
+            int(np.size(r)) for r in results if r is not None)
+        stats.total_seconds += time.perf_counter() - t_start
+    return out
+
+
+def _decode_group(up: hca_unpack_device.DeviceUnpacker, group, infos,
+                  results, stats: Optional[DecodeStats] = None) -> None:
+    """Decode one (config, sample rate, cipher) group, CHUNK_STREAMS streams
+    per device batch, into results[idx] (pcm16 [samples, C])."""
+    info0 = infos[group[0]][0]
+    C, fs = info0.channels, info0.frame_size
+    fmax = max(infos[i][0].frame_count for i in group)
+    hfr, cfg = hca_kernels.transform_config(info0)
+    t_unpack = t_device = t_fetch = 0.0
+    for start in range(0, len(group), CHUNK_STREAMS):
+        members = group[start:start + CHUNK_STREAMS]
+        Bc = len(members)
+        t0 = time.perf_counter()
+        frames_np = np.zeros((Bc, fmax, fs), dtype=np.uint8)
+        real_frames = []
+        for b, idx in enumerate(members):
+            info, blob, hs = infos[idx]
+            data = blob[hs:hs + info.frame_count * fs]
+            n = len(data) // fs
+            real_frames.append(n)
+            arr = np.frombuffer(data, np.uint8, count=n * fs).reshape(n, fs)
+            if not (arr[:, :2] == 0xFF).all():
+                raise hca_frame.HcaError("Frame sync lost")
+            frames_np[b, :n] = arr
+        # one batched CRC sweep; zero padding rows have CRC 0
+        if crc16_batch(frames_np.reshape(-1, fs)).any():
+            raise hca_frame.HcaError("Frame checksum mismatch")
+        t1 = time.perf_counter()
+        frames = torch.from_numpy(frames_np).to(up.device)
+        qc, sf, res, inten, err = up(frames.view(Bc * fmax, fs))
+        pcm = hca_kernels.hca_decode_transform_batched(
+            qc.view(Bc, fmax, C, 8, 128), sf.view(Bc, fmax, C, 128),
+            res.view(Bc, fmax, C, 128), inten.view(Bc, fmax, C, 8), hfr,
+            **cfg)
+        t2 = time.perf_counter()
+        if bool(err.any()):
+            raise hca_frame.HcaError("Unpack error (device)")
+        out = pcm.cpu().numpy()
+        for b, idx in enumerate(members):
+            info = infos[idx][0]
+            samples = (info.frame_count * SAMPLES_PER_FRAME
+                       - info.encoder_delay - info.encoder_padding)
+            pcm_b = out[b].reshape(-1, C)
+            pcm_b = pcm_b[info.encoder_delay:info.encoder_delay + samples]
+            # owned copy: a view would pin the whole fetched chunk buffer
+            pcm_b = pcm_b.copy()
+            # truncated stream: the reference zeroes everything past the
+            # last real frame (hca.cpp:3428-3430); the zero frames past it
+            # decode to silence except the first, where the last real
+            # frame's overlap-add carry bleeds through
+            usable = (real_frames[b] * SAMPLES_PER_FRAME
+                      - info.encoder_delay)
+            if usable < pcm_b.shape[0]:
+                pcm_b[max(usable, 0):] = 0
+            results[idx] = pcm_b
+        t3 = time.perf_counter()
+        t_unpack += t1 - t0
+        t_device += t2 - t1
+        t_fetch += t3 - t2
+        if stats is not None:
+            stats.device_unpack_streams += Bc
+    if stats is not None:
+        stats.unpack_seconds += t_unpack
+        stats.device_seconds += t_device
+        stats.fetch_seconds += t_fetch

@@ -1,0 +1,195 @@
+"""PyTorch port: the host pieces it carries as copies (the GPU machine has no
+JAX, and importing any pycricodecs_tpu module imports jax) must equal their
+pycricodecs_tpu originals exactly: tables, header parse, cipher, CRC, WAV
+writer, loop points. Also: the port never imports jax or pycricodecs_tpu.
+"""
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from pycricodecs_tpu.models import hca as jax_model
+from pycricodecs_tpu.ops import hca_tables as jax_tables
+from pycricodecs_tpu.ops import hca_unpack_device as jax_unpack
+from pycricodecs_tpu.utils import crc as jax_crc
+from pycricodecs_tpu.utils import hca_crypt as jax_crypt
+from pycricodecs_tpu.utils import wav as jax_wav
+from pycricodecs_tpu_torch.models import hca as port_model
+from pycricodecs_tpu_torch.ops import hca_frame as port_frame
+from pycricodecs_tpu_torch.ops import hca_tables as port_tables
+from pycricodecs_tpu_torch.ops import hca_unpack_device as port_unpack
+from pycricodecs_tpu_torch.utils import crc as port_crc
+from pycricodecs_tpu_torch.utils import hca_crypt as port_crypt
+from pycricodecs_tpu_torch.utils import wav as port_wav
+from tests import torch_port_helpers as H
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+TABLES = ["SCALING_TABLE", "RANGE_TABLE", "SCALE_CONVERSION_TABLE",
+          "INTENSITY_RATIO_TABLE", "IMDCT_SIN", "IMDCT_COS", "IMDCT_WINDOW",
+          "INVERT_TABLE", "ATH_BASE_CURVE"]
+
+
+@pytest.mark.parametrize("name", TABLES)
+def test_table_equal(name):
+    got, ref = getattr(port_tables, name), getattr(jax_tables, name)
+    assert got.dtype == ref.dtype
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_scalar_constants_equal():
+    for name in ("MDCT_BITS", "DISCRETE", "STEREO_PRIMARY",
+                 "STEREO_SECONDARY"):
+        assert getattr(port_tables, name) == getattr(jax_tables, name), name
+
+
+@pytest.mark.parametrize("ath_type,rate", [(0, 48000), (1, 8000),
+                                            (1, 44100), (1, 48000),
+                                            (1, 96000)])
+def test_ath_curve_equal(ath_type, rate):
+    got = port_tables.ath_curve(ath_type, rate)
+    ref = jax_tables.ath_curve(ath_type, rate)
+    assert got.dtype == ref.dtype
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_channel_types_equal():
+    for ch in range(1, 9):
+        for tracks in range(1, ch + 1):
+            for sbc in (0, 32):
+                for cfg in range(4):
+                    np.testing.assert_array_equal(
+                        port_tables.channel_types(ch, tracks, sbc, cfg),
+                        jax_tables.channel_types(ch, tracks, sbc, cfg))
+
+
+def test_vlc_tables_equal_reference_tables():
+    """The unpack kernel's prefix-code tables equal the JAX unpacker's packed
+    constants and, on every reachable code, the reference READ tables."""
+    for name in ("_BIT_LO", "_BIT_HI", "_VAL_LO", "_VAL_HI"):
+        assert getattr(port_unpack, name) == getattr(jax_unpack, name)
+    val, adv = port_unpack.vlc_tables()
+    for r in range(8):
+        for code in range(1 << int(jax_tables.MAX_BIT_TABLE[r])):
+            assert val[r, code] == jax_tables.READ_VAL_TABLE[r * 16 + code]
+            assert adv[r, code] == jax_tables.READ_BIT_TABLE[r * 16 + code]
+
+
+def _v1_stream():
+    from tests.test_hca import _make_v1_dec_header
+    return _make_v1_dec_header(H.encode(1, 0, seed=91))
+
+
+def _v3_stream():
+    from tests.test_hca import _relabel_v3
+    return _relabel_v3(H.encode(1, 0, seed=77, samples=24576))
+
+
+STREAMS = {
+    "q2_stereo": lambda: H.encode(2, 2, seed=1),
+    "q4_stereo_hfr": lambda: H.encode(2, 4, seed=2),
+    "q0_6ch": lambda: H.encode(6, 0, seed=3),
+    "keyed": lambda: H.encode(2, 2, seed=4, key=H.KEY),
+    "looped": lambda: H.encode(2, 2, seed=5, samples=30000,
+                               loop=(4000, 20000)),
+    "v1_dec_header": _v1_stream,
+    "v3_min_res_0": _v3_stream,
+}
+
+
+@pytest.mark.parametrize("name", sorted(STREAMS))
+def test_parse_header_equal(name):
+    blob = STREAMS[name]()
+    key = H.KEY if name == "keyed" else 0
+    ji, pi = H.parse_both(blob, key)
+    H.assert_info_equal(pi, ji)
+    if name == "keyed":
+        assert ji.ciph_type == 56
+    if name == "looped":
+        assert ji.loop_flag
+
+
+@pytest.mark.parametrize("name", sorted(H.load_fixtures()[0]))
+def test_parse_fixture_header_and_from_arrays(name):
+    """The port's parse equals the JAX package's on every fixture, and
+    HcaInfo.from_arrays carries a JAX HcaInfo across unchanged."""
+    blob = H.load_fixtures()[1][name]
+    ji, pi = H.parse_both(blob)
+    H.assert_info_equal(pi, ji)
+    carried = port_frame.HcaInfo.from_arrays(dataclasses.asdict(ji))
+    H.assert_info_equal(carried, pi)
+    ji.set_key(H.KEY)
+    pi.set_key(H.KEY)
+    H.assert_info_equal(
+        port_frame.HcaInfo.from_arrays(dataclasses.asdict(ji)), pi)
+
+
+def test_parse_header_errors_match():
+    blob = H.encode(2, 2, seed=6)
+    hs = H.header_size(blob)
+    bad_crc = bytearray(blob[:hs])
+    bad_crc[hs - 1] ^= 1
+    for data in (blob[:4], b"XXXX" + blob[4:hs], bytes(bad_crc)):
+        with pytest.raises(ValueError) as ref:
+            from pycricodecs_tpu.ops import hca_frame as jax_frame
+            jax_frame.parse_header(data)
+        with pytest.raises(port_frame.HcaError) as got:
+            port_frame.parse_header(data)
+        assert str(got.value) == str(ref.value)
+
+
+@pytest.mark.parametrize("ciph_type", [0, 1, 56])
+@pytest.mark.parametrize("key", [0, 1, 0xCF222F1FE0748978,
+                                 0x0123456789ABCDEF])
+def test_cipher_table_equal(ciph_type, key):
+    np.testing.assert_array_equal(port_crypt.cipher_table(ciph_type, key),
+                                  jax_crypt.cipher_table(ciph_type, key))
+
+
+def test_scramble_subkey_equal():
+    for key in (0, 1, H.KEY):
+        for sub in (0, 1, 0x1234, 0xFFFF, 0x10001):
+            assert port_crypt.scramble_subkey(key, sub) == \
+                jax_crypt.scramble_subkey(key, sub)
+
+
+def test_crc16_batch_equal():
+    rng = np.random.default_rng(0)
+    frames = rng.integers(0, 256, (64, 203), dtype=np.uint8)
+    np.testing.assert_array_equal(port_crc.crc16_batch(frames),
+                                  jax_crc.crc16_batch(frames))
+    blob = H.encode(2, 2, seed=7)
+    ji, _ = H.parse_both(blob)
+    real = H.frames_of(blob, ji)
+    assert not port_crc.crc16_batch(real).any()
+    assert port_crc.crc16(blob[:H.header_size(blob)]) == 0
+
+
+@pytest.mark.parametrize("looping", [False, True])
+def test_write_wav_equal(looping):
+    pcm = np.random.default_rng(1).integers(-32768, 32768, 3000,
+                                            dtype=np.int16)
+    args = (pcm, 2, 44100)
+    kw = dict(looping=looping, loop_start=100, loop_end=1200)
+    assert port_wav.write_wav(*args, **kw) == jax_wav.write_wav(*args, **kw)
+
+
+def test_loop_points_equal():
+    blob = STREAMS["looped"]()
+    ji, pi = H.parse_both(blob)
+    assert port_model.loop_points(pi) == jax_model.loop_points(ji)
+    assert port_model.SAMPLES_PER_FRAME == jax_model.SAMPLES_PER_FRAME
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    code = ("import sys, pycricodecs_tpu_torch, pycricodecs_tpu_torch.parallel,"
+            " pycricodecs_tpu_torch.ops.cuda_kernels,"
+            " pycricodecs_tpu_torch._build; "
+            "assert 'jax' not in sys.modules, 'jax'; "
+            "assert 'pycricodecs_tpu' not in sys.modules, 'pycricodecs_tpu'")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
