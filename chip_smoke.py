@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """GPU smoke test of the PyTorch + CUDA port (pycricodecs_tpu_torch).
 
-Drives the port's main path, the batched HCA bank decode, on one CUDA GPU:
+Drives the port's main paths on one CUDA GPU: the batched HCA bank decode,
+then the batched ADX bank decode and encode.
+
+HCA:
 
 1. prints the card (nvidia-smi name and power limit);
 2. builds the three hand-written kernels from csrc/ with nvcc;
@@ -19,9 +22,27 @@ Drives the port's main path, the batched HCA bank decode, on one CUDA GPU:
 5. times the slice (median of 3 runs after a warm-up) and each kernel and
    twin at the chunk shape (CUDA events).
 
-Prints a JSON line of per-kernel results, the card line, and last a JSON
-line {"ok": true, "device": {...}}. Any failure raises and exits non-zero;
-there is no CPU path.
+ADX (tests/data/torch_port/adx/, hashes from the JAX package):
+6. B7 decode and B8 encode against their twins on the card, byte for byte:
+   random block bytes for every geometry of the fixtures in modes 2/3/4
+   (random scale words reach mode 2 predictors 4-7 and mode 4's 1 << 31
+   scale); random PCM with zero blocks for modes 2/3/4, bit depths
+   2/4/5/8/11/12, scale_fix off and on;
+7. `adx_decode_batch` of 256 copies of the 10 s stereo bank stream (4-bit,
+   block 0x12, mode 3, version 4) and of the 1 s fixtures, and
+   `adx_encode_batch` of 256 copies of the bank's 10 s WAV (rebuilt by
+   pycricodecs_tpu_torch/utils/signals.py, the fixtures' recipe, and held
+   to its recorded hash) and of each 1 s case: every output's sha256 equal to the JAX
+   package's; each path launched its kernel;
+8. at the bank shape (512 lanes x 15,000 blocks), B7 and B8 against their
+   twins once more (timed once, CUDA events), the kernels timed by CUDA
+   events, and each bank call timed (median of 3).
+
+Prints a JSON line of per-kernel results (launches on the main paths, max
+|kernel - twin|, kernel/twin ms, the bound from the bytes and operations of
+the timed call), the card line, and last a JSON line
+{"ok": true, "device": {...}}. Any failure raises and exits non-zero; there
+is no CPU path.
 
 Run from the repository root: python3 chip_smoke.py
 """
@@ -38,9 +59,12 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURES = os.path.join(ROOT, "tests", "data", "torch_port")
+ADX_FIXTURES = os.path.join(FIXTURES, "adx")
 BANK = "bank_q2_stereo_48k_10s"
 BANK_STREAMS = 256
 RANDOM_FRAMES = 4096
+ADX_RANDOM_LANES = 64
+ADX_RANDOM_BLOCKS = 24
 
 KERNELS = {
     "hca_side_info": dict(
@@ -52,7 +76,31 @@ KERNELS = {
     "hca_transform": dict(
         source="pycricodecs_tpu_torch/csrc/hca_transform.cu",
         replaces="pycricodecs_tpu/ops/pallas_kernels.py:448"),
+    "adx_decode": dict(
+        source="pycricodecs_tpu_torch/csrc/adx_codec.cu",
+        replaces="pycricodecs_tpu/ops/adx_kernels.py:194"),
+    "adx_encode": dict(
+        source="pycricodecs_tpu_torch/csrc/adx_codec.cu",
+        replaces="pycricodecs_tpu/ops/adx_kernels.py:1124"),
 }
+
+# Published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, and the
+# scalar (non-tensor-core) 32-bit rate, which also bounds the integer work
+# from below (Hopper issues INT32 at most at the FP32 rate).
+HBM_BYTES_PER_S = 3.35e12
+SCALAR_OPS_PER_S = 67e12
+# Operations counted per unit of work, as lower bounds (each counts only the
+# arithmetic the function cannot skip):
+# - B1: one per side-info value written; B2: three per spectral code (peek,
+#   table lookup, cursor advance);
+# - B3: dequantise 2, IMDCT 14 stages (7 of add/sub, 7 of 2 mul + 1 add per
+#   value) 35, window + overlap-add 3, PCM conversion 2, per output value;
+# - B7: code extraction 4 (shift, mask, sign test, subtract) + recurrence 9
+#   (3 mul, 2 shift, 2 add, 2 clamp) per sample;
+# - B8: pass 1 residual 6 + pass 2 14 (3 mul, 2 shift, 3 add, rounding add,
+#   divide, 2 clamps, sim product and shift counted once) per sample.
+OPS = {"hca_side_info": 1, "hca_coefficients": 3, "hca_transform": 42,
+       "adx_decode": 13, "adx_encode": 20}
 
 
 def log(*args) -> None:
@@ -105,6 +153,318 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(name: str, moved_bytes: int, units: int) -> dict:
+    """The least time of a kernel's work: moved bytes over HBM bandwidth or
+    its counted operations over the scalar peak, whichever is larger."""
+    by_bytes = moved_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = OPS[name] * units / SCALAR_OPS_PER_S * 1e3
+    return dict(bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations")
+
+
+def cuda_ms_once(fn):
+    """(result, milliseconds) of one fn() on the card (CUDA events)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def sha(data: bytes) -> str:
+    return hashlib.sha256(data).hexdigest()
+
+
+def random_lanes(rng, L, dev):
+    """History in int16 range and highpass-derived coefficients, i32 [L]."""
+    from pycricodecs_tpu_torch.models import adx as adx_model
+    coef = np.array([adx_model.calculate_coefficients(int(hp), int(sr))
+                     for hp, sr in zip(rng.integers(0, 0x10000, L),
+                                       rng.integers(8000, 96001, L))],
+                    dtype=np.int32).reshape(L, 2)
+    hist = rng.integers(-32768, 32768, (2, L)).astype(np.int32)
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in (hist[0], hist[1], coef[:, 0], coef[:, 1])]
+
+
+def adx_random_decode_checks(dev, geometries) -> int:
+    """B7 against its twin on random block bytes, every geometry x mode."""
+    from pycricodecs_tpu_torch.ops import adx_kernels as A
+    from pycricodecs_tpu_torch.ops import cuda_kernels
+    rng = np.random.default_rng(7)
+    worst = 0
+    for bd, bs in geometries:
+        for mode in (2, 3, 4):
+            L, nb = ADX_RANDOM_LANES, ADX_RANDOM_BLOCKS
+            raw = rng.integers(0, 256, (L, nb, bs), dtype=np.uint8)
+            raw[0, 0, :2] = (0x00, 0x0D)    # mode 4: 1 << 31 (wraps)
+            raw[1, 0, :2] = (0xE0, 0x10)    # mode 2: predictor 7
+            words = (raw[..., 0].astype(np.int32) << 8) | raw[..., 1]
+            if mode == 2 and not (words >> 13 >= 4).any():
+                raise AssertionError("no mode 2 predictor 4-7 drawn")
+            if mode == 4 and not ((words & 31) == 13).any():
+                raise AssertionError("no mode 4 1 << 31 scale drawn")
+            h1, h2, c0, c1 = random_lanes(rng, L, dev)
+            payload = torch.from_numpy(raw).to(dev)
+            kw = dict(bit_depth=bd, encoding_mode=mode)
+            got = cuda_kernels.adx_decode(payload, h1, h2, c0, c1, **kw)
+            want = A.adx_decode_plain(payload, h1, h2, c0, c1, **kw)
+            worst = max(worst, require_equal(
+                f"B7 random bd {bd} bs {bs} mode {mode}",
+                [("pcm", got, want)]))
+            log(f"B7 random bd {bd} block {bs} mode {mode}: {L} lanes x "
+                f"{nb} blocks byte-equal to the twin")
+    return worst
+
+
+# bit depth -> block size of the random encode checks (bd 12 at 0x12 leaves
+# the last block byte unfilled: 10 codes in 15 of 16 bytes)
+ENCODE_GEOMETRIES = {2: 0x12, 4: 0x12, 5: 12, 8: 0x12, 11: 13, 12: 0x12}
+
+
+def random_pcm(rng, L, nb, spb) -> np.ndarray:
+    """PCM16 lanes [L, nb, spb]: full-range noise, tones, and runs of zero
+    blocks (zero-residual blocks once the history has settled at 0)."""
+    t = np.arange(nb * spb)
+    pcm = np.empty((L, nb * spb), dtype=np.int64)
+    for lane in range(L):
+        kind = lane % 4
+        if kind == 0:
+            pcm[lane] = rng.integers(-32768, 32768, nb * spb)
+        else:
+            f = rng.uniform(50, 8000) / 48000
+            amp = (0.9, 0.3, 0.02)[kind - 1] * 32767
+            pcm[lane] = (amp * np.sin(2 * np.pi * f * t)
+                         + rng.normal(0, 30, nb * spb)).astype(np.int64)
+    pcm = np.clip(pcm, -32768, 32767).reshape(L, nb, spb)
+    pcm[:, :3] = 0                         # leading zero blocks (history 0)
+    pcm[1::3, nb // 2:nb // 2 + 6] = 0     # zero runs mid-stream
+    return pcm.astype(np.int16)
+
+
+def adx_random_encode_checks(dev) -> int:
+    """B8 against its twin + packer on random PCM, every mode x bit depth x
+    scale_fix."""
+    from pycricodecs_tpu_torch.models.adx import samples_per_block
+    from pycricodecs_tpu_torch.ops import adx_kernels as A
+    from pycricodecs_tpu_torch.ops import cuda_kernels
+    rng = np.random.default_rng(8)
+    worst = 0
+    for bd, bs in ENCODE_GEOMETRIES.items():
+        spb = samples_per_block(bs, bd)
+        for mode in (2, 3, 4):
+            for scale_fix in (False, True):
+                L, nb = ADX_RANDOM_LANES, ADX_RANDOM_BLOCKS
+                pcm = torch.from_numpy(random_pcm(rng, L, nb, spb)).to(dev)
+                _, _, c0, c1 = random_lanes(rng, L, dev)
+                h1 = torch.zeros(L, dtype=torch.int32, device=dev)
+                h2 = h1.clone()
+                kw = dict(block_size=bs, bit_depth=bd, encoding_mode=mode,
+                          filter_=3 if mode == 2 else 0, scale_fix=scale_fix)
+                got = cuda_kernels.adx_encode(pcm, c0, c1, h1, h2, **kw)
+                want = A.adx_encode_blocks_plain(pcm, c0, c1, h1, h2, **kw)
+                zero = (want == 0).all(-1)            # all-zero blocks
+                if not bool(zero.any()) or bool(zero.all()):
+                    raise AssertionError("random PCM without zero blocks")
+                worst = max(worst, require_equal(
+                    f"B8 random bd {bd} bs {bs} mode {mode} fix {scale_fix}",
+                    [("blocks", got, want)]))
+            log(f"B8 random bd {bd} block {bs} mode {mode}: {L} lanes x "
+                f"{nb} blocks, scale_fix off/on, {int(zero.sum())} all-zero "
+                f"blocks: byte-equal to the twin")
+    return worst
+
+
+def reset_launches() -> None:
+    from pycricodecs_tpu_torch.ops import cuda_kernels
+    from pycricodecs_tpu_torch.ops import hca_unpack_device as U
+    U.SIDE_INFO_LAUNCHES = 0
+    U.COEFF_LAUNCHES = 0
+    cuda_kernels.TRANSFORM_LAUNCHES = 0
+    cuda_kernels.ADX_DECODE_LAUNCHES = 0
+    cuda_kernels.ADX_ENCODE_LAUNCHES = 0
+
+
+def read_launches() -> dict:
+    from pycricodecs_tpu_torch.ops import cuda_kernels
+    from pycricodecs_tpu_torch.ops import hca_unpack_device as U
+    return {"hca_side_info": U.SIDE_INFO_LAUNCHES,
+            "hca_coefficients": U.COEFF_LAUNCHES,
+            "hca_transform": cuda_kernels.TRANSFORM_LAUNCHES,
+            "adx_decode": cuda_kernels.ADX_DECODE_LAUNCHES,
+            "adx_encode": cuda_kernels.ADX_ENCODE_LAUNCHES}
+
+
+def drive(path: str, own, fn):
+    """Run one main path with every launch count at 0 just before it; fail
+    unless each of its own kernels was launched; return (result, counts)."""
+    reset_launches()
+    out = fn()
+    counts = read_launches()
+    log(f"{path} launches: {counts}")
+    for k in own:
+        if counts[k] <= 0:
+            raise AssertionError(f"{k} was not launched by {path}")
+    return out, counts
+
+
+def median_wall(fn, runs: int = 3):
+    """(median seconds, all seconds) of fn() on the host clock, each run
+    ending in a synchronise."""
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times), times
+
+
+def adx_phases(dev, card: str, worst: dict, launches: dict) -> dict:
+    """Phases 6-8; returns name -> (ms, plain_ms, bound dict)."""
+    import pycricodecs_tpu_torch as port
+    from pycricodecs_tpu_torch.ops import adx_kernels as A
+    from pycricodecs_tpu_torch.ops import cuda_kernels
+    from pycricodecs_tpu_torch.parallel import pipeline as P
+    from pycricodecs_tpu_torch.models import adx as adx_model
+    from pycricodecs_tpu_torch.utils import signals
+    from pycricodecs_tpu_torch.utils.wav import write_wav
+
+    with open(os.path.join(ADX_FIXTURES, "expected.json")) as f:
+        expected = json.load(f)
+    blobs = {}
+    for name in expected:
+        with open(os.path.join(ADX_FIXTURES, name + ".adx"), "rb") as f:
+            blobs[name] = f.read()
+        if sha(blobs[name]) != expected[name]["adx_sha256"]:
+            raise AssertionError(f"{name}.adx differs from its hash")
+    bank_name = signals.ADX_BANK
+    bank_h = adx_model.parse_adx_header(blobs[bank_name])
+
+    # -- phase 6: B7 / B8 against their twins on random inputs --------------
+    geometries = sorted({(adx_model.parse_adx_header(b).bit_depth,
+                          adx_model.parse_adx_header(b).block_size)
+                         for b in blobs.values()})
+    worst["adx_decode"] = adx_random_decode_checks(dev, geometries)
+    worst["adx_encode"] = adx_random_encode_checks(dev)
+
+    # -- phase 7: the ADX bank decode and encode, held to the JAX hashes ----
+    bank = [blobs[bank_name]] * BANK_STREAMS
+    wavs, counts = drive("adx_decode_batch", ["adx_decode"],
+                         lambda: port.adx_decode_batch(bank, device=dev))
+    launches["adx_decode"] = counts["adx_decode"]
+    want = expected[bank_name]["wav_sha256"]
+    bad = [i for i, w in enumerate(wavs) if sha(w) != want]
+    if bad:
+        raise AssertionError(f"ADX bank WAVs differ from the JAX package's "
+                             f"decode: streams {bad[:8]}")
+    dec_bytes = sum(len(w) for w in wavs)
+    log(f"ADX bank: {BANK_STREAMS} x {expected[bank_name]['seconds']} s "
+        f"decoded on the card, all WAV sha256 equal to the JAX package's "
+        f"({dec_bytes} WAV bytes)")
+    del wavs
+    small = [n for n in expected if n != bank_name]
+    for name, w in zip(small, port.adx_decode_batch(
+            [blobs[n] for n in small], device=dev)):
+        if sha(w) != expected[name]["wav_sha256"]:
+            raise AssertionError(f"{name}: WAV differs from the JAX "
+                                 f"package's decode")
+        log(f"ADX fixture {name}: decoded WAV sha256 equal to the JAX "
+            f"package's")
+
+    wav_in = {}
+    for name in expected:
+        wav_in[name] = signals.adx_wav(name, write_wav)
+        if sha(wav_in[name]) != expected[name]["wav_in_sha256"]:
+            raise AssertionError(f"{name}: rebuilt input WAV differs from "
+                                 f"its recorded hash")
+    wav_bank = [wav_in[bank_name]] * BANK_STREAMS
+    adxs, counts = drive("adx_encode_batch", ["adx_encode"],
+                         lambda: port.adx_encode_batch(wav_bank, device=dev))
+    launches["adx_encode"] = counts["adx_encode"]
+    want = expected[bank_name]["adx_sha256"]
+    bad = [i for i, a in enumerate(adxs) if sha(a) != want]
+    if bad:
+        raise AssertionError(f"ADX bank encodes differ from the JAX "
+                             f"package's: streams {bad[:8]}")
+    log(f"ADX bank: {BANK_STREAMS} x {expected[bank_name]['seconds']} s "
+        f"encoded on the card, all ADX sha256 equal to the JAX package's")
+    del adxs
+    for name in small:
+        kw = expected[name]["encode"]
+        a = port.adx_encode_batch([wav_in[name]], device=dev, **kw)[0]
+        if sha(a) != expected[name]["adx_sha256"]:
+            raise AssertionError(f"{name}: ADX differs from the JAX "
+                                 f"package's encode ({kw})")
+        log(f"ADX fixture {name} ({kw}): encoded ADX sha256 equal to the "
+            f"JAX package's")
+
+    # -- phase 8: the kernels and twins at the bank shape; bank timings -----
+    parsed = [(adx_model.parse_adx_header(b), b) for b in bank]
+    lanes, h1, h2, c0, c1, _ = P._stack_adx_group(parsed,
+                                                  list(range(len(bank))))
+    dargs = [torch.from_numpy(lanes).to(dev),
+             *P._lane_tensors(dev, h1, h2, c0, c1)]
+    dkw = dict(bit_depth=bank_h.bit_depth,
+               encoding_mode=bank_h.encoding_mode)
+    L, nb, bs = lanes.shape
+    spb = bank_h.samples_per_block
+    pcm_k = cuda_kernels.adx_decode(*dargs, **dkw)
+    pcm_t, d_plain = cuda_ms_once(lambda: A.adx_decode_plain(*dargs, **dkw))
+    worst["adx_decode"] = max(worst["adx_decode"], require_equal(
+        "B7 bank", [("pcm", pcm_k, pcm_t)]))
+    log(f"B7 bank shape {L} lanes x {nb} blocks: byte-equal to the twin")
+    d_ms = cuda_ms(lambda: cuda_kernels.adx_decode(*dargs, **dkw), 5)
+    d_bound = bound("adx_decode", nbytes(*dargs, pcm_k), L * nb * spb)
+    del pcm_t
+
+    preps = [adx_model._encode_prep(
+        wav_in[bank_name], bit_depth=4, block_size=0x12, encoding_mode=3,
+        highpass_frequency=0x1F4, filter_=0, version=4,
+        force_not_looping=False)] * BANK_STREAMS
+    pcm_np, e0, e1, g1, g2, _ = P._stack_adx_pcm(
+        preps, list(range(BANK_STREAMS)), spb)
+    eargs = [torch.from_numpy(pcm_np).to(dev),
+             *P._lane_tensors(dev, e0, e1, g1, g2)]
+    ekw = dict(block_size=0x12, bit_depth=4, encoding_mode=3, filter_=0,
+               scale_fix=False)
+    blk_k = cuda_kernels.adx_encode(*eargs, **ekw)
+    blk_t, e_plain = cuda_ms_once(
+        lambda: A.adx_encode_blocks_plain(*eargs, **ekw))
+    worst["adx_encode"] = max(worst["adx_encode"], require_equal(
+        "B8 bank", [("blocks", blk_k, blk_t)]))
+    log(f"B8 bank shape {pcm_np.shape[0]} lanes x {pcm_np.shape[1]} blocks: "
+        f"byte-equal to the twin")
+    e_ms = cuda_ms(lambda: cuda_kernels.adx_encode(*eargs, **ekw), 5)
+    e_bound = bound("adx_encode", nbytes(*eargs, blk_k), pcm_np.size)
+    del blk_t, pcm_k, blk_k, dargs, eargs
+
+    audio_s = BANK_STREAMS * expected[bank_name]["seconds"]
+    for label, fn in (("decode", lambda: port.adx_decode_batch(
+                          bank, device=dev)),
+                      ("encode", lambda: port.adx_encode_batch(
+                          wav_bank, device=dev))):
+        wall, runs = median_wall(fn)
+        log(f"ADX bank {label} [{card}]: median of 3 = {wall:.4f} s for "
+            f"{audio_s:.0f} audio-s -> {audio_s / wall:.1f} audio-s/s; runs "
+            f"{[round(r, 4) for r in runs]}")
+    for name, ms, plain, bd in (("adx_decode", d_ms, d_plain, d_bound),
+                                ("adx_encode", e_ms, e_plain, e_bound)):
+        log(f"{name} [{card}] at {L} lanes x {nb} blocks: kernel "
+            f"{ms:.4f} ms, twin {plain:.4f} ms (one run), bound "
+            f"{bd['bound_ms']:.4f} ms by {bd['bound_by']}")
+    return {"adx_decode": (d_ms, d_plain, d_bound),
+            "adx_encode": (e_ms, e_plain, e_bound)}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -112,7 +472,7 @@ def main() -> None:
     sys.path.insert(0, ROOT)
     import pycricodecs_tpu_torch as port
     from pycricodecs_tpu_torch import _build
-    from pycricodecs_tpu_torch.ops import cuda_kernels, hca_frame
+    from pycricodecs_tpu_torch.ops import hca_frame
     from pycricodecs_tpu_torch.ops import hca_kernels as K
     from pycricodecs_tpu_torch.ops import hca_unpack_device as U
     from pycricodecs_tpu_torch.parallel.pipeline import \
@@ -237,17 +597,10 @@ def main() -> None:
 
     # -- phase 4: the slice, through the public entry point -----------------
     bank = [blobs[BANK]] * BANK_STREAMS
-    U.SIDE_INFO_LAUNCHES = 0
-    U.COEFF_LAUNCHES = 0
-    cuda_kernels.TRANSFORM_LAUNCHES = 0
-    wavs = port.decode_batch(bank, device=dev)
-    launches = {"hca_side_info": U.SIDE_INFO_LAUNCHES,
-                "hca_coefficients": U.COEFF_LAUNCHES,
-                "hca_transform": cuda_kernels.TRANSFORM_LAUNCHES}
-    log(f"slice launches: {launches}")
-    for k, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"{k} was not launched by the main path")
+    hca_kernels = ("hca_side_info", "hca_coefficients", "hca_transform")
+    wavs, counts = drive("decode_batch", hca_kernels,
+                         lambda: port.decode_batch(bank, device=dev))
+    launches = {k: counts[k] for k in hca_kernels}
     want = expected[BANK]["wav_sha256"]
     bad = [i for i, w in enumerate(wavs)
            if hashlib.sha256(w).hexdigest() != want]
@@ -301,16 +654,37 @@ def main() -> None:
             lambda: K.decode_transform_plain(
                 qc4, sf4, res4, in4, bank_hfr, **bank_cfg)),
     }
-    report = []
+    n_frames = CHUNK * F
+    C = bank_info.channels
+    bounds = {
+        "hca_side_info": bound("hca_side_info", nbytes(dec, *side_k),
+                               nbytes(*side_k[:3])),
+        "hca_coefficients": bound("hca_coefficients",
+                                  nbytes(dec, side_k[1], side_k[3], qc_k),
+                                  qc_k.numel()),
+        "hca_transform": bound("hca_transform",
+                               nbytes(qc4, sf4, res4, in4)
+                               + n_frames * 8 * 128 * C * 2,
+                               n_frames * 8 * 128 * C),
+    }
+    results = {}
     for name, (kernel, twin) in timed.items():
         ms = cuda_ms(kernel, 20)
         plain_ms = cuda_ms(twin, 3)
         log(f"{name} [{card}] at {CHUNK}x{F} frames: kernel {ms:.4f} ms, "
-            f"twin {plain_ms:.4f} ms")
+            f"twin {plain_ms:.4f} ms, bound {bounds[name]['bound_ms']:.4f} "
+            f"ms by {bounds[name]['bound_by']}")
+        results[name] = (ms, plain_ms, bounds[name])
+
+    # -- phases 6-8: the ADX codec ------------------------------------------
+    results.update(adx_phases(dev, card, worst, launches))
+
+    report = []
+    for name, (ms, plain_ms, bd) in results.items():
         report.append(dict(name=name, route="cuda", **KERNELS[name],
                            launches=launches[name],
                            max_abs_err=worst[name], ms=ms,
-                           plain_ms=plain_ms))
+                           plain_ms=plain_ms, **bd, library_ms=None))
     log(json.dumps({"kernels": report}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -31,7 +31,7 @@ BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas=-v")
-LIB_NAME = "libhca_kernels.so"
+LIB_NAME = "libport_kernels.so"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -43,6 +43,8 @@ SIGNATURES = {
     "hca_coefficients": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
     "hca_transform": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                       _P, _P, _P, _P, _P, _P],
+    "adx_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+    "adx_encode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
 }
 
 _lib = None

@@ -1,11 +1,12 @@
-"""ctypes bindings of the port's hand-written CUDA kernels, the counterpart
-of pycricodecs_tpu/ops/pallas_kernels.py.
+"""ctypes bindings of the port's hand-written CUDA kernels.
 
-B3 `hca_transform` (csrc/hca_transform.cu) replaces transform_fused_pallas;
-its wrapper and launch counter live here. The unpack kernels B1/B2 are
-wrapped in hca_unpack_device.py with the helpers below. A wrapper checks its
-inputs, allocates the outputs, launches on the current stream, raises if the
-launch failed and counts the launch.
+Wrappers and launch counters here: B3 `hca_transform` (csrc/hca_transform.cu,
+replaces pallas_kernels.transform_fused_pallas), B7 `adx_decode` and B8
+`adx_encode` (csrc/adx_codec.cu, replace adx_kernels.adx_decode_serial_pallas
+and adx_encode_serial_pallas). The unpack kernels B1/B2 are wrapped in
+hca_unpack_device.py with the helpers below. A wrapper checks its inputs,
+allocates the outputs, launches on the current stream, raises if the launch
+failed and counts the launch.
 """
 from __future__ import annotations
 
@@ -15,9 +16,12 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..models.adx import STATIC_COEFFICIENTS, samples_per_block
 
-#: hca_transform launches since import (or the last reset)
+#: launches since import (or the last reset), per kernel
 TRANSFORM_LAUNCHES = 0
+ADX_DECODE_LAUNCHES = 0
+ADX_ENCODE_LAUNCHES = 0
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
@@ -81,4 +85,69 @@ def hca_transform(qc, sf, res, inten, hfr_map, *, base_band, total_band,
     if rc:
         raise launch_failed("hca_transform", rc)
     TRANSFORM_LAUNCHES += 1
+    return out
+
+
+def _check_adx(L, nb, block_size, bit_depth, encoding_mode, lanes) -> int:
+    """Raise unless the geometry is one the ADX kernels take; return spb."""
+    if not 2 <= bit_depth <= 15:
+        raise ValueError(f"bit_depth {bit_depth} not in 2..15")
+    if not 3 <= block_size <= 255:
+        raise ValueError(f"block_size {block_size} not in 3..255")
+    if encoding_mode not in (2, 3, 4):
+        raise ValueError(f"encoding_mode {encoding_mode} not in (2, 3, 4)")
+    spb = samples_per_block(block_size, bit_depth)
+    if spb < 1:
+        raise ValueError(f"block_size {block_size} holds no "
+                         f"{bit_depth}-bit code")
+    for name, t in lanes.items():
+        check_cuda(t, name, torch.int32, (L,))
+    return spb
+
+
+def adx_decode(payload, h1, h2, c0, c1, *, bit_depth,
+               encoding_mode) -> torch.Tensor:
+    """Kernel B7: raw ADX blocks u8 [L, nb, block_size], history h1/h2 and
+    mode 3/4 coefficients c0/c1 i32 [L] (CUDA) -> PCM i16 [L, nb, spb]."""
+    global ADX_DECODE_LAUNCHES
+    L, nb, bs = payload.shape
+    check_cuda(payload, "payload", torch.uint8, (L, nb, bs))
+    spb = _check_adx(L, nb, bs, bit_depth, encoding_mode,
+                     dict(h1=h1, h2=h2, c0=c0, c1=c1))
+    out = torch.empty((L, nb, spb), dtype=torch.int16, device=payload.device)
+    if L * nb == 0:
+        return out
+    static = np.ascontiguousarray(STATIC_COEFFICIENTS, dtype=np.int32)
+    rc = _build.load().adx_decode(
+        ptr(payload), ptr(h1), ptr(h2), ptr(c0), ptr(c1), L, nb, bs,
+        int(bit_depth), int(encoding_mode), host_ptr(static), ptr(out),
+        stream_ptr(payload))
+    if rc:
+        raise launch_failed("adx_decode", rc)
+    ADX_DECODE_LAUNCHES += 1
+    return out
+
+
+def adx_encode(pcm, c0, c1, h1, h2, *, block_size, bit_depth, encoding_mode,
+               filter_, scale_fix) -> torch.Tensor:
+    """Kernel B8: PCM i16 [L, nb, spb], coefficients c0/c1 and history h1/h2
+    i32 [L] (CUDA) -> raw ADX blocks u8 [L, nb, block_size]."""
+    global ADX_ENCODE_LAUNCHES
+    L, nb, spb = pcm.shape
+    want = _check_adx(L, nb, block_size, bit_depth, encoding_mode,
+                      dict(c0=c0, c1=c1, h1=h1, h2=h2))
+    check_cuda(pcm, "pcm", torch.int16, (L, nb, want))
+    if filter_ not in (0, 1, 2, 3):
+        raise ValueError(f"filter_ {filter_} not in 0..3")
+    out = torch.empty((L, nb, block_size), dtype=torch.uint8,
+                      device=pcm.device)
+    if L * nb == 0:
+        return out
+    rc = _build.load().adx_encode(
+        ptr(pcm), ptr(c0), ptr(c1), ptr(h1), ptr(h2), L, nb, int(block_size),
+        int(bit_depth), int(encoding_mode), int(filter_), int(bool(scale_fix)),
+        ptr(out), stream_ptr(pcm))
+    if rc:
+        raise launch_failed("adx_encode", rc)
+    ADX_ENCODE_LAUNCHES += 1
     return out

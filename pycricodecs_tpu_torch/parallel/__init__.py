@@ -1,4 +1,6 @@
-"""Batched bank decode (see pipeline.py)."""
-from .pipeline import DecodeStats, decode_batch
+"""Batched bank decode and encode (see pipeline.py)."""
+from .pipeline import (DecodeStats, adx_decode_batch, adx_encode_batch,
+                       decode_batch)
 
-__all__ = ["DecodeStats", "decode_batch"]
+__all__ = ["DecodeStats", "adx_decode_batch", "adx_encode_batch",
+           "decode_batch"]

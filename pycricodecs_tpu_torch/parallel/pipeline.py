@@ -1,6 +1,6 @@
-"""Batched HCA bank decode on one device.
+"""Batched HCA bank decode and ADX bank decode/encode on one device.
 
-Counterpart of the device engine of pycricodecs_tpu/parallel/pipeline.py
+HCA: counterpart of the device engine of pycricodecs_tpu/parallel/pipeline.py
 (`decode_batch`, `_decode_group`, `_decode_group_inner`):
 
 1. the host parses every header and groups streams by (config, sample rate,
@@ -15,8 +15,17 @@ Counterpart of the device engine of pycricodecs_tpu/parallel/pipeline.py
 
 Only configs the device engine covers are decoded: a v3 stream with PNS
 noise (min_resolution 0) or a config the unpacker rejects raises
-NotImplementedError. On a CPU `device` the same path runs the kernels'
-plain PyTorch twins.
+NotImplementedError.
+
+ADX (`adx_decode_batch`, `adx_encode_batch`): counterparts of the JAX
+functions of the same names with device=True. The host parses headers (or
+WAVs), stacks one lane per stream channel, padded to the longest stream of
+the group, and copies raw block bytes (or PCM16) to the device; one launch
+of kernel B7 (or B8) runs every lane serially over its blocks; the host
+trims, interleaves and writes WAVs (or assembles ADX streams). The spb
+limit of the JAX device path is gone: the kernels loop over spb at run time.
+
+On a CPU `device` every path runs the kernels' plain PyTorch twins.
 """
 from __future__ import annotations
 
@@ -27,8 +36,9 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..models import adx as adx_model
 from ..models import hca as hca_model
-from ..ops import hca_frame, hca_kernels, hca_unpack_device
+from ..ops import adx_kernels, hca_frame, hca_kernels, hca_unpack_device
 from ..utils import hca_crypt
 from ..utils import wav as wavmod
 from ..utils.crc import crc16_batch
@@ -242,3 +252,170 @@ def _decode_group(up: hca_unpack_device.DeviceUnpacker, group, infos,
         stats.unpack_seconds += t_unpack
         stats.device_seconds += t_device
         stats.fetch_seconds += t_fetch
+
+
+# ---------------------------------------------------------------------------
+# ADX
+# ---------------------------------------------------------------------------
+
+def _lane_tensors(device, *arrays) -> List[torch.Tensor]:
+    """int32 numpy lane vectors -> device tensors."""
+    return [torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+            for a in arrays]
+
+
+def _stack_adx_group(parsed, members):
+    """Raw blocks of a decode group as lanes u8 [L, nb, block_size] (zero
+    padded to the group's longest payload), their history and mode 3/4
+    coefficients i32 [L], and (idx, first lane, channels, blocks) per
+    stream."""
+    h0 = parsed[members[0]][0]
+    payloads = [adx_model._payload_blocks(parsed[i][1], parsed[i][0])
+                for i in members]
+    nlanes = sum(parsed[i][0].channels for i in members)
+    nb = max(pl.shape[0] for pl in payloads)
+    lanes = np.zeros((nlanes, nb, h0.block_size), dtype=np.uint8)
+    h1 = np.zeros(nlanes, dtype=np.int32)
+    h2 = np.zeros(nlanes, dtype=np.int32)
+    c0 = np.zeros(nlanes, dtype=np.int32)
+    c1 = np.zeros(nlanes, dtype=np.int32)
+    spans = []
+    lane = 0
+    for idx, pl in zip(members, payloads):
+        h = parsed[idx][0]
+        ch = h.channels
+        lanes[lane:lane + ch, :pl.shape[0]] = np.moveaxis(pl, 1, 0)
+        h1[lane:lane + ch], h2[lane:lane + ch] = adx_model._history_init(h)
+        if h.encoding_mode != 2:
+            c0[lane:lane + ch], c1[lane:lane + ch] = \
+                adx_model.calculate_coefficients(h.highpass_frequency,
+                                                 h.sample_rate)
+        spans.append((idx, lane, ch, pl.shape[0]))
+        lane += ch
+    return lanes, h1, h2, c0, c1, spans
+
+
+def _interleave(pcm: np.ndarray, lane0: int, h, n: int) -> np.ndarray:
+    """One stream's interleaved PCM16 [sample_count * channels] from the
+    lanes [L, N]: the first n decoded samples, zero past them."""
+    ch, count = h.channels, h.sample_count
+    out = np.zeros(count * ch, dtype=np.int16)
+    have = min(count, n)
+    out.reshape(count, ch)[:have] = pcm[lane0:lane0 + ch, :have].T
+    return out
+
+
+def adx_decode_batch(blobs: Sequence[bytes], *, device="cuda") -> List[bytes]:
+    """Decode many ADX streams on `device`; returns WAV bytes per stream,
+    byte-equal to pycricodecs_tpu.parallel.adx_decode_batch(blobs,
+    device=True).
+
+    Streams are grouped by (encoding_mode, bit_depth, block_size); each
+    group is one launch of kernel B7 with per-lane history and
+    coefficients, so sample rates, highpass values and versions mix freely.
+    A bad header raises before anything is decoded."""
+    device = torch.device(device)
+    parsed = []
+    for blob in blobs:
+        blob = bytes(blob)
+        parsed.append((adx_model.parse_adx_header(blob), blob))
+    groups: dict = {}
+    for idx, (h, _) in enumerate(parsed):
+        groups.setdefault((h.encoding_mode, h.bit_depth, h.block_size),
+                          []).append(idx)
+
+    results: List = [None] * len(blobs)
+    for (mode, bit_depth, _), members in groups.items():
+        lanes, h1, h2, c0, c1, spans = _stack_adx_group(parsed, members)
+        L, nb, bs = lanes.shape
+        spb = adx_model.samples_per_block(bs, bit_depth)
+        if nb:
+            payload = torch.from_numpy(lanes).to(device)
+            pcm_dev = adx_kernels.adx_decode_device(
+                payload, *_lane_tensors(device, h1, h2, c0, c1),
+                bit_depth=bit_depth, encoding_mode=mode)
+            pcm = pcm_dev.cpu().numpy().reshape(L, nb * spb)
+        else:
+            pcm = np.zeros((L, 0), dtype=np.int16)
+        for idx, lane0, _, nblk in spans:
+            h = parsed[idx][0]
+            results[idx] = wavmod.write_wav(
+                _interleave(pcm, lane0, h, nblk * spb), h.channels,
+                h.sample_rate, looping=h.looping,
+                loop_start=h.loop_start_sample, loop_end=h.loop_end_sample)
+    return results
+
+
+def _stack_adx_pcm(preps, members, spb: int):
+    """PCM16 of the streams to encode as lanes i16 [L, nb, spb] (zero padded
+    to the longest stream), their coefficients and history i32 [L], and
+    (idx, first lane, channels) per stream."""
+    nlanes = sum(preps[i].channels for i in members)
+    nb = max(preps[i].frames for i in members)
+    pcm = np.zeros((nlanes, nb, spb), dtype=np.int16)
+    c0 = np.zeros(nlanes, dtype=np.int32)
+    c1 = np.zeros(nlanes, dtype=np.int32)
+    h1 = np.zeros(nlanes, dtype=np.int32)
+    h2 = np.zeros(nlanes, dtype=np.int32)
+    spans = []
+    lane = 0
+    for idx in members:
+        prep = preps[idx]
+        ch = prep.channels
+        pcm[lane:lane + ch, :prep.frames] = prep.blocks
+        c0[lane:lane + ch] = prep.c0
+        c1[lane:lane + ch] = prep.c1
+        h1[lane:lane + ch] = prep.h1
+        h2[lane:lane + ch] = prep.h2
+        spans.append((idx, lane, ch))
+        lane += ch
+    return pcm, c0, c1, h1, h2, spans
+
+
+def adx_encode_batch(wav_blobs: Sequence[bytes], *, bit_depth: int = 4,
+                     block_size: int = 0x12, encoding_mode: int = 3,
+                     highpass_frequency: int = 0x1F4, filter_: int = 0,
+                     version: int = 4, force_not_looping: bool = False,
+                     scale_fix: bool = False, device="cuda") -> List[bytes]:
+    """Encode many WAVs to ADX on `device`; returns ADX bytes per WAV,
+    byte-equal to pycricodecs_tpu.parallel.adx_encode_batch and
+    pycricodecs_tpu.models.adx.encode with the same keywords.
+
+    Every stream with at least one block goes into one launch of kernel B8
+    (per-lane coefficients, so sample rates mix); a WAV shorter than one
+    block gets a header and EOF block only. A WAV the encoder refuses
+    raises before anything is encoded."""
+    device = torch.device(device)
+    preps = [adx_model._encode_prep(
+        bytes(b), bit_depth=bit_depth, block_size=block_size,
+        encoding_mode=encoding_mode, highpass_frequency=highpass_frequency,
+        filter_=filter_, version=version,
+        force_not_looping=force_not_looping) for b in wav_blobs]
+    stream_kw = dict(bit_depth=bit_depth, block_size=block_size,
+                     encoding_mode=encoding_mode,
+                     highpass_frequency=highpass_frequency, version=version)
+    results: List = [None] * len(wav_blobs)
+    members = []
+    for idx, prep in enumerate(preps):
+        if prep.frames == 0:
+            empty = np.zeros((0, prep.channels, block_size), dtype=np.uint8)
+            results[idx] = adx_model._assemble_stream(prep, empty,
+                                                      **stream_kw)
+        else:
+            members.append(idx)
+    if not members:
+        return results
+    spb = adx_model.samples_per_block(block_size, bit_depth)
+    pcm, c0, c1, h1, h2, spans = _stack_adx_pcm(preps, members, spb)
+    blocks_dev = adx_kernels.adx_encode_device(
+        torch.from_numpy(pcm).to(device),
+        *_lane_tensors(device, c0, c1, h1, h2), block_size=block_size,
+        bit_depth=bit_depth, encoding_mode=encoding_mode, filter_=filter_,
+        scale_fix=scale_fix)
+    blocks = blocks_dev.cpu().numpy()
+    for idx, lane0, ch in spans:
+        prep = preps[idx]
+        payload = np.ascontiguousarray(
+            np.moveaxis(blocks[lane0:lane0 + ch, :prep.frames], 0, 1))
+        results[idx] = adx_model._assemble_stream(prep, payload, **stream_kw)
+    return results

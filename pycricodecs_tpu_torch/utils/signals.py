@@ -1,0 +1,61 @@
+"""The deterministic test signals behind the port's fixtures (numpy only).
+
+tools/make_torch_port_fixtures.py encodes these signals with the JAX
+package to write tests/data/torch_port/; chip_smoke.py rebuilds the ADX
+input WAVs from the same recipe on the GPU machine, which has no JAX, and
+holds them to the hashes recorded there.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+SAMPLE_RATE = 48000
+
+
+def signal(channels: int, seconds: float) -> np.ndarray:
+    """bench.py's test signal (seed 0), channel c delayed by 480*c samples;
+    interleaved PCM16."""
+    samples = int(SAMPLE_RATE * seconds)
+    rng = np.random.default_rng(0)
+    t = np.arange(samples) / SAMPLE_RATE
+    sig = (0.4 * np.sin(2 * np.pi * 440 * t)
+           + 0.1 * np.sin(2 * np.pi * 991 * t)
+           + 0.02 * rng.standard_normal(samples))
+    pcm = np.clip(sig * 32767, -32768, 32767).astype(np.int16)
+    return np.stack([np.roll(pcm, 480 * c) for c in range(channels)],
+                    1).reshape(-1)
+
+
+ADX_BANK = "adx_m3_bd4_stereo_48k_10s"
+# Every ADX signal starts with this many silent samples, so the first block
+# has a zero scale word and the stream passes the decoders' strict 7-byte CRI
+# signature check (adx.cpp:345-348) at every geometry.
+ADX_LEAD_IN = 1024
+# name -> (channels, seconds, loop (start, end) or None, encode keywords)
+ADX_STREAMS = {
+    ADX_BANK: (2, 10.0, None, {}),
+    "adx_m2_f2_stereo_1s": (2, 1.0, None,
+                            {"encoding_mode": 2, "filter_": 2}),
+    "adx_m4_stereo_1s": (2, 1.0, None, {"encoding_mode": 4}),
+    "adx_bd8_stereo_1s": (2, 1.0, None, {"bit_depth": 8}),
+    "adx_bd5_bs12_mono_1s": (1, 1.0, None,
+                             {"bit_depth": 5, "block_size": 12}),
+    "adx_bd2_bsff_stereo_1s": (2, 1.0, None,
+                               {"bit_depth": 2, "block_size": 0xFF}),
+    "adx_v3_stereo_1s": (2, 1.0, None, {"version": 3}),
+    "adx_v5_stereo_1s": (2, 1.0, None, {"version": 5}),
+    "adx_loop_stereo_1s": (2, 1.0, (4000, 40000), {}),
+    "adx_6ch_1s": (6, 1.0, None, {}),
+}
+
+
+def adx_wav(name: str, write_wav) -> bytes:
+    """The input WAV of an ADX fixture, from signal(); `write_wav` is the
+    JAX package's or the port's (they are equal)."""
+    channels, seconds, loop, _ = ADX_STREAMS[name]
+    pcm = signal(channels, seconds)
+    pcm[:ADX_LEAD_IN * channels] = 0
+    if loop is None:
+        return write_wav(pcm, channels, SAMPLE_RATE)
+    return write_wav(pcm, channels, SAMPLE_RATE, looping=True,
+                     loop_start=loop[0], loop_end=loop[1])

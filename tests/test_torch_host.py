@@ -187,6 +187,11 @@ def test_loop_points_equal():
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = ("import sys, pycricodecs_tpu_torch, pycricodecs_tpu_torch.parallel,"
             " pycricodecs_tpu_torch.ops.cuda_kernels,"
+            " pycricodecs_tpu_torch.ops.adx_kernels,"
+            " pycricodecs_tpu_torch.models.adx,"
+            " pycricodecs_tpu_torch.utils.wav,"
+            " pycricodecs_tpu_torch.utils.bitio,"
+            " pycricodecs_tpu_torch.utils.signals,"
             " pycricodecs_tpu_torch._build; "
             "assert 'jax' not in sys.modules, 'jax'; "
             "assert 'pycricodecs_tpu' not in sys.modules, 'pycricodecs_tpu'")

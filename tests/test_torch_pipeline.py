@@ -208,17 +208,44 @@ def test_profile_tool_names_the_pipeline_pieces():
     assert prof_tool.union_us([("a", "kernel", 0.0, 10.0),
                                ("b", "gpu_memcpy", 5.0, 10.0),
                                ("c", "kernel", 30.0, 1.0)]) == 16.0
-    r = subprocess.run([sys.executable, "tools/profile_torch_slice.py"],
-                       cwd=ROOT, capture_output=True, text=True, timeout=300)
-    assert r.returncode != 0
+    # the ADX bank's pieces, in a real ADX decode
+    _, adx_blobs = H.load_adx_fixtures()
+    cp = cProfile.Profile()
+    cp.enable()
+    port_parallel.adx_decode_batch([adx_blobs["adx_bd8_stereo_1s"]] * 2,
+                                   device="cpu")
+    cp.disable()
+    stats = pstats.Stats(cp).stats
+    for label, fsuffix, fname in prof_tool.ADX_HOST_PIECES:
+        assert any((f == "~" and fname in fn) if fsuffix == "~"
+                   else (f.endswith(fsuffix) and fn == fname)
+                   for f, _, fn in stats), label
+    pieces = prof_tool.host_pieces(cp, prof_tool.ADX_HOST_PIECES)
+    assert 0 < pieces["_interleave"] < pieces["adx_decode_batch (whole call)"]
+    assert os.path.exists(prof_tool.ADX_BANK)
+    for extra in ([], ["--adx"]):
+        r = subprocess.run([sys.executable, "tools/profile_torch_slice.py",
+                            *extra], cwd=ROOT, capture_output=True,
+                           text=True, timeout=300)
+        assert r.returncode != 0
 
 
 def test_fixtures_regenerate_byte_identically():
+    tool = _tool("make_torch_port_fixtures")
     expected, blobs = H.load_fixtures()
-    made = _tool("make_torch_port_fixtures").make_streams()
+    made = tool.make_streams()
     assert sorted(made) == sorted(expected)
     for name, blob in made.items():
         assert blob == blobs[name], name
+    adx_expected, adx_blobs = H.load_adx_fixtures()
+    made = tool.make_adx_streams()
+    assert sorted(made) == sorted(adx_expected)
+    for name, (wav, blob) in made.items():
+        assert blob == adx_blobs[name], name
+        assert hashlib.sha256(wav).hexdigest() == \
+            adx_expected[name]["wav_in_sha256"], name
+        assert hashlib.sha256(blob).hexdigest() == \
+            adx_expected[name]["adx_sha256"], name
 
 
 @pytest.mark.parametrize("name", sorted(H.load_fixtures()[0]))

@@ -1,8 +1,9 @@
 """Shared inputs for the PyTorch port's parity tests (tests/test_torch_*.py).
 
-Streams come from the JAX package's host encoder on seeded numpy signals;
-the committed fixtures live in tests/data/torch_port/. The port runs on the
-CPU here, so every kernel call takes its plain PyTorch twin.
+Streams come from the JAX package's host encoders on seeded numpy signals;
+the committed fixtures live in tests/data/torch_port/ (HCA) and
+tests/data/torch_port/adx/ (ADX). The port runs on the CPU here, so every
+kernel call takes its plain PyTorch twin.
 """
 import dataclasses
 import json
@@ -86,5 +87,32 @@ def load_fixtures():
     blobs = {}
     for name in expected:
         with open(os.path.join(FIXTURE_DIR, name + ".hca"), "rb") as f:
+            blobs[name] = f.read()
+    return expected, blobs
+
+
+ADX_FIXTURE_DIR = os.path.join(FIXTURE_DIR, "adx")
+
+
+def wav(samples=4000, channels=2, rate=48000, seed=0, lead_in=64,
+        loop=None) -> bytes:
+    """PCM16 WAV of a seeded sine+noise signal whose first `lead_in`
+    samples are silent (so an ADX encode of it passes the decoders' strict
+    CRI signature check); `loop` = (start, end) adds a smpl chunk."""
+    pcm = make_sine_pcm16(samples, channels, rate, seed=seed)
+    pcm[:lead_in * channels] = 0
+    if loop is None:
+        return write_wav(pcm, channels, rate)
+    return write_wav(pcm, channels, rate, looping=True, loop_start=loop[0],
+                     loop_end=loop[1])
+
+
+def load_adx_fixtures():
+    """(adx/expected.json dict, name -> ADX bytes) of the ADX fixtures."""
+    with open(os.path.join(ADX_FIXTURE_DIR, "expected.json")) as f:
+        expected = json.load(f)
+    blobs = {}
+    for name in expected:
+        with open(os.path.join(ADX_FIXTURE_DIR, name + ".adx"), "rb") as f:
             blobs[name] = f.read()
     return expected, blobs

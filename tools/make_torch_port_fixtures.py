@@ -1,6 +1,9 @@
 #!/usr/bin/env python3
-"""Write the HCA fixtures that carry real streams to the PyTorch port's GPU
-check (chip_smoke.py), where neither JAX nor the encoder is installed.
+"""Write the HCA and ADX fixtures that carry real streams to the PyTorch
+port's GPU check (chip_smoke.py), where neither JAX nor the encoder is
+installed.
+
+HCA (tests/data/torch_port/):
 
 Encodes with the JAX package's host encoder (pycricodecs_tpu.ops.
 hca_encode_host.encode) and records, in expected.json, the sha256 of the WAV
@@ -14,6 +17,24 @@ and device engines agree, which this script checks).
   pair + HFR), q2 mono (HFR, no pair), q0 stereo (discrete pair) and q2
   6-channel (two pairs, two unpaired channels).
 
+ADX (tests/data/torch_port/adx/, with its own expected.json): each stream is
+pycricodecs_tpu.models.adx.encode of a WAV rebuilt by adx_wav() of
+pycricodecs_tpu_torch/utils/signals.py (numpy only, so chip_smoke.py
+rebuilds the same WAVs without JAX), and expected.json records per stream the encode keywords, the sha256 of the
+input WAV, of the ADX (the JAX package's encode; its batch encoder agrees,
+which this script checks) and of the WAV the JAX package decodes from it
+(its device pipeline and its host decoder agree, which this script checks).
+- adx_m3_bd4_stereo_48k_10s: the bench signal, default keywords (mode 3,
+  4-bit, block 0x12, version 4): the bank member of bench_all configs 13/16;
+- 1 s streams for the other branches: mode 2 (filter 2), mode 4, bit depth
+  8, bit depth 5 at block 12, bit depth 2 at block 0xFF (1012 samples per
+  block), versions 3 and 5, a looping stereo WAV (smpl chunk) and 6
+  channels.
+Every signal starts with 1024 silent samples, so the first block has a zero
+scale word and the stream passes the decoders' strict 7-byte CRI signature
+check (adx.cpp:345-348) at every geometry; without it the bench signal's
+first scale word has a nonzero high byte and every decoder refuses it.
+
 Usage: python3 tools/make_torch_port_fixtures.py
 """
 import hashlib
@@ -21,11 +42,14 @@ import json
 import os
 import sys
 
-import numpy as np
-
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+from pycricodecs_tpu_torch.utils.signals import (  # noqa: E402
+    ADX_STREAMS, SAMPLE_RATE, adx_wav, signal)
+
 OUT_DIR = os.path.join(ROOT, "tests", "data", "torch_port")
-SAMPLE_RATE = 48000
+ADX_DIR = os.path.join(OUT_DIR, "adx")
 
 # name -> (channels, seconds, quality)
 STREAMS = {
@@ -37,23 +61,20 @@ STREAMS = {
 }
 
 
-def signal(channels: int, seconds: float) -> np.ndarray:
-    """bench.py's test signal (seed 0), channel c delayed by 480*c samples;
-    interleaved PCM16."""
-    samples = int(SAMPLE_RATE * seconds)
-    rng = np.random.default_rng(0)
-    t = np.arange(samples) / SAMPLE_RATE
-    sig = (0.4 * np.sin(2 * np.pi * 440 * t)
-           + 0.1 * np.sin(2 * np.pi * 991 * t)
-           + 0.02 * rng.standard_normal(samples))
-    pcm = np.clip(sig * 32767, -32768, 32767).astype(np.int16)
-    return np.stack([np.roll(pcm, 480 * c) for c in range(channels)],
-                    1).reshape(-1)
+def make_adx_streams() -> dict:
+    """name -> (input WAV bytes, ADX bytes of the JAX package's encode)."""
+    from pycricodecs_tpu.models import adx
+    from pycricodecs_tpu.utils.wav import write_wav
+
+    out = {}
+    for name, (_, _, _, kw) in ADX_STREAMS.items():
+        wav = adx_wav(name, write_wav)
+        out[name] = (wav, adx.encode(wav, **kw))
+    return out
 
 
 def make_streams() -> dict:
     """name -> HCA bytes, encoded by the JAX package's host encoder."""
-    sys.path.insert(0, ROOT)
     from pycricodecs_tpu.ops import hca_encode_host
     from pycricodecs_tpu.utils.wav import write_wav
 
@@ -92,6 +113,37 @@ def main() -> None:
                           "quality": quality, "wav_sha256": sha}
         print(name, len(blob), sha)
     with open(os.path.join(OUT_DIR, "expected.json"), "w") as f:
+        json.dump(expected, f, indent=1, sort_keys=True)
+        f.write("\n")
+    write_adx_fixtures()
+
+
+def sha256(data: bytes) -> str:
+    return hashlib.sha256(data).hexdigest()
+
+
+def write_adx_fixtures() -> None:
+    from pycricodecs_tpu import parallel
+    from pycricodecs_tpu.models import adx
+
+    os.makedirs(ADX_DIR, exist_ok=True)
+    expected = {}
+    for name, (wav, blob) in make_adx_streams().items():
+        channels, seconds, loop, kw = ADX_STREAMS[name]
+        if parallel.adx_encode_batch([wav], device=True, **kw)[0] != blob:
+            raise SystemExit(f"{name}: batch and single encoders disagree")
+        dec = adx.decode(blob)
+        if parallel.adx_decode_batch([blob], device=True)[0] != dec:
+            raise SystemExit(f"{name}: device and host decoders disagree")
+        with open(os.path.join(ADX_DIR, name + ".adx"), "wb") as f:
+            f.write(blob)
+        expected[name] = {"channels": channels, "seconds": seconds,
+                          "loop": loop, "encode": kw,
+                          "wav_in_sha256": sha256(wav),
+                          "adx_sha256": sha256(blob),
+                          "wav_sha256": sha256(dec)}
+        print(name, len(blob), sha256(blob))
+    with open(os.path.join(ADX_DIR, "expected.json"), "w") as f:
         json.dump(expected, f, indent=1, sort_keys=True)
         f.write("\n")
 

@@ -1,22 +1,25 @@
 #!/usr/bin/env python3
 """Where the time of the port's bank decode goes, on one CUDA GPU.
 
-Decodes the 256-stream x 10 s bank (tests/data/torch_port, the slice that
-chip_smoke.py drives) with pycricodecs_tpu_torch.decode_batch:
+Decodes a 256-stream x 10 s bank (tests/data/torch_port, the banks that
+chip_smoke.py drives): by default the HCA bank with
+pycricodecs_tpu_torch.decode_batch; with --adx the ADX bank with
+adx_decode_batch.
 
 1. one warm-up run, then one plain run timed on the host clock;
 2. one run under torch.profiler (CPU + CUDA activities): device time summed
    by kernel and copy name, and the device busy time (the union of all
    device intervals) against the run's wall time;
-3. one run under cProfile: host seconds in the pipeline's pieces (header
-   parse, frame stacking + sync check, CRC16, H2D, launches, D2H, trim,
-   WAV write), next to that run's DecodeStats.
+3. one run under cProfile: host seconds in the pipeline's pieces. HCA:
+   header parse, frame stacking + sync check, CRC16, H2D, launches, D2H,
+   trim, WAV write, next to that run's DecodeStats. ADX: header parse,
+   payload slicing + lane stacking, H2D, launch, D2H, interleave, WAV write.
 
 Prints each part with the card's name and power limit, and last one JSON
 line of the numbers. There is no CPU path.
 
 Run from the repository root:
-    python3 tools/profile_torch_slice.py [--trace trace.json]
+    python3 tools/profile_torch_slice.py [--adx] [--trace trace.json]
 """
 import argparse
 import cProfile
@@ -33,6 +36,8 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BANK = os.path.join(ROOT, "tests", "data", "torch_port",
                     "bank_q2_stereo_48k_10s.hca")
+ADX_BANK = os.path.join(ROOT, "tests", "data", "torch_port", "adx",
+                        "adx_m3_bd4_stereo_48k_10s.adx")
 STREAMS = 256
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
@@ -49,6 +54,17 @@ HOST_PIECES = [
      "hca_decode_transform_batched"),
     ("Tensor.cpu (wait + D2H)", "~", "'cpu' of 'torch._C."),
     ("ndarray.copy (trim)", "~", "'copy' of 'numpy.ndarray'"),
+    ("write_wav", "wav.py", "write_wav"),
+]
+ADX_HOST_PIECES = [
+    ("adx_decode_batch (whole call)", "pipeline.py", "adx_decode_batch"),
+    ("parse_adx_header", "adx.py", "parse_adx_header"),
+    ("_stack_adx_group (payload slicing + lane stacking)", "pipeline.py",
+     "_stack_adx_group"),
+    ("Tensor.to (H2D, pageable)", "~", "'to' of 'torch._C."),
+    ("adx_decode_device (enqueue)", "adx_kernels.py", "adx_decode_device"),
+    ("Tensor.cpu (wait + D2H)", "~", "'cpu' of 'torch._C."),
+    ("_interleave", "pipeline.py", "_interleave"),
     ("write_wav", "wav.py", "write_wav"),
 ]
 
@@ -80,11 +96,11 @@ def union_us(intervals) -> float:
     return busy
 
 
-def host_pieces(prof: cProfile.Profile) -> dict:
-    """Cumulative seconds of each HOST_PIECES entry (summed over matches)."""
+def host_pieces(prof: cProfile.Profile, pieces=HOST_PIECES) -> dict:
+    """Cumulative seconds of each `pieces` entry (summed over matches)."""
     stats = pstats.Stats(prof).stats
     out = {}
-    for label, fsuffix, fname in HOST_PIECES:
+    for label, fsuffix, fname in pieces:
         total = 0.0
         for (filename, _, funcname), (_, _, _, ct, _) in stats.items():
             if fsuffix == "~":
@@ -99,6 +115,8 @@ def host_pieces(prof: cProfile.Profile) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--adx", action="store_true",
+                    help="profile the ADX bank decode instead of the HCA one")
     ap.add_argument("--trace", help="write the profiler's chrome trace here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -110,13 +128,16 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     card = card_line()
     print(f"card: {card}", flush=True)
-    with open(BANK, "rb") as f:
+    with open(ADX_BANK if args.adx else BANK, "rb") as f:
         bank = [f.read()] * STREAMS
 
     def run(stats=None) -> float:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        port.decode_batch(bank, device=dev, stats=stats)
+        if args.adx:
+            port.adx_decode_batch(bank, device=dev)
+        else:
+            port.decode_batch(bank, device=dev, stats=stats)
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
@@ -155,25 +176,33 @@ def main() -> None:
     cp.enable()
     cprof_wall = run(st)
     cp.disable()
-    pieces = host_pieces(cp)
-    stack_s = st.unpack_seconds - pieces["crc16_batch"]
-    print(f"[{card}] cProfile run: wall {cprof_wall:.4f} s; DecodeStats "
-          f"unpack {st.unpack_seconds:.4f} s, device "
-          f"{st.device_seconds:.4f} s, fetch {st.fetch_seconds:.4f} s, "
-          f"total {st.total_seconds:.4f} s", flush=True)
+    cprof = {"wall_s": cprof_wall}
+    if args.adx:
+        pieces = host_pieces(cp, ADX_HOST_PIECES)
+        print(f"[{card}] cProfile run: wall {cprof_wall:.4f} s", flush=True)
+    else:
+        pieces = host_pieces(cp)
+        stack_s = st.unpack_seconds - pieces["crc16_batch"]
+        cprof.update(stats=st.as_dict(), stacking_sync_s=stack_s)
+        print(f"[{card}] cProfile run: wall {cprof_wall:.4f} s; DecodeStats "
+              f"unpack {st.unpack_seconds:.4f} s, device "
+              f"{st.device_seconds:.4f} s, fetch {st.fetch_seconds:.4f} s, "
+              f"total {st.total_seconds:.4f} s", flush=True)
     for label, secs in pieces.items():
         print(f"  {secs:>9.4f} s  {label}")
-    print(f"  {stack_s:>9.4f} s  frame stacking + sync check "
-          f"(DecodeStats.unpack - crc16_batch)")
+    if not args.adx:
+        print(f"  {stack_s:>9.4f} s  frame stacking + sync check "
+              f"(DecodeStats.unpack - crc16_batch)")
+    cprof["host_s"] = pieces
 
     print(json.dumps({
-        "card": card, "streams": STREAMS, "plain_wall_s": plain_wall,
+        "card": card, "bank": "adx" if args.adx else "hca",
+        "streams": STREAMS, "plain_wall_s": plain_wall,
         "profiled": {"wall_s": prof_wall, "device_busy_s": busy_s,
                      "idle_share": 1 - busy_s / prof_wall,
                      "device_ms": {f"{cat}:{name}": t / 1e3 for
                                    (cat, name), (_, t) in by_name.items()}},
-        "cprofile": {"wall_s": cprof_wall, "stats": st.as_dict(),
-                     "host_s": pieces, "stacking_sync_s": stack_s}}))
+        "cprofile": cprof}))
 
 
 if __name__ == "__main__":
