@@ -2,7 +2,7 @@
 """GPU smoke test of the PyTorch + CUDA port (pycricodecs_tpu_torch).
 
 Drives the port's main paths on one CUDA GPU: the batched HCA bank decode,
-then the batched ADX bank decode and encode.
+the batched ADX bank decode and encode, then the batched HCA bank encode.
 
 HCA:
 
@@ -37,6 +37,21 @@ ADX (tests/data/torch_port/adx/, hashes from the JAX package):
 8. at the bank shape (512 lanes x 15,000 blocks), B7 and B8 against their
    twins once more (timed once, CUDA events), the kernels timed by CUDA
    events, and each bank call timed (median of 3).
+
+HCA encode (tests/data/torch_port/, input WAVs rebuilt by signals.hca_wav
+and held to their recorded hashes):
+9. B6 `hca_mdct` against `mdct_plain`, bit for bit (f32 as i32): random
+   PCM16 with both rails, and the bank's PCM (256 x 2 x 3,752 blocks);
+10. the packer `hca_pack` (B9's work) against `pack_frames_plain`, byte for
+   byte: the bank's encode tensors; per 1 s fixture config rate-controlled
+   tensors of noise and random tensors in the legal ranges (most overflow
+   the writer); a frame whose last symbol ends inside the CRC slot;
+11. `hca_encode_batch` of 256 copies of the 10 s stereo WAV, quality 2:
+   every stream equal to bank_q2_stereo_48k_10s.hca, the bank decoded back
+   to the JAX package's WAV hash; each 1 s fixture equal to its .hca;
+   BASELINE config 4's round trip (`crypt` with cipher 56, decode on the
+   card with the key, decrypt back); both kernels launched; the bank call
+   timed (median of 3 after a warm-up).
 
 Prints a JSON line of per-kernel results (launches on the main paths, max
 |kernel - twin|, kernel/twin ms, the bound from the bytes and operations of
@@ -82,6 +97,12 @@ KERNELS = {
     "adx_encode": dict(
         source="pycricodecs_tpu_torch/csrc/adx_codec.cu",
         replaces="pycricodecs_tpu/ops/adx_kernels.py:1124"),
+    "hca_mdct": dict(
+        source="pycricodecs_tpu_torch/csrc/hca_encode.cu",
+        replaces="pycricodecs_tpu/ops/pallas_kernels.py:656"),
+    "hca_pack": dict(
+        source="pycricodecs_tpu_torch/csrc/hca_pack.cu",
+        replaces="pycricodecs_tpu/ops/hca_pack_device.py:207"),
 }
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, and the
@@ -98,9 +119,15 @@ SCALAR_OPS_PER_S = 67e12
 # - B7: code extraction 4 (shift, mask, sign test, subtract) + recurrence 9
 #   (3 mul, 2 shift, 2 add, 2 clamp) per sample;
 # - B8: pass 1 residual 6 + pass 2 14 (3 mul, 2 shift, 3 add, rounding add,
-#   divide, 2 clamps, sim product and shift counted once) per sample.
+#   divide, 2 clamps, sim product and shift counted once) per sample;
+# - B6 (hca_mdct): input scale 1, fold 3 (2 mul + 1 sub), DCT-IV
+#   pre-rotation 3 and six butterfly stages of 2.5 (10 ops per 4 values),
+#   the final scale 1, per output value;
+# - hca_pack: three per spectrum code written, i.e. per coded band and
+#   subframe whose resolution is 1-15 (table lookup, shift-or into the bit
+#   accumulator, cursor add).
 OPS = {"hca_side_info": 1, "hca_coefficients": 3, "hca_transform": 42,
-       "adx_decode": 13, "adx_encode": 20}
+       "adx_decode": 13, "adx_encode": 20, "hca_mdct": 23, "hca_pack": 3}
 
 
 def log(*args) -> None:
@@ -290,6 +317,8 @@ def reset_launches() -> None:
     cuda_kernels.TRANSFORM_LAUNCHES = 0
     cuda_kernels.ADX_DECODE_LAUNCHES = 0
     cuda_kernels.ADX_ENCODE_LAUNCHES = 0
+    cuda_kernels.MDCT_LAUNCHES = 0
+    cuda_kernels.PACK_LAUNCHES = 0
 
 
 def read_launches() -> dict:
@@ -299,7 +328,9 @@ def read_launches() -> dict:
             "hca_coefficients": U.COEFF_LAUNCHES,
             "hca_transform": cuda_kernels.TRANSFORM_LAUNCHES,
             "adx_decode": cuda_kernels.ADX_DECODE_LAUNCHES,
-            "adx_encode": cuda_kernels.ADX_ENCODE_LAUNCHES}
+            "adx_encode": cuda_kernels.ADX_ENCODE_LAUNCHES,
+            "hca_mdct": cuda_kernels.MDCT_LAUNCHES,
+            "hca_pack": cuda_kernels.PACK_LAUNCHES}
 
 
 def drive(path: str, own, fn):
@@ -465,6 +496,280 @@ def adx_phases(dev, card: str, worst: dict, launches: dict) -> dict:
             "adx_encode": (e_ms, e_plain, e_bound)}
 
 
+# ---------------------------------------------------------------------------
+# HCA encode (phases 9-11)
+# ---------------------------------------------------------------------------
+
+KEY = 0xCF222F1FE0748978  # the test suite's cipher-56 key
+
+
+def f32_equal(what: str, a: torch.Tensor, b: torch.Tensor) -> float:
+    """f32 tensors equal bit for bit (as i32 views); returns max |a - b|."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        raise AssertionError(f"{what}: shape/dtype differ")
+    if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+        d = float((a.double() - b.double()).abs().max())
+        raise AssertionError(f"{what}: B6 differs from its twin "
+                             f"(max |diff| {d})")
+    return 0.0
+
+
+def encode_tensors(pcm, info, cfg):
+    """The port's encode tensors (the packer's inputs) of PCM16
+    [B, C, F*1024] on the card, and the packer keywords."""
+    from pycricodecs_tpu_torch.ops import hca_encode_device as D
+    kw = D.encode_config(info, cfg)
+    tkw = {k: v for k, v in kw.items()
+           if k not in ("hfr_counts", "hfr_counts2")}
+    sf, res, inten, quant, level, boundary, db, ga, gs = \
+        D.hca_encode_transform(pcm, **tkw)
+    scales = D.hfr_scales(ga, gs, counts=kw["hfr_counts"],
+                          counts2=kw["hfr_counts2"],
+                          channel_types=kw["channel_types"])
+    pkw = dict(channels=info.channels, coded_counts=kw["coded_counts"],
+               channel_types=kw["channel_types"],
+               hfr_group_count=kw["hfr_group_count"],
+               frame_size=kw["frame_size"])
+    return [level, boundary, sf, res, inten, scales, db, quant], pkw
+
+
+def pack_needs(t, kw, frames_out):
+    """(bytes, spectrum codes) the packer needs for these encode tensors:
+    level, boundary and delta_bits; sf and res of the coded bands; the
+    quantised value of each coded band whose resolution writes a code (1-15),
+    in all 8 subframes; intensity of the stereo secondaries, HFR scales of
+    the other channels; the frames written."""
+    level, boundary, sf, res, inten, scales, db, quant = t
+    frames = level.numel()
+    coded = [int(x) for x in kw["coded_counts"]]
+    codes = 8 * sum(int((res[..., c, :cc] > 0).sum().item())
+                    for c, cc in enumerate(coded))
+    secondary = sum(1 for x in kw["channel_types"] if x == 2)
+    primary = kw["channels"] - secondary
+    moved = (nbytes(level, boundary, db, frames_out)
+             + frames * sum(coded) * (sf.element_size() + res.element_size())
+             + codes * quant.element_size()
+             + frames * secondary * 8 * inten.element_size()
+             + frames * primary * kw["hfr_group_count"]
+             * scales.element_size())
+    return moved, codes
+
+
+def random_pack_tensors(rng, info, n, dev):
+    """Random encode tensors of n frames in the legal value ranges; at these
+    widths most frames overflow the writer (the end-of-frame rule)."""
+    C = info.channels
+    G = max(int(info.hfr_group_count), 1)
+    res = rng.integers(0, 16, (1, n, C, 128)).astype(np.uint8)
+    r = res.astype(np.int64)
+    qmax = np.where(r < 8, r, (1 << np.maximum(r - 4, 0)) - 1)
+    q = np.round((rng.random((1, n, C, 8, 128)) * 2 - 1)
+                 * qmax[..., None, :]).astype(np.int16)
+    arrays = [rng.integers(0, 256, (1, n)).astype(np.int32),
+              rng.integers(0, 128, (1, n)).astype(np.int32),
+              rng.integers(0, 64, (1, n, C, 128)).astype(np.uint8), res,
+              rng.integers(0, 16, (1, n, C, 8)).astype(np.uint8),
+              rng.integers(0, 64, (1, n, C, G)).astype(np.int32),
+              rng.integers(0, 7, (1, n, C)).astype(np.int32), q]
+    return [torch.from_numpy(a).to(dev) for a in arrays]
+
+
+def crc_slot_tensors(info, dev):
+    """One frame (of 4) whose last spectrum symbol starts in the last data
+    byte and ends inside the CRC slot, with all-ones leading bits (the JAX
+    suite's case at 48 kHz q0 stereo, frame_size 1024)."""
+    C, fs, G = info.channels, int(info.frame_size), int(info.hfr_group_count)
+    head = 32 + sum(3 + (32 if int(t) == 2 else 6 * G)
+                    for t in info.channel_type)
+    limit = fs * 8 - 16
+    total = limit + 1 + (-(limit + 1 - head - 89)) % 8
+    fill = (total - head - 89) // 8
+    n11, r = fill // 11, fill % 11
+    if r == 1:
+        n11, r = n11 - 1, 12
+    n3 = r % 2
+    n2 = (r - 3 * n3) // 2
+    t = [np.zeros((1, 4), np.int32), np.zeros((1, 4), np.int32),
+         np.zeros((1, 4, C, 128), np.uint8),
+         np.zeros((1, 4, C, 128), np.uint8), np.zeros((1, 4, C, 8), np.uint8),
+         np.zeros((1, 4, C, max(G, 1)), np.int32),
+         np.zeros((1, 4, C), np.int32), np.zeros((1, 4, C, 8, 128), np.int16)]
+    t[3][0, 0, 0, :n11] = 15
+    t[3][0, 0, 0, n11:n11 + n2] = 2
+    if n3:
+        t[3][0, 0, 0, n11 + n2] = 4
+    cc_last = int(info.coded_count[C - 1])
+    t[3][0, 0, C - 1, cc_last - 1] = 15
+    t[7][0, 0, C - 1, 7, cc_last - 1] = 2047
+    return [torch.from_numpy(a).to(dev) for a in t], limit - (total - 12)
+
+
+def hca_encode_phases(dev, card: str, worst: dict, launches: dict) -> dict:
+    """Phases 9-11; returns name -> (ms, plain_ms, bound dict)."""
+    import pycricodecs_tpu_torch as port
+    from pycricodecs_tpu_torch.ops import cuda_kernels
+    from pycricodecs_tpu_torch.ops import hca_encode_device as D
+    from pycricodecs_tpu_torch.ops import hca_encode_host as EH
+    from pycricodecs_tpu_torch.ops import hca_frame
+    from pycricodecs_tpu_torch.ops import hca_pack_device as PP
+    from pycricodecs_tpu_torch.utils import signals
+    from pycricodecs_tpu_torch.utils.wav import parse_wav, write_wav
+
+    with open(os.path.join(FIXTURES, "expected.json")) as f:
+        expected = json.load(f)
+    blobs, wav_in = {}, {}
+    for name in expected:
+        with open(os.path.join(FIXTURES, name + ".hca"), "rb") as f:
+            blobs[name] = f.read()
+        if sha(blobs[name]) != expected[name]["hca_sha256"]:
+            raise AssertionError(f"{name}.hca differs from its hash")
+        wav_in[name] = signals.hca_wav(name, write_wav)
+        if sha(wav_in[name]) != expected[name]["wav_in_sha256"]:
+            raise AssertionError(f"{name}: rebuilt input WAV differs from "
+                                 f"its recorded hash")
+    cfgs = {}
+    for name in expected:
+        w = parse_wav(wav_in[name])
+        cfgs[name] = (EH.init_encode(w, expected[name]["quality"],
+                                     w.looping), w)
+
+    # -- phase 9: B6 against mdct_plain -------------------------------------
+    rng = np.random.default_rng(9)
+    for B, C, Tn in ((3, 2, 37), (1, 1, 8), (4, 6, 24)):
+        pcm = rng.integers(-32768, 32768, (B, C, Tn * 128), dtype=np.int16)
+        pcm[0, 0, :4] = (-32768, 32767, -32768, 32767)
+        pcm[-1, -1, 128:384] = 0
+        p = torch.from_numpy(pcm).to(dev)
+        f32_equal(f"B6 random {B}x{C}x{Tn}", cuda_kernels.hca_mdct(p),
+                  D.mdct_plain(p))
+        log(f"B6 random {B} x {C} x {Tn} blocks: bit-equal to the twin")
+    bank_cfg, bank_w = cfgs[BANK]
+    bank_pcm = torch.from_numpy(D.stack_timelines(
+        [bank_cfg] * BANK_STREAMS, [bank_w] * BANK_STREAMS)).to(dev)
+    spec_k = cuda_kernels.hca_mdct(bank_pcm)
+    spec_t, mdct_plain_ms = cuda_ms_once(lambda: D.mdct_plain(bank_pcm))
+    worst["hca_mdct"] = f32_equal("B6 bank", spec_k, spec_t)
+    log(f"B6 bank shape {tuple(bank_pcm.shape)} -> {tuple(spec_k.shape)}: "
+        f"bit-equal to the twin")
+    mdct_ms = cuda_ms(lambda: cuda_kernels.hca_mdct(bank_pcm), 20)
+    mdct_bound = bound("hca_mdct", nbytes(bank_pcm, spec_k), spec_k.numel())
+    del spec_k, spec_t
+
+    # -- phase 10: hca_pack against pack_frames_plain -----------------------
+    bank_t, bank_kw = encode_tensors(bank_pcm, bank_cfg.info, bank_cfg)
+    got = cuda_kernels.hca_pack(*bank_t, **bank_kw)
+    want, pack_plain_ms = cuda_ms_once(
+        lambda: PP.pack_frames_plain(*bank_t, **bank_kw))
+    worst["hca_pack"] = require_equal("hca_pack bank",
+                                      [("frames", got, want)])
+    log(f"hca_pack bank tensors {tuple(got.shape)}: byte-equal to the twin")
+    pack_ms = cuda_ms(lambda: cuda_kernels.hca_pack(*bank_t, **bank_kw), 5)
+    pack_bytes, pack_codes = pack_needs(bank_t, bank_kw, got)
+    pack_bound = bound("hca_pack", pack_bytes, pack_codes)
+    log(f"hca_pack bank needs {pack_bytes} bytes, {pack_codes} spectrum "
+        f"codes")
+    del got, want, bank_t
+    for name in expected:
+        if name == BANK:
+            continue
+        cfg, _ = cfgs[name]
+        info = cfg.info
+        # rate-controlled tensors of noise at a random level per stream
+        C = info.channels
+        amp = rng.uniform(0.001, 1.0, (16, 1, 1))
+        noise = np.clip(rng.standard_normal((16, C, 48 * 1024)) * amp
+                        * 32767, -32768, 32767).astype(np.int16)
+        t, kw = encode_tensors(torch.from_numpy(noise).to(dev), info, cfg)
+        pairs = [("noise frames", cuda_kernels.hca_pack(*t, **kw),
+                  PP.pack_frames_plain(*t, **kw))]
+        t = random_pack_tensors(rng, info, 512, dev)
+        pairs.append(("random frames", cuda_kernels.hca_pack(*t, **kw),
+                      PP.pack_frames_plain(*t, **kw)))
+        worst["hca_pack"] = max(worst["hca_pack"], require_equal(
+            f"hca_pack {name}", pairs))
+        log(f"hca_pack {name} config: 16 x 48 noise frames and 512 random "
+            f"frames byte-equal to the twin")
+    q0 = cfgs["q0_stereo_48k_1s"][0].info
+    t, lead = crc_slot_tensors(q0, dev)
+    kw = dict(channels=q0.channels,
+              coded_counts=tuple(int(x) for x in q0.coded_count),
+              channel_types=tuple(int(x) for x in q0.channel_type),
+              hfr_group_count=int(q0.hfr_group_count),
+              frame_size=int(q0.frame_size))
+    got = cuda_kernels.hca_pack(*t, **kw)
+    require_equal("hca_pack CRC slot", [("frames", got,
+                                         PP.pack_frames_plain(*t, **kw))])
+    k = min(lead, 8)
+    if int(got[0, 0, q0.frame_size - 3]) & ((1 << k) - 1) != (1 << k) - 1:
+        raise AssertionError("hca_pack dropped the CRC-slot-crossing symbol")
+    log(f"hca_pack CRC-slot-crossing frame (q0 stereo, frame_size "
+        f"{q0.frame_size}): byte-equal to the twin, leading bits kept")
+    del t, got, bank_pcm
+    torch.cuda.synchronize()
+
+    # -- phase 11: the encode bank and config 4's round trip ----------------
+    wav_bank = [wav_in[BANK]] * BANK_STREAMS
+    hcas, counts = drive("hca_encode_batch", ["hca_mdct", "hca_pack"],
+                         lambda: port.hca_encode_batch(wav_bank, quality=2,
+                                                       device=dev))
+    launches["hca_mdct"] = counts["hca_mdct"]
+    launches["hca_pack"] = counts["hca_pack"]
+    bad = [i for i, h in enumerate(hcas) if h != blobs[BANK]]
+    if bad:
+        raise AssertionError(f"encoded bank streams differ from "
+                             f"{BANK}.hca: streams {bad[:8]}")
+    log(f"HCA encode bank: {BANK_STREAMS} x {expected[BANK]['seconds']} s "
+        f"encoded on the card, all equal to {BANK}.hca byte for byte")
+    want = expected[BANK]["wav_sha256"]
+    wavs = port.decode_batch(hcas, device=dev)
+    if any(sha(w) != want for w in wavs):
+        raise AssertionError("the encoded bank does not decode to the JAX "
+                             "package's WAV")
+    log("HCA encode bank: decoded on the card, every WAV sha256 equal to "
+        "the JAX package's")
+    del wavs, hcas
+    for name in expected:
+        if name == BANK:
+            continue
+        h = port.hca_encode_batch([wav_in[name]],
+                                  quality=expected[name]["quality"],
+                                  device=dev)[0]
+        if h != blobs[name]:
+            raise AssertionError(f"{name}: the card's encode differs from "
+                                 f"the committed stream")
+        log(f"HCA encode fixture {name}: equal to {name}.hca")
+    name = "q4_stereo_48k_1s"
+    plain = blobs[name]
+    hs = int.from_bytes(plain[6:8], "big")
+    enc = port.crypt(plain, True, hs, 56, KEY)
+    if hca_frame.parse_header(enc[:hs]).ciph_type != 56 or enc == plain:
+        raise AssertionError("crypt did not encipher the stream")
+    wav = port.decode_batch([enc], key=KEY, device=dev)[0]
+    if sha(wav) != expected[name]["wav_sha256"]:
+        raise AssertionError("config 4: the enciphered stream does not "
+                             "decode to the plain stream's WAV")
+    if port.crypt(enc, False, hs, 56, KEY) != plain:
+        raise AssertionError("config 4: decrypt does not restore the stream")
+    log(f"config 4 round trip ({name}): encrypted (cipher 56), decoded on "
+        f"the card with the key to the plain WAV's sha256, decrypted back")
+
+    audio_s = BANK_STREAMS * expected[BANK]["seconds"]
+    port.hca_encode_batch(wav_bank, quality=2, device=dev)   # warm-up
+    wall, runs = median_wall(lambda: port.hca_encode_batch(
+        wav_bank, quality=2, device=dev))
+    log(f"HCA encode bank [{card}]: median of 3 = {wall:.4f} s for "
+        f"{audio_s:.0f} audio-s -> {audio_s / wall:.1f} audio-s/s; runs "
+        f"{[round(r, 4) for r in runs]}")
+    for name, ms, plain_ms, bd in (
+            ("hca_mdct", mdct_ms, mdct_plain_ms, mdct_bound),
+            ("hca_pack", pack_ms, pack_plain_ms, pack_bound)):
+        log(f"{name} [{card}] at the encode bank shape: kernel {ms:.4f} ms, "
+            f"twin {plain_ms:.4f} ms (one run), bound {bd['bound_ms']:.4f} "
+            f"ms by {bd['bound_by']}")
+    return {"hca_mdct": (mdct_ms, mdct_plain_ms, mdct_bound),
+            "hca_pack": (pack_ms, pack_plain_ms, pack_bound)}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -495,7 +800,8 @@ def main() -> None:
     log(f"build: {time.perf_counter() - t0:.3f} s (nvcc "
         f"{_build.BUILD_SECONDS} s)")
     for line in _build.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line:
+        if ("registers" in line or "spill" in line
+                or "Compiling entry function" in line):
             log("  ptxas:", line.strip())
 
     # -- fixtures -----------------------------------------------------------
@@ -678,6 +984,9 @@ def main() -> None:
 
     # -- phases 6-8: the ADX codec ------------------------------------------
     results.update(adx_phases(dev, card, worst, launches))
+
+    # -- phases 9-11: the HCA encode -----------------------------------------
+    results.update(hca_encode_phases(dev, card, worst, launches))
 
     report = []
     for name, (ms, plain_ms, bd) in results.items():

@@ -35,6 +35,7 @@ LIB_NAME = "libport_kernels.so"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C entry points: each launches one kernel on the given stream and returns
 # cudaGetLastError()
 SIGNATURES = {
@@ -45,6 +46,9 @@ SIGNATURES = {
                       _P, _P, _P, _P, _P, _P],
     "adx_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     "adx_encode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    "hca_mdct": [_P, _L, _I, _P, _P],
+    "hca_pack": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P, _P,
+                 _P, _P],
 }
 
 _lib = None
@@ -69,6 +73,7 @@ def tables_header() -> str:
     """C++ source of the kernels' constant tables, from the Python tables."""
     from .ops import hca_tables as T
     from .ops import hca_unpack_device as U
+    from .utils.crc import CRC16_TABLE
 
     val, adv = U.vlc_tables()
     out = ["// generated by pycricodecs_tpu_torch/_build.py; do not edit\n",
@@ -79,13 +84,23 @@ def tables_header() -> str:
                         [str(int(x)) for x in val.reshape(-1)]))
     out.append(_c_array("kVlcAdvance", "uint8_t",
                         [str(int(x)) for x in adv.reshape(-1)]))
+    for name, arr in (("kShuffle", T.SHUFFLE_TABLE),
+                      ("kQsBits", T.QUANTIZE_SPECTRUM_BITS),
+                      ("kQsValue", T.QUANTIZE_SPECTRUM_VALUE),
+                      ("kQsMaxBits", T.QUANTIZED_SPECTRUM_MAX_BITS)):
+        out.append(_c_array(name, "uint8_t",
+                            [str(int(x)) for x in np.reshape(arr, -1)]))
+    out.append(_c_array("kCrc16", "uint16_t",
+                        [str(int(x)) for x in CRC16_TABLE]))
     for name, arr in (("kScalingTable", T.SCALING_TABLE),
                       ("kRangeTable", T.RANGE_TABLE),
                       ("kScaleConversionTable", T.SCALE_CONVERSION_TABLE),
                       ("kIntensityRatioTable", T.INTENSITY_RATIO_TABLE),
                       ("kImdctSin", T.IMDCT_SIN),
                       ("kImdctCos", T.IMDCT_COS),
-                      ("kImdctWindow", T.IMDCT_WINDOW)):
+                      ("kImdctWindow", T.IMDCT_WINDOW),
+                      ("kDct4Sin", T.DCT4_SIN_FLAT),
+                      ("kDct4Cos", T.DCT4_COS_FLAT)):
         out.append(_c_array(name, "float", _f32_literals(arr)))
     return "".join(out)
 

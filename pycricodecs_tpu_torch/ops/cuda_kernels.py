@@ -3,7 +3,10 @@
 Wrappers and launch counters here: B3 `hca_transform` (csrc/hca_transform.cu,
 replaces pallas_kernels.transform_fused_pallas), B7 `adx_decode` and B8
 `adx_encode` (csrc/adx_codec.cu, replace adx_kernels.adx_decode_serial_pallas
-and adx_encode_serial_pallas). The unpack kernels B1/B2 are wrapped in
+and adx_encode_serial_pallas), B6 `hca_mdct` (csrc/hca_encode.cu, replaces
+pallas_kernels.mdct_enc_pallas) and the frame packer `hca_pack`
+(csrc/hca_pack.cu, carries hca_pack_device._scatter_segments_pallas, B9).
+The unpack kernels B1/B2 are wrapped in
 hca_unpack_device.py with the helpers below. A wrapper checks its inputs,
 allocates the outputs, launches on the current stream, raises if the launch
 failed and counts the launch.
@@ -22,6 +25,8 @@ from ..models.adx import STATIC_COEFFICIENTS, samples_per_block
 TRANSFORM_LAUNCHES = 0
 ADX_DECODE_LAUNCHES = 0
 ADX_ENCODE_LAUNCHES = 0
+MDCT_LAUNCHES = 0
+PACK_LAUNCHES = 0
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
@@ -150,4 +155,66 @@ def adx_encode(pcm, c0, c1, h1, h2, *, block_size, bit_depth, encoding_mode,
     if rc:
         raise launch_failed("adx_encode", rc)
     ADX_ENCODE_LAUNCHES += 1
+    return out
+
+
+def hca_mdct(pcm) -> torch.Tensor:
+    """Kernel B6: PCM16 i16 [B, C, T*128] (CUDA) -> spectra f32
+    [B, C, T, 128]."""
+    global MDCT_LAUNCHES
+    B, C, total = pcm.shape
+    if total % 128:
+        raise ValueError(f"pcm: length {total} is not a multiple of 128")
+    Tn = total // 128
+    check_cuda(pcm, "pcm", torch.int16, (B, C, total))
+    out = torch.empty((B, C, Tn, 128), dtype=torch.float32,
+                      device=pcm.device)
+    if B * C * Tn == 0:
+        return out
+    rc = _build.load().hca_mdct(ptr(pcm), B * C * Tn, Tn, ptr(out),
+                                stream_ptr(pcm))
+    if rc:
+        raise launch_failed("hca_mdct", rc)
+    MDCT_LAUNCHES += 1
+    return out
+
+
+def hca_pack(level, boundary, sf, res, intensity, hfr_scales, delta_bits,
+             quant, *, channels, coded_counts, channel_types,
+             hfr_group_count, frame_size) -> torch.Tensor:
+    """HCA frame packer (B9's placement inside): level/boundary i32 [B, F],
+    sf/res u8 [B, F, C, 128], intensity u8 [B, F, C, 8], hfr_scales i32
+    [B, F, C, G'], delta_bits i32 [B, F, C], quant i16 [B, F, C, 8, 128]
+    (CUDA) -> frame bytes u8 [B, F, frame_size]."""
+    global PACK_LAUNCHES
+    B, F = level.shape
+    C = int(channels)
+    Gp = hfr_scales.shape[-1]
+    check_cuda(level, "level", torch.int32, (B, F))
+    check_cuda(boundary, "boundary", torch.int32, (B, F))
+    check_cuda(sf, "sf", torch.uint8, (B, F, C, 128))
+    check_cuda(res, "res", torch.uint8, (B, F, C, 128))
+    check_cuda(intensity, "intensity", torch.uint8, (B, F, C, 8))
+    check_cuda(hfr_scales, "hfr_scales", torch.int32, (B, F, C, Gp))
+    check_cuda(delta_bits, "delta_bits", torch.int32, (B, F, C))
+    check_cuda(quant, "quant", torch.int16, (B, F, C, 8, 128))
+    if not 0 <= hfr_group_count <= Gp:
+        raise ValueError(f"hfr_group_count {hfr_group_count} not in "
+                         f"0..{Gp}")
+    out = torch.empty((B, F, frame_size), dtype=torch.uint8,
+                      device=level.device)
+    if B * F == 0:
+        return out
+    coded = np.ascontiguousarray(coded_counts, dtype=np.int32)
+    ctype = np.ascontiguousarray(channel_types, dtype=np.int32)
+    if coded.shape != (C,) or ctype.shape != (C,):
+        raise ValueError("coded_counts/channel_types: one per channel")
+    rc = _build.load().hca_pack(
+        ptr(level), ptr(boundary), ptr(sf), ptr(res), ptr(intensity),
+        ptr(hfr_scales), ptr(delta_bits), ptr(quant), B * F, C, Gp,
+        int(hfr_group_count), int(frame_size), host_ptr(coded),
+        host_ptr(ctype), ptr(out), stream_ptr(level))
+    if rc:
+        raise launch_failed("hca_pack", rc)
+    PACK_LAUNCHES += 1
     return out

@@ -25,6 +25,14 @@ of kernel B7 (or B8) runs every lane serially over its blocks; the host
 trims, interleaves and writes WAVs (or assembles ADX streams). The spb
 limit of the JAX device path is gone: the kernels loop over spb at run time.
 
+HCA encode (`hca_encode_batch`): counterpart of the JAX function of the same
+name with device=True. The host parses the WAVs and groups them by
+(channels, sample rate); per group it derives each stream's configuration,
+stacks the PCM timelines and copies them to the device, which runs the MDCT
+(kernel B6), the analysis and rate control, the HCA scale normalisation and
+the frame packer (kernel hca_pack); the frames come back and the host
+prepends each stream's header.
+
 On a CPU `device` every path runs the kernels' plain PyTorch twins.
 """
 from __future__ import annotations
@@ -38,7 +46,8 @@ import torch
 
 from ..models import adx as adx_model
 from ..models import hca as hca_model
-from ..ops import adx_kernels, hca_frame, hca_kernels, hca_unpack_device
+from ..ops import (adx_kernels, hca_encode_device, hca_frame, hca_kernels,
+                   hca_unpack_device)
 from ..utils import hca_crypt
 from ..utils import wav as wavmod
 from ..utils.crc import crc16_batch
@@ -418,4 +427,34 @@ def adx_encode_batch(wav_blobs: Sequence[bytes], *, bit_depth: int = 4,
         payload = np.ascontiguousarray(
             np.moveaxis(blocks[lane0:lane0 + ch, :prep.frames], 0, 1))
         results[idx] = adx_model._assemble_stream(prep, payload, **stream_kw)
+    return results
+
+
+# ---------------------------------------------------------------------------
+# HCA encode
+# ---------------------------------------------------------------------------
+
+def hca_encode_batch(wavs: Sequence[bytes], quality: int = 1,
+                     force_not_looping: bool = False, *,
+                     device="cuda") -> List[bytes]:
+    """Encode many WAVs to HCA v2.0 on `device`; returns HCA bytes per WAV,
+    byte-equal to pycricodecs_tpu.parallel.hca_encode_batch(wavs, quality,
+    force_not_looping, device=True) and to the JAX package's
+    hca_encode_host.encode.
+
+    Streams are grouped by (channels, sample rate); each group is one
+    device encode. A WAV that does not parse raises before anything is
+    encoded."""
+    device = torch.device(device)
+    parsed = [wavmod.parse_wav(bytes(b)) for b in wavs]
+    groups: dict = {}
+    for i, w in enumerate(parsed):
+        groups.setdefault((w.channels, w.sample_rate), []).append(i)
+    results: List = [None] * len(wavs)
+    for members in groups.values():
+        encoded = hca_encode_device.encode_batch_device(
+            [parsed[i] for i in members], quality, force_not_looping,
+            device=device)
+        for i, blob in zip(members, encoded):
+            results[i] = blob
     return results

@@ -1,12 +1,15 @@
-"""HCA byte-substitution cipher tables (types 0 / 1 / 56), decode side.
+"""HCA byte-substitution cipher tables (types 0 / 1 / 56) and re-keying.
 
 Behaviour parity: hca.cpp:491-617 (table generation), hca.cpp:3309-3311
-(key/subkey combination). Deciphering a frame is one lookup per byte in the
-256-entry table.
+(key/subkey combination), hca.cpp:3166-3250 (header chunk masking).
+Deciphering a frame is one lookup per byte in the 256-entry table;
+enciphering uses the inverted table.
 """
 from __future__ import annotations
 
 import numpy as np
+
+from .crc import crc16, crc16_batch
 
 
 def scramble_subkey(keycode: int, subkey: int) -> int:
@@ -78,3 +81,79 @@ def _cipher56(keycode: int) -> np.ndarray:
     table[0] = 0
     table[0xFF] = 0xFF
     return table
+
+
+def invert_cipher_table(table: np.ndarray) -> np.ndarray:
+    inv = np.zeros(256, dtype=np.uint8)
+    inv[table] = np.arange(256, dtype=np.uint8)
+    return inv
+
+
+def apply_cipher_frames(frames: np.ndarray, table: np.ndarray,
+                        restamp_crc: bool = True) -> np.ndarray:
+    """Substitute every byte of [N, frame_size] frames and re-stamp CRCs."""
+    out = table[frames]
+    if restamp_crc:
+        crc = crc16_batch(out[:, :-2])
+        out[:, -2] = (crc >> 8).astype(np.uint8)
+        out[:, -1] = (crc & 0xFF).astype(np.uint8)
+    return out
+
+
+# The reference XORs a host-endian (little-endian) u32 over the 4 signature
+# bytes (hca.cpp:3175 etc.): 0x00808080 toggles bytes 0-2, 0x80808080 all 4.
+_CHUNK_MASKS = {
+    b"HCA\x00": (0x80, 0x80, 0x80, 0x00), b"fmt\x00": (0x80, 0x80, 0x80, 0x00),
+    b"comp": (0x80, 0x80, 0x80, 0x80), b"dec\x00": (0x80, 0x80, 0x80, 0x00),
+    b"vbr\x00": (0x80, 0x80, 0x80, 0x00), b"ath\x00": (0x80, 0x80, 0x80, 0x00),
+    b"loop": (0x80, 0x80, 0x80, 0x80), b"ciph": (0x80, 0x80, 0x80, 0x80),
+    b"rva\x00": (0x80, 0x80, 0x80, 0x00), b"comm": (0x80, 0x80, 0x80, 0x80),
+    b"pad\x00": (0x80, 0x80, 0x80, 0x00),
+}
+
+_CHUNK_SIZES = {
+    b"HCA\x00": 8, b"fmt\x00": 16, b"comp": 16, b"dec\x00": 12, b"vbr\x00": 8,
+    b"ath\x00": 6, b"loop": 16, b"ciph": 6, b"rva\x00": 8,
+}
+
+
+def crypt_header(header: bytearray, ciph_value: int) -> bytearray:
+    """XOR-toggle chunk signature bytes, set the ciph type field, restamp CRC.
+
+    Works in both directions (the masks are involutions). `ciph_value` is the
+    value written into the ciph chunk (encryption type when encrypting, 0 when
+    decrypting).
+    """
+    out = bytearray(header)
+    size = len(out)
+    pos = 0
+
+    def sig_at(p):
+        return bytes(b & 0x7F for b in out[p:p + 4])
+
+    def toggle(p, mask):
+        for i in range(4):
+            out[p + i] ^= mask[i]
+
+    order = [b"HCA\x00", b"fmt\x00", (b"comp", b"dec\x00"), b"vbr\x00",
+             b"ath\x00", b"loop", b"ciph", b"rva\x00", b"comm", b"pad\x00"]
+    for want in order:
+        if pos + 4 > size:
+            break
+        sig = sig_at(pos)
+        wants = want if isinstance(want, tuple) else (want,)
+        if sig not in wants:
+            continue
+        toggle(pos, _CHUNK_MASKS[sig])
+        if sig == b"ciph":
+            out[pos + 4:pos + 6] = int(ciph_value).to_bytes(2, "big")
+        if sig == b"comm":
+            length = out[pos + 4]
+            pos += 5 + length
+        elif sig == b"pad\x00":
+            break
+        else:
+            pos += _CHUNK_SIZES[sig]
+    crc = crc16(bytes(out[:size - 2]))
+    out[size - 2:size] = crc.to_bytes(2, "big")
+    return out

@@ -1,9 +1,9 @@
 """The deterministic test signals behind the port's fixtures (numpy only).
 
 tools/make_torch_port_fixtures.py encodes these signals with the JAX
-package to write tests/data/torch_port/; chip_smoke.py rebuilds the ADX
-input WAVs from the same recipe on the GPU machine, which has no JAX, and
-holds them to the hashes recorded there.
+package to write tests/data/torch_port/; chip_smoke.py rebuilds the HCA and
+ADX input WAVs from the same recipe on the GPU machine, which has no JAX,
+and holds them to the hashes recorded there.
 """
 from __future__ import annotations
 
@@ -24,6 +24,29 @@ def signal(channels: int, seconds: float) -> np.ndarray:
     pcm = np.clip(sig * 32767, -32768, 32767).astype(np.int16)
     return np.stack([np.roll(pcm, 480 * c) for c in range(channels)],
                     1).reshape(-1)
+
+
+HCA_BANK = "bank_q2_stereo_48k_10s"
+# name -> (channels, seconds, quality, loop (start, end) or None)
+HCA_STREAMS = {
+    HCA_BANK: (2, 10.0, 2, None),
+    "q4_stereo_48k_1s": (2, 1.0, 4, None),
+    "q2_mono_48k_1s": (1, 1.0, 2, None),
+    "q0_stereo_48k_1s": (2, 1.0, 0, None),
+    "q2_6ch_48k_1s": (6, 1.0, 2, None),
+    "q2_loop_stereo_48k_1s": (2, 1.0, 2, (4000, 40000)),
+}
+
+
+def hca_wav(name: str, write_wav) -> bytes:
+    """The input WAV of an HCA fixture, from signal(); `write_wav` is the
+    JAX package's or the port's (they are equal)."""
+    channels, seconds, _, loop = HCA_STREAMS[name]
+    pcm = signal(channels, seconds)
+    if loop is None:
+        return write_wav(pcm, channels, SAMPLE_RATE)
+    return write_wav(pcm, channels, SAMPLE_RATE, looping=True,
+                     loop_start=loop[0], loop_end=loop[1])
 
 
 ADX_BANK = "adx_m3_bd4_stereo_48k_10s"

@@ -1,7 +1,8 @@
 """PyTorch port: the host pieces it carries as copies (the GPU machine has no
 JAX, and importing any pycricodecs_tpu module imports jax) must equal their
 pycricodecs_tpu originals exactly: tables, header parse, cipher, CRC, WAV
-writer, loop points. Also: the port never imports jax or pycricodecs_tpu.
+writer, loop points, the encoder's configuration, timeline and header, and
+the frame re-keying. Also: the port never imports jax or pycricodecs_tpu.
 """
 import dataclasses
 import os
@@ -12,12 +13,14 @@ import numpy as np
 import pytest
 
 from pycricodecs_tpu.models import hca as jax_model
+from pycricodecs_tpu.ops import hca_encode_host as jax_enc
 from pycricodecs_tpu.ops import hca_tables as jax_tables
 from pycricodecs_tpu.ops import hca_unpack_device as jax_unpack
 from pycricodecs_tpu.utils import crc as jax_crc
 from pycricodecs_tpu.utils import hca_crypt as jax_crypt
 from pycricodecs_tpu.utils import wav as jax_wav
 from pycricodecs_tpu_torch.models import hca as port_model
+from pycricodecs_tpu_torch.ops import hca_encode_host as port_enc
 from pycricodecs_tpu_torch.ops import hca_frame as port_frame
 from pycricodecs_tpu_torch.ops import hca_tables as port_tables
 from pycricodecs_tpu_torch.ops import hca_unpack_device as port_unpack
@@ -30,7 +33,13 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 TABLES = ["SCALING_TABLE", "RANGE_TABLE", "SCALE_CONVERSION_TABLE",
           "INTENSITY_RATIO_TABLE", "IMDCT_SIN", "IMDCT_COS", "IMDCT_WINDOW",
-          "INVERT_TABLE", "ATH_BASE_CURVE"]
+          "INVERT_TABLE", "ATH_BASE_CURVE", "QUANTIZER_INVERSE_STEP_SIZE",
+          "INTENSITY_RATIO_BOUNDS", "QUANTIZER_DEAD_ZONE",
+          "QUANTIZER_SCALING_TABLE", "DCT4_SIN_FLAT", "DCT4_COS_FLAT",
+          "SHUFFLE_TABLE", "SCALE_TO_RESOLUTION_CURVE",
+          "QUANTIZE_SPECTRUM_BITS", "QUANTIZE_SPECTRUM_VALUE",
+          "VALID_CHANNEL_MAPPINGS", "DEFAULT_CHANNEL_MAPPING",
+          "QUANTIZED_SPECTRUM_MAX_BITS"]
 
 
 @pytest.mark.parametrize("name", TABLES)
@@ -192,9 +201,91 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             " pycricodecs_tpu_torch.utils.wav,"
             " pycricodecs_tpu_torch.utils.bitio,"
             " pycricodecs_tpu_torch.utils.signals,"
+            " pycricodecs_tpu_torch.ops.hca_encode_host,"
+            " pycricodecs_tpu_torch.ops.hca_encode_device,"
+            " pycricodecs_tpu_torch.ops.hca_pack_device,"
+            " pycricodecs_tpu_torch.models.hca,"
+            " pycricodecs_tpu_torch.utils.hca_crypt,"
             " pycricodecs_tpu_torch._build; "
             "assert 'jax' not in sys.modules, 'jax'; "
             "assert 'pycricodecs_tpu' not in sys.modules, 'pycricodecs_tpu'")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
+
+
+def test_dct4_stage_tables_equal():
+    for stage in range(8):
+        for got, ref in zip(port_tables.dct4_stage_tables(stage),
+                            jax_tables.dct4_stage_tables(stage)):
+            np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("channels", range(1, 9))
+def test_calculate_bitrate_equal(channels):
+    for rate in (8000, 22050, 44100, 48000, 96000):
+        for quality in range(-1, 7):
+            assert port_enc.calculate_bitrate(channels, rate, quality) == \
+                jax_enc.calculate_bitrate(channels, rate, quality)
+
+
+# (samples, channels, rate, quality, loop points or None, force_not_looping)
+ENCODE_CONFIGS = {
+    "stereo_q2": (12000, 2, 48000, 2, None, False),
+    "mono_q4_44k": (9000, 1, 44100, 4, None, False),
+    "6ch_q0": (5000, 6, 48000, 0, None, False),
+    "8ch_q3_16k": (4096, 8, 16000, 3, None, False),
+    "short_q1": (300, 2, 48000, 1, None, False),
+    "empty_q2": (0, 2, 48000, 2, None, False),
+    "loop_q2": (30000, 2, 48000, 2, (4000, 20000), False),
+    "loop_late_8k": (5857, 4, 8000, 3, (1289, 5460), False),
+    "loop_forced_off": (30000, 2, 48000, 2, (4000, 20000), True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENCODE_CONFIGS))
+def test_encode_config_timeline_and_header_equal(name):
+    samples, ch, rate, quality, loop, fnl = ENCODE_CONFIGS[name]
+    pcm = np.random.default_rng(samples).integers(
+        -32768, 32768, samples * ch, dtype=np.int16)
+    kw = {} if loop is None else dict(looping=True, loop_start=loop[0],
+                                      loop_end=loop[1])
+    wav = jax_wav.write_wav(pcm, ch, rate, **kw)
+    jw, pw = jax_wav.parse_wav(wav), port_wav.parse_wav(wav)
+    jc = jax_enc.init_encode(jw, quality, jw.looping and not fnl)
+    pc = port_enc.init_encode(pw, quality, pw.looping and not fnl)
+    H.assert_info_equal(pc.info, jc.info)
+    for field in ("post_samples", "buffer_pre_samples",
+                  "sample_count_per_channel", "input_sample_count",
+                  "hfr_band_count"):
+        assert getattr(pc, field) == getattr(jc, field), field
+    np.testing.assert_array_equal(port_enc.build_timeline(pc, pw),
+                                  jax_enc.build_timeline(jc, jw))
+    assert port_enc.pack_header(pc.info) == jax_enc.pack_header(jc.info)
+
+
+def test_init_encode_refuses_like_jax():
+    wav = jax_wav.write_wav(np.zeros(90, np.int16), 9, 48000)
+    with pytest.raises(Exception) as ref:
+        jax_enc.init_encode(jax_wav.parse_wav(wav), 2, False)
+    with pytest.raises(Exception) as got:
+        port_enc.init_encode(port_wav.parse_wav(wav), 2, False)
+    assert type(got.value).__name__ == type(ref.value).__name__
+    assert str(got.value) == str(ref.value)
+
+
+@pytest.mark.parametrize("ciph_type", [1, 56])
+def test_crypt_helpers_equal(ciph_type):
+    table = jax_crypt.cipher_table(ciph_type, H.KEY)
+    np.testing.assert_array_equal(port_crypt.invert_cipher_table(table),
+                                  jax_crypt.invert_cipher_table(table))
+    frames = np.random.default_rng(ciph_type).integers(
+        0, 256, (9, 200), dtype=np.uint8)
+    np.testing.assert_array_equal(
+        port_crypt.apply_cipher_frames(frames, table),
+        jax_crypt.apply_cipher_frames(frames, table))
+    blob = H.encode(2, 2, seed=40, samples=30000, loop=(4000, 20000))
+    hs = H.header_size(blob)
+    for value in (0, ciph_type):
+        assert port_crypt.crypt_header(bytearray(blob[:hs]), value) == \
+            jax_crypt.crypt_header(bytearray(blob[:hs]), value)

@@ -223,7 +223,24 @@ def test_profile_tool_names_the_pipeline_pieces():
     pieces = prof_tool.host_pieces(cp, prof_tool.ADX_HOST_PIECES)
     assert 0 < pieces["_interleave"] < pieces["adx_decode_batch (whole call)"]
     assert os.path.exists(prof_tool.ADX_BANK)
-    for extra in ([], ["--adx"]):
+    # the HCA encode bank's pieces, in a real encode
+    from pycricodecs_tpu_torch.utils import signals
+    from pycricodecs_tpu_torch.utils.wav import write_wav
+    wav = signals.hca_wav("q2_mono_48k_1s", write_wav)
+    cp = cProfile.Profile()
+    cp.enable()
+    port_parallel.hca_encode_batch([wav] * 2, quality=2, device="cpu")
+    cp.disable()
+    stats = pstats.Stats(cp).stats
+    for label, fsuffix, fname in prof_tool.ENCODE_HOST_PIECES:
+        assert any((f == "~" and fname in fn) if fsuffix == "~"
+                   else (f.endswith(fsuffix) and fn == fname)
+                   for f, _, fn in stats), label
+    pieces = prof_tool.host_pieces(cp, prof_tool.ENCODE_HOST_PIECES)
+    assert 0 < pieces["build_timeline"] \
+        <= pieces["stack_timelines (stacking, build_timeline included)"] \
+        < pieces["hca_encode_batch (whole call)"]
+    for extra in ([], ["--adx"], ["--hca-encode"]):
         r = subprocess.run([sys.executable, "tools/profile_torch_slice.py",
                             *extra], cwd=ROOT, capture_output=True,
                            text=True, timeout=300)
@@ -235,8 +252,12 @@ def test_fixtures_regenerate_byte_identically():
     expected, blobs = H.load_fixtures()
     made = tool.make_streams()
     assert sorted(made) == sorted(expected)
-    for name, blob in made.items():
+    for name, (wav, blob) in made.items():
         assert blob == blobs[name], name
+        assert hashlib.sha256(wav).hexdigest() == \
+            expected[name]["wav_in_sha256"], name
+        assert hashlib.sha256(blob).hexdigest() == \
+            expected[name]["hca_sha256"], name
     adx_expected, adx_blobs = H.load_adx_fixtures()
     made = tool.make_adx_streams()
     assert sorted(made) == sorted(adx_expected)

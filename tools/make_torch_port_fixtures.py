@@ -5,17 +5,22 @@ installed.
 
 HCA (tests/data/torch_port/):
 
-Encodes with the JAX package's host encoder (pycricodecs_tpu.ops.
-hca_encode_host.encode) and records, in expected.json, the sha256 of the WAV
-that pycricodecs_tpu.parallel.decode_batch makes of each stream (its host
-and device engines agree, which this script checks).
+Encodes a WAV rebuilt by hca_wav() of pycricodecs_tpu_torch/utils/signals.py
+with the JAX package's host encoder (pycricodecs_tpu.ops.hca_encode_host.
+encode; its batched device encoder, parallel.hca_encode_batch(...,
+device=True), agrees, which this script checks) and records, in
+expected.json, the sha256 of the input WAV, of the HCA stream and of the WAV
+that pycricodecs_tpu.parallel.decode_batch makes of it (its host and device
+engines agree, which this script checks).
 
 - bank_q2_stereo_48k_10s.hca: the bench.py stream (10 s stereo 48 kHz, the
   440 Hz + 991 Hz + noise signal, right channel delayed 480 samples),
   quality 2: the BASELINE config-5 bank member.
 - 1 s streams covering the other transform branches: q4 stereo (intensity
-  pair + HFR), q2 mono (HFR, no pair), q0 stereo (discrete pair) and q2
-  6-channel (two pairs, two unpaired channels).
+  pair + HFR), q2 mono (HFR, no pair), q0 stereo (discrete pair), q2
+  6-channel (two pairs, two unpaired channels) and a looping q2 stereo WAV
+  (smpl loop 4000-40000: the loop chunk, the header padding and the
+  replayed loop region of the encoder).
 
 ADX (tests/data/torch_port/adx/, with its own expected.json): each stream is
 pycricodecs_tpu.models.adx.encode of a WAV rebuilt by adx_wav() of
@@ -46,19 +51,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 from pycricodecs_tpu_torch.utils.signals import (  # noqa: E402
-    ADX_STREAMS, SAMPLE_RATE, adx_wav, signal)
+    ADX_STREAMS, HCA_STREAMS, adx_wav, hca_wav)
 
 OUT_DIR = os.path.join(ROOT, "tests", "data", "torch_port")
 ADX_DIR = os.path.join(OUT_DIR, "adx")
-
-# name -> (channels, seconds, quality)
-STREAMS = {
-    "bank_q2_stereo_48k_10s": (2, 10.0, 2),
-    "q4_stereo_48k_1s": (2, 1.0, 4),
-    "q2_mono_48k_1s": (1, 1.0, 2),
-    "q0_stereo_48k_1s": (2, 1.0, 0),
-    "q2_6ch_48k_1s": (6, 1.0, 2),
-}
 
 
 def make_adx_streams() -> dict:
@@ -74,14 +70,15 @@ def make_adx_streams() -> dict:
 
 
 def make_streams() -> dict:
-    """name -> HCA bytes, encoded by the JAX package's host encoder."""
+    """name -> (input WAV bytes, HCA bytes of the JAX package's host
+    encoder)."""
     from pycricodecs_tpu.ops import hca_encode_host
     from pycricodecs_tpu.utils.wav import write_wav
 
     out = {}
-    for name, (channels, seconds, quality) in STREAMS.items():
-        wav = write_wav(signal(channels, seconds), channels, SAMPLE_RATE)
-        out[name] = hca_encode_host.encode(wav, quality=quality)
+    for name, (_, _, quality, _) in HCA_STREAMS.items():
+        wav = hca_wav(name, write_wav)
+        out[name] = (wav, hca_encode_host.encode(wav, quality=quality))
     return out
 
 
@@ -100,17 +97,24 @@ def main() -> None:
                                + " --xla_cpu_max_isa=SSE4_2").strip()
     import jax
     jax.config.update("jax_platforms", "cpu")
+    from pycricodecs_tpu import parallel
+
     os.makedirs(OUT_DIR, exist_ok=True)
     expected = {}
-    for name, blob in make_streams().items():
+    for name, (wav, blob) in make_streams().items():
+        channels, seconds, quality, loop = HCA_STREAMS[name]
+        if parallel.hca_encode_batch([wav], quality=quality,
+                                     device=True)[0] != blob:
+            raise SystemExit(f"{name}: batch and host encoders disagree")
         with open(os.path.join(OUT_DIR, name + ".hca"), "wb") as f:
             f.write(blob)
         sha = reference_sha256(blob, "host")
         if reference_sha256(blob, "device") != sha:
             raise SystemExit(f"{name}: host and device engines disagree")
-        channels, seconds, quality = STREAMS[name]
         expected[name] = {"channels": channels, "seconds": seconds,
-                          "quality": quality, "wav_sha256": sha}
+                          "quality": quality, "loop": loop,
+                          "wav_in_sha256": sha256(wav),
+                          "hca_sha256": sha256(blob), "wav_sha256": sha}
         print(name, len(blob), sha)
     with open(os.path.join(OUT_DIR, "expected.json"), "w") as f:
         json.dump(expected, f, indent=1, sort_keys=True)

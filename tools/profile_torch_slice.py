@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Where the time of the port's bank decode goes, on one CUDA GPU.
+"""Where the time of the port's bank decode or encode goes, on one CUDA GPU.
 
-Decodes a 256-stream x 10 s bank (tests/data/torch_port, the banks that
-chip_smoke.py drives): by default the HCA bank with
-pycricodecs_tpu_torch.decode_batch; with --adx the ADX bank with
-adx_decode_batch.
+Runs one 256-stream x 10 s bank (tests/data/torch_port, the banks that
+chip_smoke.py drives): by default the HCA bank decode with
+pycricodecs_tpu_torch.decode_batch; with --adx the ADX bank decode with
+adx_decode_batch; with --hca-encode the HCA bank encode with
+hca_encode_batch (256 copies of the bank's input WAV, rebuilt by
+pycricodecs_tpu_torch/utils/signals.py, quality 2).
 
 1. one warm-up run, then one plain run timed on the host clock;
 2. one run under torch.profiler (CPU + CUDA activities): device time summed
@@ -14,12 +16,16 @@ adx_decode_batch.
    header parse, frame stacking + sync check, CRC16, H2D, launches, D2H,
    trim, WAV write, next to that run's DecodeStats. ADX: header parse,
    payload slicing + lane stacking, H2D, launch, D2H, interleave, WAV write.
+   HCA encode: WAV parse, init_encode, build_timeline, stacking, H2D, the
+   device work's enqueue, D2H (`.cpu()`, which waits for the device), header
+   assembly.
 
 Prints each part with the card's name and power limit, and last one JSON
 line of the numbers. There is no CPU path.
 
 Run from the repository root:
-    python3 tools/profile_torch_slice.py [--adx] [--trace trace.json]
+    python3 tools/profile_torch_slice.py [--adx | --hca-encode]
+        [--trace trace.json]
 """
 import argparse
 import cProfile
@@ -38,6 +44,7 @@ BANK = os.path.join(ROOT, "tests", "data", "torch_port",
                     "bank_q2_stereo_48k_10s.hca")
 ADX_BANK = os.path.join(ROOT, "tests", "data", "torch_port", "adx",
                         "adx_m3_bd4_stereo_48k_10s.adx")
+ENCODE_QUALITY = 2
 STREAMS = 256
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
@@ -66,6 +73,19 @@ ADX_HOST_PIECES = [
     ("Tensor.cpu (wait + D2H)", "~", "'cpu' of 'torch._C."),
     ("_interleave", "pipeline.py", "_interleave"),
     ("write_wav", "wav.py", "write_wav"),
+]
+ENCODE_HOST_PIECES = [
+    ("hca_encode_batch (whole call)", "pipeline.py", "hca_encode_batch"),
+    ("parse_wav", "wav.py", "parse_wav"),
+    ("init_encode", "hca_encode_host.py", "init_encode"),
+    ("build_timeline", "hca_encode_host.py", "build_timeline"),
+    ("stack_timelines (stacking, build_timeline included)",
+     "hca_encode_device.py", "stack_timelines"),
+    ("Tensor.to (H2D, pageable)", "~", "'to' of 'torch._C."),
+    ("hca_encode_frames (enqueue; syncs in rate control)",
+     "hca_encode_device.py", "hca_encode_frames"),
+    ("Tensor.cpu (wait + D2H)", "~", "'cpu' of 'torch._C."),
+    ("assemble (header + frames)", "hca_encode_device.py", "assemble"),
 ]
 
 
@@ -115,8 +135,12 @@ def host_pieces(prof: cProfile.Profile, pieces=HOST_PIECES) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--adx", action="store_true",
-                    help="profile the ADX bank decode instead of the HCA one")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--adx", action="store_true",
+                      help="profile the ADX bank decode instead of the HCA "
+                           "one")
+    mode.add_argument("--hca-encode", action="store_true",
+                      help="profile the HCA bank encode")
     ap.add_argument("--trace", help="write the profiler's chrome trace here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -128,13 +152,20 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     card = card_line()
     print(f"card: {card}", flush=True)
-    with open(ADX_BANK if args.adx else BANK, "rb") as f:
-        bank = [f.read()] * STREAMS
+    if args.hca_encode:
+        from pycricodecs_tpu_torch.utils import signals
+        from pycricodecs_tpu_torch.utils.wav import write_wav
+        bank = [signals.hca_wav(signals.HCA_BANK, write_wav)] * STREAMS
+    else:
+        with open(ADX_BANK if args.adx else BANK, "rb") as f:
+            bank = [f.read()] * STREAMS
 
     def run(stats=None) -> float:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        if args.adx:
+        if args.hca_encode:
+            port.hca_encode_batch(bank, quality=ENCODE_QUALITY, device=dev)
+        elif args.adx:
             port.adx_decode_batch(bank, device=dev)
         else:
             port.decode_batch(bank, device=dev, stats=stats)
@@ -177,8 +208,9 @@ def main() -> None:
     cprof_wall = run(st)
     cp.disable()
     cprof = {"wall_s": cprof_wall}
-    if args.adx:
-        pieces = host_pieces(cp, ADX_HOST_PIECES)
+    if args.adx or args.hca_encode:
+        pieces = host_pieces(cp, ENCODE_HOST_PIECES if args.hca_encode
+                             else ADX_HOST_PIECES)
         print(f"[{card}] cProfile run: wall {cprof_wall:.4f} s", flush=True)
     else:
         pieces = host_pieces(cp)
@@ -190,13 +222,15 @@ def main() -> None:
               f"total {st.total_seconds:.4f} s", flush=True)
     for label, secs in pieces.items():
         print(f"  {secs:>9.4f} s  {label}")
-    if not args.adx:
+    if not (args.adx or args.hca_encode):
         print(f"  {stack_s:>9.4f} s  frame stacking + sync check "
               f"(DecodeStats.unpack - crc16_batch)")
     cprof["host_s"] = pieces
 
     print(json.dumps({
-        "card": card, "bank": "adx" if args.adx else "hca",
+        "card": card,
+        "bank": ("hca_encode" if args.hca_encode
+                 else "adx" if args.adx else "hca"),
         "streams": STREAMS, "plain_wall_s": plain_wall,
         "profiled": {"wall_s": prof_wall, "device_busy_s": busy_s,
                      "idle_share": 1 - busy_s / prof_wall,
