@@ -53,6 +53,27 @@ and held to their recorded hashes):
    card with the key, decrypt back); both kernels launched; the bank call
    timed (median of 3 after a warm-up).
 
+v3 PNS noise fill (tests/data/torch_port/pns_v3_mono_48k_1s.hca, a v3.0
+relabel with min_resolution 0):
+12. B3 with noise maps against its twin: random legal maps for the PNS
+   fixture's config and the q4 stereo config (HFR takes the noise-filled
+   band as its source) at 64 streams x 469 frames, and the fixture's real
+   maps (`noise_maps` on the card equal to the same code on the CPU);
+   `decode_batch` of 64 copies of the fixture, every WAV equal to its
+   recorded sha256; B1-B3 launched; B3 timed with noise.
+
+AHX (tests/data/torch_port/ahx/, hashes from the JAX package's host lane):
+13. B10 `mp2_unpack` against `mp2_unpack_plain`, byte for byte with the error
+   flags: the bank's frames (256 x 192), 4,096 random-byte frames behind
+   valid headers for each unpacker configuration (LSF mono 16/22.05/24 kHz,
+   MPEG-1 stereo and joint stereo with random bounds, CRC on), the
+   varying-bound stream; `mp2_synth` against `synthesize_plain`, bit for
+   bit, at the bank shape and on random codes in their legal ranges;
+   `ahx_decode_batch` of 256 copies of the 10 s bank stream and of the 1 s
+   fixtures, every WAV equal to its recorded sha256; both kernels launched;
+   the bank call timed (median of 3 after a warm-up); kernels and twins
+   timed by CUDA events.
+
 Prints a JSON line of per-kernel results (launches on the main paths, max
 |kernel - twin|, kernel/twin ms, the bound from the bytes and operations of
 the timed call), the card line, and last a JSON line
@@ -75,6 +96,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURES = os.path.join(ROOT, "tests", "data", "torch_port")
 ADX_FIXTURES = os.path.join(FIXTURES, "adx")
+AHX_FIXTURES = os.path.join(FIXTURES, "ahx")
 BANK = "bank_q2_stereo_48k_10s"
 BANK_STREAMS = 256
 RANDOM_FRAMES = 4096
@@ -103,6 +125,17 @@ KERNELS = {
     "hca_pack": dict(
         source="pycricodecs_tpu_torch/csrc/hca_pack.cu",
         replaces="pycricodecs_tpu/ops/hca_pack_device.py:207"),
+    # B3 again, launched with the v3 PNS noise maps (the PNS path)
+    "hca_transform_pns": dict(
+        source="pycricodecs_tpu_torch/csrc/hca_transform.cu",
+        replaces="pycricodecs_tpu/ops/pallas_kernels.py:448"),
+    "mp2_unpack": dict(
+        source="pycricodecs_tpu_torch/csrc/mp2_unpack.cu",
+        replaces="pycricodecs_tpu/ops/mp2_unpack_device.py:79"),
+    # no Pallas kernel: the JAX device program's f32 XLA matmuls
+    "mp2_synth": dict(
+        source="pycricodecs_tpu_torch/csrc/mp2_synth.cu",
+        replaces="pycricodecs_tpu/ops/mp2_kernels.py:179"),
 }
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, and the
@@ -110,6 +143,10 @@ KERNELS = {
 # from below (Hopper issues INT32 at most at the FP32 rate).
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
+# Float64 outside the tensor cores: 34 TFLOP/s (same data sheet), an FMA
+# counted as 2; without FMA each DMUL or DADD issues at the DFMA rate, so
+# 17e12 f64 multiplies or adds per second.
+FP64_OPS_PER_S = 17e12
 # Operations counted per unit of work, as lower bounds (each counts only the
 # arithmetic the function cannot skip):
 # - B1: one per side-info value written; B2: three per spectral code (peek,
@@ -125,9 +162,18 @@ SCALAR_OPS_PER_S = 67e12
 #   the final scale 1, per output value;
 # - hca_pack: three per spectrum code written, i.e. per coded band and
 #   subframe whose resolution is 1-15 (table lookup, shift-or into the bit
-#   accumulator, cursor add).
+#   accumulator, cursor add);
+# - B3 with PNS: B3's 42 plus the noise term's multiply and add;
+# - B10 (mp2_unpack): three per sample code written (field extract, cursor
+#   add, store), i.e. per allocated (frame, channel, subband) x 36;
+# - mp2_synth, f64 operations per output sample: dequantise 5 (mul, add,
+#   sub, div, mul), matrixing 126 (64 outputs x 32 mul + 31 add per 32
+#   samples), window 31 (16 mul + 15 add), PCM 2 (mul, add); counted
+#   against FP64_OPS_PER_S.
 OPS = {"hca_side_info": 1, "hca_coefficients": 3, "hca_transform": 42,
-       "adx_decode": 13, "adx_encode": 20, "hca_mdct": 23, "hca_pack": 3}
+       "adx_decode": 13, "adx_encode": 20, "hca_mdct": 23, "hca_pack": 3,
+       "hca_transform_pns": 44, "mp2_unpack": 3, "mp2_synth": 164}
+OPS_PER_S = {"mp2_synth": FP64_OPS_PER_S}
 
 
 def log(*args) -> None:
@@ -188,7 +234,8 @@ def bound(name: str, moved_bytes: int, units: int) -> dict:
     """The least time of a kernel's work: moved bytes over HBM bandwidth or
     its counted operations over the scalar peak, whichever is larger."""
     by_bytes = moved_bytes / HBM_BYTES_PER_S * 1e3
-    by_ops = OPS[name] * units / SCALAR_OPS_PER_S * 1e3
+    by_ops = (OPS[name] * units / OPS_PER_S.get(name, SCALAR_OPS_PER_S)
+              * 1e3)
     return dict(bound_ms=max(by_bytes, by_ops),
                 bound_by="bytes" if by_bytes >= by_ops else "operations")
 
@@ -319,6 +366,8 @@ def reset_launches() -> None:
     cuda_kernels.ADX_ENCODE_LAUNCHES = 0
     cuda_kernels.MDCT_LAUNCHES = 0
     cuda_kernels.PACK_LAUNCHES = 0
+    cuda_kernels.MP2_UNPACK_LAUNCHES = 0
+    cuda_kernels.MP2_SYNTH_LAUNCHES = 0
 
 
 def read_launches() -> dict:
@@ -330,7 +379,9 @@ def read_launches() -> dict:
             "adx_decode": cuda_kernels.ADX_DECODE_LAUNCHES,
             "adx_encode": cuda_kernels.ADX_ENCODE_LAUNCHES,
             "hca_mdct": cuda_kernels.MDCT_LAUNCHES,
-            "hca_pack": cuda_kernels.PACK_LAUNCHES}
+            "hca_pack": cuda_kernels.PACK_LAUNCHES,
+            "mp2_unpack": cuda_kernels.MP2_UNPACK_LAUNCHES,
+            "mp2_synth": cuda_kernels.MP2_SYNTH_LAUNCHES}
 
 
 def drive(path: str, own, fn):
@@ -616,7 +667,9 @@ def hca_encode_phases(dev, card: str, worst: dict, launches: dict) -> dict:
     from pycricodecs_tpu_torch.utils.wav import parse_wav, write_wav
 
     with open(os.path.join(FIXTURES, "expected.json")) as f:
-        expected = json.load(f)
+        # the v3 PNS fixture is a relabelled stream with no encode of its own
+        expected = {n: e for n, e in json.load(f).items()
+                    if not e.get("v3_pns")}
     blobs, wav_in = {}, {}
     for name in expected:
         with open(os.path.join(FIXTURES, name + ".hca"), "rb") as f:
@@ -768,6 +821,312 @@ def hca_encode_phases(dev, card: str, worst: dict, launches: dict) -> dict:
             f"ms by {bd['bound_by']}")
     return {"hca_mdct": (mdct_ms, mdct_plain_ms, mdct_bound),
             "hca_pack": (pack_ms, pack_plain_ms, pack_bound)}
+
+
+# ---------------------------------------------------------------------------
+# v3 PNS noise fill (phase 12)
+# ---------------------------------------------------------------------------
+
+PNS_STREAMS = 64
+
+
+def random_transform_inputs(g, n_streams, F, C, dev):
+    """Random legal B3 inputs and PNS maps [n_streams, F, C, ...] on dev."""
+    def ri(hi, shape, dtype):
+        return torch.randint(0, hi, shape, generator=g, dtype=dtype).to(dev)
+    shape = (n_streams, F, C)
+    qc = (torch.randint(-127, 128, shape + (8, 128), generator=g,
+                        dtype=torch.int16)).to(dev)
+    args = [qc, ri(64, shape + (128,), torch.uint8),
+            ri(16, shape + (128,), torch.uint8),
+            ri(16, shape + (8,), torch.uint8)]
+    mask = (torch.rand(shape + (8, 128), generator=g) < 0.3).to(dev)
+    noise = (ri(128, shape + (8, 128), torch.uint8),
+             ri(128, shape + (8, 128), torch.uint8), mask)
+    return args, noise
+
+
+def pns_phase(dev, card: str, worst: dict, launches: dict) -> dict:
+    """Phase 12; returns name -> (ms, plain_ms, bound dict)."""
+    import pycricodecs_tpu_torch as port
+    from pycricodecs_tpu_torch.ops import hca_frame
+    from pycricodecs_tpu_torch.ops import hca_kernels as K
+    from pycricodecs_tpu_torch.ops import hca_unpack_device as U
+    from pycricodecs_tpu_torch.parallel.pipeline import \
+        CHUNK_STREAMS as CHUNK
+
+    with open(os.path.join(FIXTURES, "expected.json")) as f:
+        expected = json.load(f)
+    name = next(n for n, e in expected.items() if e.get("v3_pns"))
+    with open(os.path.join(FIXTURES, name + ".hca"), "rb") as f:
+        blob = f.read()
+    if sha(blob) != expected[name]["hca_sha256"]:
+        raise AssertionError(f"{name}.hca differs from its hash")
+    hs = int.from_bytes(blob[6:8], "big")
+    info = hca_frame.parse_header(blob[:hs])
+    def fixture_info(fixture):
+        with open(os.path.join(FIXTURES, fixture + ".hca"), "rb") as f:
+            data = f.read()
+        return hca_frame.parse_header(data[:int.from_bytes(data[6:8],
+                                                           "big")])
+    q4 = "q4_stereo_48k_1s"
+    q4_info = fixture_info(q4)
+    bank_info = fixture_info(BANK)
+    F = bank_info.frame_count               # the bank chunk's 469 frames
+
+    # B3 with random legal maps against its twin
+    g = torch.Generator().manual_seed(12)
+    w = 0
+    for label, cinfo in ((name, info), (q4, q4_info)):
+        hfr, cfg = K.transform_config(cinfo)
+        args, noise = random_transform_inputs(g, CHUNK, F, cinfo.channels,
+                                              dev)
+        pk = K.hca_decode_transform_batched(*args, hfr, noise=noise, **cfg)
+        pt = K.decode_transform_plain(*args, hfr, noise=noise, **cfg)
+        w = max(w, require_equal(f"B3 PNS random {label}", [("pcm", pk, pt)]))
+        log(f"B3 with random PNS maps, {label} config ({CHUNK}x{F} frames, "
+            f"{cinfo.channels} ch): byte-equal to the twin")
+        del pk, pt
+    # the fixture's real maps: noise_maps on the card equals the CPU run
+    up = U.DeviceUnpacker(info, dev)
+    n = info.frame_count
+    frames = np.frombuffer(blob, np.uint8, count=n * info.frame_size,
+                           offset=hs).reshape(n, info.frame_size)
+    qc, sf, res, inten, err = up(torch.from_numpy(frames.copy()).to(dev))
+    if bool(err.any()):
+        raise AssertionError("B1/B2 flagged an error on the PNS fixture")
+    maps = up.noise_maps(sf, res, 1)
+    cpu_maps = U.DeviceUnpacker(info, "cpu").noise_maps(sf.cpu(), res.cpu(),
+                                                        1)
+    for label, a, b in zip(("src", "sci", "mask"), maps, cpu_maps):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(f"noise_maps {label}: card and CPU differ")
+    masked = int(maps[2].sum())
+    if masked == 0:
+        raise AssertionError("the PNS fixture has no noise band")
+    hfr, cfg = K.transform_config(info)
+    real = [t.view(1, n, *t.shape[1:]) for t in (qc, sf, res, inten)]
+    noise = tuple(m.view(1, n, 1, 8, 128) for m in maps)
+    w = max(w, require_equal("B3 PNS real maps", [(
+        "pcm", K.hca_decode_transform_batched(*real, hfr, noise=noise, **cfg),
+        K.decode_transform_plain(*real, hfr, noise=noise, **cfg))]))
+    worst["hca_transform_pns"] = w
+    log(f"B3 with the fixture's real maps ({n} frames, {masked} noise "
+        f"values): byte-equal to the twin; noise_maps equal on card and CPU")
+
+    # the PNS path through decode_batch
+    bank = [blob] * PNS_STREAMS
+    own = ("hca_side_info", "hca_coefficients", "hca_transform")
+    wavs, counts = drive("decode_batch (v3 PNS)", own,
+                         lambda: port.decode_batch(bank, device=dev))
+    launches["hca_transform_pns"] = counts["hca_transform"]
+    bad = [i for i, wv in enumerate(wavs)
+           if sha(wv) != expected[name]["wav_sha256"]]
+    if bad:
+        raise AssertionError(f"PNS WAVs differ from the JAX package's "
+                             f"decode: streams {bad[:8]}")
+    log(f"PNS: {PNS_STREAMS} x {name} decoded on the card, every WAV sha256 "
+        f"equal to the JAX package's")
+
+    # B3 with noise, timed at the bank chunk's shape (stereo q2 config)
+    hfr, cfg = K.transform_config(bank_info)
+    C = bank_info.channels
+    args, noise = random_transform_inputs(g, CHUNK, F, C, dev)
+    ms = cuda_ms(lambda: K.hca_decode_transform_batched(
+        *args, hfr, noise=noise, **cfg), 20)
+    plain_ms = cuda_ms(lambda: K.decode_transform_plain(
+        *args, hfr, noise=noise, **cfg), 3)
+    values = CHUNK * F * 8 * 128 * C
+    bd = bound("hca_transform_pns", nbytes(*args, *noise) + values * 2,
+               values)
+    log(f"hca_transform_pns [{card}] at {CHUNK}x{F} frames, {C} ch, random "
+        f"maps: kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, bound "
+        f"{bd['bound_ms']:.4f} ms by {bd['bound_by']}")
+    return {"hca_transform_pns": (ms, plain_ms, bd)}
+
+
+# ---------------------------------------------------------------------------
+# AHX / MPEG Layer II decode (phase 13)
+# ---------------------------------------------------------------------------
+
+# (label, header word fields) of the random-frame checks: every unpacker
+# configuration; joint stereo draws its mode_ext per frame
+MP2_RANDOM_CONFIGS = (
+    ("LSF mono 16 kHz 64 kbps", dict(version=2, bri=8, sri=2, mode=3)),
+    ("LSF mono 22.05 kHz 96 kbps", dict(version=2, bri=10, sri=0, mode=3)),
+    ("LSF mono 24 kHz 160 kbps", dict(version=2, bri=14, sri=1, mode=3)),
+    ("MPEG-1 stereo 44.1 kHz 192 kbps", dict(version=3, bri=10, sri=0,
+                                              mode=0)),
+    ("MPEG-1 joint 44.1 kHz 192 kbps", dict(version=3, bri=10, sri=0,
+                                             mode=1)),
+    ("MPEG-1 mono 48 kHz 56 kbps (table c)", dict(version=3, bri=3, sri=1,
+                                                   mode=3)),
+    ("MPEG-1 stereo 32 kHz 48 kbps (table d)", dict(version=3, bri=2, sri=2,
+                                                     mode=0)),
+    ("LSF mono 22.05 kHz 96 kbps, CRC", dict(version=2, bri=10, sri=0,
+                                             mode=3, crc=True)),
+    ("MPEG-1 joint 44.1 kHz 192 kbps, CRC", dict(version=3, bri=10, sri=0,
+                                                  mode=1, crc=True)),
+)
+
+
+def random_mp2_frames(rng, version, bri, sri, mode, crc=False):
+    """RANDOM_FRAMES random-byte frames behind valid headers (random padding
+    bit, and mode_ext for joint stereo), u8 [n, fs_max]; the first 8 rows
+    are all zero (no header: all zero out, err set). Returns (frames,
+    channels)."""
+    from pycricodecs_tpu_torch.ops import mp2_frame
+    w0 = ((0x7FF << 21) | (version << 19) | (2 << 17)
+          | ((0 if crc else 1) << 16) | (bri << 12) | (sri << 10)
+          | (mode << 6))
+    hdr = mp2_frame.parse_header(w0.to_bytes(4, "big"))
+    fs_max = hdr.frame_size + 1
+    fr = rng.integers(0, 256, (RANDOM_FRAMES, fs_max), dtype=np.uint8)
+    words = (w0 | (rng.integers(0, 2, RANDOM_FRAMES) << 9)
+             | (rng.integers(0, 4, RANDOM_FRAMES) << 4)).astype(">u4")
+    fr[:, :4] = words.view(np.uint8).reshape(-1, 4)
+    fr[:8] = 0
+    return fr, hdr.nch
+
+
+def load_ahx_fixtures():
+    """(expected.json of the AHX fixtures, name -> stream bytes)."""
+    with open(os.path.join(AHX_FIXTURES, "expected.json")) as f:
+        expected = json.load(f)
+    blobs = {}
+    for name, e in expected.items():
+        with open(os.path.join(AHX_FIXTURES, e["file"]), "rb") as f:
+            blobs[name] = f.read()
+        if sha(blobs[name]) != e["stream_sha256"]:
+            raise AssertionError(f"{e['file']} differs from its hash")
+    return expected, blobs
+
+
+def ahx_phase(dev, card: str, worst: dict, launches: dict) -> dict:
+    """Phase 13; returns name -> (ms, plain_ms, bound dict)."""
+    import pycricodecs_tpu_torch as port
+    from pycricodecs_tpu_torch.ops import cuda_kernels
+    from pycricodecs_tpu_torch.ops import mp2_kernels as MK
+    from pycricodecs_tpu_torch.ops import mp2_tables
+    from pycricodecs_tpu_torch.ops import mp2_unpack_device as MU
+    from pycricodecs_tpu_torch.parallel import pipeline as P
+    from pycricodecs_tpu_torch.utils import signals
+
+    expected, blobs = load_ahx_fixtures()
+    bank_name = signals.AHX_BANK
+    bank = [blobs[bank_name]] * BANK_STREAMS
+
+    def unpack_pair(label, frames, C):
+        got = cuda_kernels.mp2_unpack(frames, C)
+        want = MU.mp2_unpack_plain(frames, C)
+        worst["mp2_unpack"] = max(worst["mp2_unpack"], require_equal(
+            f"B10 {label}", [(n, a.view(torch.int16) if a.dtype ==
+                              torch.uint16 else a,
+                              b.view(torch.int16) if b.dtype == torch.uint16
+                              else b)
+                             for n, a, b in zip(("codes", "levels", "sfidx",
+                                                 "err"), got, want)]))
+        return got
+
+    # -- B10 against its twin ---------------------------------------------
+    walks = [P._parse_mp2(b)[1] for b in bank]
+    stack = P._stack_mp2_frames(walks)
+    B, Fb, fs_max = stack.shape
+    bank_frames = torch.from_numpy(stack.reshape(B * Fb, fs_max)).to(dev)
+    codes, levels, sfidx, err = unpack_pair("bank", bank_frames, 1)
+    if bool(err.any()):
+        raise AssertionError("B10 flagged an error in the bank stream")
+    log(f"B10 bank {B} x {Fb} frames of <= {fs_max} bytes: byte-equal to "
+        f"the twin")
+    rng = np.random.default_rng(13)
+    for label, kw in MP2_RANDOM_CONFIGS:
+        fr, C = random_mp2_frames(rng, **kw)
+        got = unpack_pair(f"random {label}", torch.from_numpy(fr).to(dev), C)
+        bad = int(got[3].sum())
+        if not bool(got[3][:8].all()):
+            raise AssertionError(f"B10 random {label}: a frame without "
+                                 f"header was not flagged")
+        log(f"B10 random {label}: {RANDOM_FRAMES} frames, {bad} flagged "
+            f"(8 without header): byte-equal to the twin, err included")
+    hdr, walk, _, _ = P._parse_mp2(blobs["mp2_joint_varying_bound"])
+    jf = P._stack_mp2_frames([walk])
+    unpack_pair("varying-bound stream", torch.from_numpy(
+        jf.reshape(-1, jf.shape[-1])).to(dev), 2)
+    log(f"B10 varying-bound joint stream ({len(walk)} frames): byte-equal "
+        f"to the twin")
+
+    # -- mp2_synth against its twin ---------------------------------------
+    bank_in = (codes.view(B, Fb, 1, 36, 32), levels.view(B, Fb, 1, 32),
+               sfidx.view(B, Fb, 1, 3, 32))
+    pcm_k = cuda_kernels.mp2_synth(*bank_in)
+    pcm_t, synth_plain_ms = cuda_ms_once(lambda: MK.synthesize_plain(
+        *bank_in))
+    worst["mp2_synth"] = require_equal("mp2_synth bank", [("pcm", pcm_k,
+                                                           pcm_t)])
+    log(f"mp2_synth bank {B} x {Fb} frames: bit-equal to the twin")
+    del pcm_t
+    classes = np.unique(np.concatenate(
+        [np.concatenate(t) for t in mp2_tables.ALLOC_TABLES.values()]))
+    for Bs, Fs, C in ((4, 40, 2), (3, 17, 1)):
+        lv = rng.choice(classes, (Bs, Fs, C, 32)).astype(np.int32)
+        cd = (rng.random((Bs, Fs, C, 36, 32))
+              * np.maximum(lv, 1)[..., None, :]).astype(np.uint16)
+        cd[lv[..., None, :].repeat(36, -2) == 0] = 0
+        sfi = rng.integers(0, 63, (Bs, Fs, C, 3, 32), dtype=np.uint8)
+        t = [torch.from_numpy(a).to(dev) for a in (cd, lv, sfi)]
+        worst["mp2_synth"] = max(worst["mp2_synth"], require_equal(
+            f"mp2_synth random {Bs}x{Fs}x{C}",
+            [("pcm", cuda_kernels.mp2_synth(*t), MK.synthesize_plain(*t))]))
+        log(f"mp2_synth random codes {Bs} x {Fs} frames x {C} ch: bit-equal "
+            f"to the twin")
+
+    # -- the AHX bank through ahx_decode_batch ----------------------------
+    wavs, counts = drive("ahx_decode_batch", ["mp2_unpack", "mp2_synth"],
+                         lambda: port.ahx_decode_batch(bank, device=dev))
+    launches["mp2_unpack"] = counts["mp2_unpack"]
+    launches["mp2_synth"] = counts["mp2_synth"]
+    want = expected[bank_name]["wav_sha256"]
+    bad = [i for i, wv in enumerate(wavs) if sha(wv) != want]
+    if bad:
+        raise AssertionError(f"AHX bank WAVs differ from the JAX package's "
+                             f"host lane: streams {bad[:8]}")
+    log(f"AHX bank: {BANK_STREAMS} x 10 s decoded on the card, every WAV "
+        f"sha256 equal to the JAX package's host lane "
+        f"({sum(len(wv) for wv in wavs)} WAV bytes)")
+    del wavs
+    small = [n for n in expected if n != bank_name]
+    for name, wv in zip(small, port.ahx_decode_batch(
+            [blobs[n] for n in small], device=dev)):
+        if sha(wv) != expected[name]["wav_sha256"]:
+            raise AssertionError(f"{name}: WAV differs from the JAX "
+                                 f"package's host lane")
+        log(f"AHX fixture {name}: WAV sha256 equal to the JAX package's "
+            f"host lane")
+
+    # -- timings ------------------------------------------------------------
+    port.ahx_decode_batch(bank, device=dev)                  # warm-up
+    wall, runs = median_wall(lambda: port.ahx_decode_batch(bank, device=dev))
+    audio_s = BANK_STREAMS * 10.0
+    log(f"AHX bank [{card}]: median of 3 = {wall:.4f} s for {audio_s:.0f} "
+        f"audio-s -> {audio_s / wall:.1f} audio-s/s; runs "
+        f"{[round(r, 4) for r in runs]}")
+    unpack_ms = cuda_ms(lambda: cuda_kernels.mp2_unpack(bank_frames, 1), 20)
+    _, unpack_plain_ms = cuda_ms_once(
+        lambda: MU.mp2_unpack_plain(bank_frames, 1))
+    synth_ms = cuda_ms(lambda: cuda_kernels.mp2_synth(*bank_in), 20)
+    SB = P._parse_mp2(bank[0])[0].sblimit
+    unpack_bd = bound("mp2_unpack", nbytes(bank_frames, codes, levels,
+                                           sfidx, err),
+                      int((levels > 0).sum()) * 36)
+    synth_bd = bound("mp2_synth", nbytes(*bank_in, pcm_k), pcm_k.numel())
+    for name, ms, plain_ms, bd in (
+            ("mp2_unpack", unpack_ms, unpack_plain_ms, unpack_bd),
+            ("mp2_synth", synth_ms, synth_plain_ms, synth_bd)):
+        log(f"{name} [{card}] at the AHX bank shape ({B} x {Fb} frames, "
+            f"sblimit {SB}): kernel {ms:.4f} ms, twin {plain_ms:.4f} ms "
+            f"(one run), bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}")
+    return {"mp2_unpack": (unpack_ms, unpack_plain_ms, unpack_bd),
+            "mp2_synth": (synth_ms, synth_plain_ms, synth_bd)}
 
 
 def main() -> None:
@@ -987,6 +1346,12 @@ def main() -> None:
 
     # -- phases 9-11: the HCA encode -----------------------------------------
     results.update(hca_encode_phases(dev, card, worst, launches))
+
+    # -- phase 12: the v3 PNS noise fill -------------------------------------
+    results.update(pns_phase(dev, card, worst, launches))
+
+    # -- phase 13: the AHX / MPEG Layer II decode ----------------------------
+    results.update(ahx_phase(dev, card, worst, launches))
 
     report = []
     for name, (ms, plain_ms, bd) in results.items():

@@ -1,13 +1,15 @@
 """Build and load the port's CUDA kernels.
 
-`load()` compiles every `csrc/*.cu` with nvcc for Hopper (sm_90a) into one
-shared library with a plain C interface, at first use, and opens it with
-ctypes. The build lands in `build/<hash>/` inside this package (ignored by
-git), keyed by a hash of the sources, the generated table header and the
-flags, so a checkout builds its own kernels and a rebuild happens only when
-one of them changes. The constant tables the kernels read are generated from
-`ops/hca_tables.py` into that directory (`hca_tables.inc`), so the kernels
-and the plain PyTorch twins read the same fp32 bit patterns.
+`load()` compiles every `csrc/*.cu` with nvcc for Hopper (sm_90a), one nvcc
+per source, all started together, links the objects into one shared library
+with a plain C interface, at first use, and opens it with ctypes. The build
+lands in `build/<hash>/` inside this package (ignored by git), keyed by a
+hash of the sources, the generated table header and the flags, so a
+checkout builds its own kernels and a rebuild happens only when one of them
+changes. The constant tables the kernels read are generated from
+`ops/hca_tables.py` and `ops/mp2_tables.py` into that directory
+(`hca_tables.inc`), so the kernels and the plain PyTorch twins read the
+same fp32 and fp64 bit patterns.
 
 Floating-point contract: `-fmad=false` and no fast-math flag, so every
 multiply and add rounds once, as in the JAX reference; `-ftz`, `-prec-div`
@@ -29,8 +31,8 @@ _PKG = Path(__file__).resolve().parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas=-v")
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 LIB_NAME = "libport_kernels.so"
 
 _P = ctypes.c_void_p
@@ -42,13 +44,15 @@ SIGNATURES = {
     "hca_side_info": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                       _P, _P, _P, _P, _P, _P],
     "hca_coefficients": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
-    "hca_transform": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                      _P, _P, _P, _P, _P, _P],
+    "hca_transform": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                      _I, _I, _P, _P, _P, _P, _P, _P],
     "adx_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     "adx_encode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     "hca_mdct": [_P, _L, _I, _P, _P],
     "hca_pack": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P, _P,
                  _P, _P],
+    "mp2_unpack": [_P, _I, _I, _I, _P, _P, _P, _P, _P],
+    "mp2_synth": [_P, _P, _P, _I, _I, _I, _P, _P],
 }
 
 _lib = None
@@ -69,10 +73,20 @@ def _f32_literals(arr) -> list:
             np.asarray(arr, np.float32).reshape(-1)]
 
 
+def _f64_literals(arr) -> list:
+    return [float(x).hex() for x in np.asarray(arr, np.float64).reshape(-1)]
+
+
+def _int_literals(arr) -> list:
+    return [str(int(x)) for x in np.reshape(arr, -1)]
+
+
 def tables_header() -> str:
     """C++ source of the kernels' constant tables, from the Python tables."""
     from .ops import hca_tables as T
     from .ops import hca_unpack_device as U
+    from .ops import mp2_tables
+    from .ops import mp2_unpack_device as M
     from .utils.crc import CRC16_TABLE
 
     val, adv = U.vlc_tables()
@@ -102,6 +116,20 @@ def tables_header() -> str:
                       ("kDct4Sin", T.DCT4_SIN_FLAT),
                       ("kDct4Cos", T.DCT4_COS_FLAT)):
         out.append(_c_array(name, "float", _f32_literals(arr)))
+    # MPEG Layer II: B10's header and allocation tables, the synthesis's
+    # scalefactors, transposed matrixing nt[k][q] = N[q][k] and window
+    mt = M.tables()
+    for name, ctype, arr in (("kMp2Nbal", "uint8_t", mt["nbal"]),
+                             ("kMp2Classes", "uint16_t", mt["classes"]),
+                             ("kMp2Sblimit", "int", mt["sblimit"]),
+                             ("kMp2TableSelect", "uint8_t", mt["select"]),
+                             ("kMp2Bitrate", "int", mt["bitrate"]),
+                             ("kMp2Rate", "int", mt["rate"])):
+        out.append(_c_array(name, ctype, _int_literals(arr)))
+    for name, arr in (("kMp2Sf", mp2_tables.scalefactors()),
+                      ("kMp2Nt", mp2_tables.synthesis_matrixing().T),
+                      ("kMp2Dwin", mp2_tables.synth_window())):
+        out.append(_c_array(name, "double", _f64_literals(arr)))
     return "".join(out)
 
 
@@ -123,7 +151,7 @@ def build() -> Path:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(header.encode())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     out_dir = BUILD_DIR / h.hexdigest()[:16]
     lib = out_dir / LIB_NAME
     if lib.exists():
@@ -133,16 +161,41 @@ def build() -> Path:
     inc_tmp = out_dir / f"hca_tables.inc.{os.getpid()}.tmp"
     inc_tmp.write_text(header)
     os.replace(inc_tmp, out_dir / "hca_tables.inc")
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, f"-I{out_dir}", "-o", str(tmp),
-           *map(str, sources)]
+    pid = os.getpid()
+    tmp = out_dir / f"{LIB_NAME}.{pid}.tmp"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
+    # one nvcc per source, all at once; then one link
+    jobs = []
+    for src in sources:
+        obj = out_dir / f"{src.stem}.{pid}.o"
+        cmd = [nvcc, *NVCC_FLAGS, f"-I{out_dir}", "-c", "-o", str(obj),
+               str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    logs, failed = [], []
+    for cmd, _, proc in jobs:
+        try:
+            log, _ = proc.communicate(timeout=900)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            log, _ = proc.communicate()
+        logs.append(log)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{log}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    cmd = [nvcc, *LINK_FLAGS, "-o", str(tmp), *(str(j[1]) for j in jobs)]
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        raise RuntimeError(f"nvcc link failed with exit code "
+                           f"{proc.returncode}:\n{' '.join(cmd)}\n"
+                           f"{proc.stdout}{proc.stderr}")
+    for _, obj, _ in jobs:
+        obj.unlink()
     BUILD_SECONDS = time.perf_counter() - t0
-    BUILD_LOG = proc.stdout + proc.stderr
+    BUILD_LOG = "".join(logs) + proc.stdout + proc.stderr
     os.replace(tmp, lib)
     return lib
 

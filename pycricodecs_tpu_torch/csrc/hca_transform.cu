@@ -8,7 +8,10 @@
 // window_overlap_add, quantize_pcm16), byte-equal by test.
 //
 // Computes, per (stream, frame): dequantise (SCALING[sf] * RANGE[res] * qc),
-// HFR from the static source-band map, intensity stereo on channel pairs,
+// the v3 PNS noise add (spec + SCALE_CONVERSION[sci] * spec[src] where the
+// mask is set, + 0.0 elsewhere, as the JAX fused path adds its noise term
+// everywhere), HFR from the static source-band map (its source is the
+// noise-filled value), intensity stereo on channel pairs,
 // the 7 add/sub + 7 twiddle stage IMDCT, windowed overlap-add, PCM16
 // quantise and channel interleave, writing i16 [B, F, 8, 128, C].
 //
@@ -59,12 +62,36 @@ __device__ __forceinline__ float dequant(const int16_t* __restrict__ qc,
   return __fmul_rn(gain, (float)qc[(fc * 8 + s) * 128 + j]);
 }
 
+struct NoiseMaps {
+  const uint8_t* src;   // [B, F, C, 8, 128] source band, or null: no PNS
+  const uint8_t* sci;   // scale conversion index
+  const bool* mask;
+};
+
+// dequantised band j plus its PNS term (hca_kernels.py:329-338, added in
+// pallas_kernels.py:377-380): the term is SCALE_CONVERSION[sci] * the
+// dequantised source band, or +0.0 where the mask is clear
+__device__ __forceinline__ float spectrum(const int16_t* __restrict__ qc,
+                                          const uint8_t* __restrict__ sf,
+                                          const uint8_t* __restrict__ res,
+                                          const NoiseMaps& nz, size_t fc,
+                                          int s, int j) {
+  const float v = dequant(qc, sf, res, fc, s, j);
+  if (nz.src == nullptr) return v;
+  const size_t i = (fc * 8 + s) * 128 + j;
+  float term = 0.0f;
+  if (nz.mask[i])
+    term = __fmul_rn(kScaleConversionTable[nz.sci[i]],
+                     dequant(qc, sf, res, fc, s, nz.src[i]));
+  return __fadd_rn(v, term);
+}
+
 __global__ void __launch_bounds__(128)
 hca_transform_kernel(const int16_t* __restrict__ qc,
                      const uint8_t* __restrict__ sf,
                      const uint8_t* __restrict__ res,
-                     const uint8_t* __restrict__ inten, TransformCfg cfg,
-                     int16_t* __restrict__ out) {
+                     const uint8_t* __restrict__ inten, NoiseMaps nz,
+                     TransformCfg cfg, int16_t* __restrict__ out) {
   __shared__ float buf[2][2][128];  // [ping-pong][unit channel][band]
   __shared__ float prev[2][128];    // previous subframe's IMDCT output
   const int bf = blockIdx.x;        // b * F + f
@@ -81,21 +108,21 @@ hca_transform_kernel(const int16_t* __restrict__ qc,
       const size_t fi = (size_t)(t < 0 ? bf - 1 : bf);
       const int s = t < 0 ? 7 : t;
       const size_t fc0 = fi * C + c0;
-      // dequantise + HFR (non-secondary channels)
-      float v0 = dequant(qc, sf, res, fc0, s, k);
+      // dequantise + PNS + HFR (non-secondary channels)
+      float v0 = spectrum(qc, sf, res, nz, fc0, s, k);
       if (cfg.apply_hfr) {
         if (cfg.hfr_is[k]) {
           const int src = cfg.hfr_src[k];
           const int g = sf[fc0 * 128 + 128 - cfg.hfr_groups + cfg.hfr_group[k]];
           const int sci = max(g - (int)sf[fc0 * 128 + src] + 63, 0);
           v0 = __fmul_rn(kScaleConversionTable[sci],
-                         dequant(qc, sf, res, fc0, s, src));
+                         spectrum(qc, sf, res, nz, fc0, s, src));
         }
         if (k == cfg.zero_band) v0 = 0.0f;
       }
       if (c1 >= 0) {
         const size_t fc1 = fi * C + c1;
-        float v1 = dequant(qc, sf, res, fc1, s, k);
+        float v1 = spectrum(qc, sf, res, nz, fc1, s, k);
         if (k >= cfg.base_band && k < cfg.total_band) {
           const float rl = kIntensityRatioTable[inten[fc1 * 8 + s]];
           const float rr = __fsub_rn(2.0f, rl);
@@ -171,7 +198,9 @@ hca_transform_kernel(const int16_t* __restrict__ qc,
 }  // namespace
 
 extern "C" int hca_transform(const void* qc, const void* sf, const void* res,
-                             const void* inten, int B, int F, int C,
+                             const void* inten, const void* noise_src,
+                             const void* noise_sci, const void* noise_mask,
+                             int B, int F, int C,
                              int base_band, int total_band, int apply_hfr,
                              int hfr_groups, int zero_band,
                              const int32_t* partner, const int32_t* hfr_is,
@@ -201,9 +230,16 @@ extern "C" int hca_transform(const void* qc, const void* sf, const void* res,
     cfg.hfr_src[k] = (uint8_t)hfr_src[k];
     cfg.hfr_group[k] = (uint8_t)hfr_group[k];
   }
+  NoiseMaps nz;
+  nz.src = (const uint8_t*)noise_src;
+  nz.sci = (const uint8_t*)noise_sci;
+  nz.mask = (const bool*)noise_mask;
+  if ((nz.src == nullptr) != (nz.sci == nullptr) ||
+      (nz.src == nullptr) != (nz.mask == nullptr))
+    return (int)cudaErrorInvalidValue;
   const long long blocks = (long long)B * F;
   hca_transform_kernel<<<(unsigned)blocks, 128, 0, (cudaStream_t)stream>>>(
       (const int16_t*)qc, (const uint8_t*)sf, (const uint8_t*)res,
-      (const uint8_t*)inten, cfg, (int16_t*)out);
+      (const uint8_t*)inten, nz, cfg, (int16_t*)out);
   return (int)cudaGetLastError();
 }

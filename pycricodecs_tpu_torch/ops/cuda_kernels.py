@@ -4,8 +4,11 @@ Wrappers and launch counters here: B3 `hca_transform` (csrc/hca_transform.cu,
 replaces pallas_kernels.transform_fused_pallas), B7 `adx_decode` and B8
 `adx_encode` (csrc/adx_codec.cu, replace adx_kernels.adx_decode_serial_pallas
 and adx_encode_serial_pallas), B6 `hca_mdct` (csrc/hca_encode.cu, replaces
-pallas_kernels.mdct_enc_pallas) and the frame packer `hca_pack`
-(csrc/hca_pack.cu, carries hca_pack_device._scatter_segments_pallas, B9).
+pallas_kernels.mdct_enc_pallas), the frame packer `hca_pack`
+(csrc/hca_pack.cu, carries hca_pack_device._scatter_segments_pallas, B9),
+B10 `mp2_unpack` (csrc/mp2_unpack.cu, replaces mp2_unpack_device.
+Mp2DeviceUnpacker._unpack) and the Layer II synthesis `mp2_synth`
+(csrc/mp2_synth.cu, the fixed-order f64 lane; no Pallas kernel).
 The unpack kernels B1/B2 are wrapped in
 hca_unpack_device.py with the helpers below. A wrapper checks its inputs,
 allocates the outputs, launches on the current stream, raises if the launch
@@ -27,6 +30,8 @@ ADX_DECODE_LAUNCHES = 0
 ADX_ENCODE_LAUNCHES = 0
 MDCT_LAUNCHES = 0
 PACK_LAUNCHES = 0
+MP2_UNPACK_LAUNCHES = 0
+MP2_SYNTH_LAUNCHES = 0
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
@@ -63,15 +68,23 @@ def launch_failed(kernel: str, rc: int) -> RuntimeError:
 
 
 def hca_transform(qc, sf, res, inten, hfr_map, *, base_band, total_band,
-                  stereo_pairs, apply_hfr, hfr_group_count) -> torch.Tensor:
+                  stereo_pairs, apply_hfr, hfr_group_count,
+                  noise=None) -> torch.Tensor:
     """Kernel B3: qc i16 [B, F, C, 8, 128], sf/res u8 [B, F, C, 128],
-    inten u8 [B, F, C, 8] (CUDA) -> PCM i16 [B, F, 8, 128, C]."""
+    inten u8 [B, F, C, 8], optional PNS maps noise = (src u8, sci u8,
+    mask bool) [B, F, C, 8, 128] (CUDA) -> PCM i16 [B, F, 8, 128, C]."""
     global TRANSFORM_LAUNCHES
     B, F, C = qc.shape[0], qc.shape[1], qc.shape[2]
     check_cuda(qc, "qc", torch.int16, (B, F, C, 8, 128))
     check_cuda(sf, "sf", torch.uint8, (B, F, C, 128))
     check_cuda(res, "res", torch.uint8, (B, F, C, 128))
     check_cuda(inten, "inten", torch.uint8, (B, F, C, 8))
+    noise_ptrs = [None, None, None]
+    if noise is not None:
+        for name, t, dt in zip(("noise_src", "noise_sci", "noise_mask"),
+                               noise, (torch.uint8, torch.uint8, torch.bool)):
+            check_cuda(t, name, dt, (B, F, C, 8, 128))
+        noise_ptrs = [ptr(t) for t in noise]
     out = torch.empty((B, F, 8, 128, C), dtype=torch.int16, device=qc.device)
     if B * F == 0:
         return out
@@ -82,11 +95,11 @@ def hca_transform(qc, sf, res, inten, hfr_map, *, base_band, total_band,
     hfr_src = np.ascontiguousarray(hfr_map.src_band, dtype=np.int32)
     hfr_group = np.ascontiguousarray(hfr_map.group_of, dtype=np.int32)
     rc = _build.load().hca_transform(
-        ptr(qc), ptr(sf), ptr(res), ptr(inten), B, F, C, int(base_band),
-        int(total_band), int(bool(apply_hfr)), int(hfr_group_count),
-        int(hfr_map.zero_band) if apply_hfr else -1, host_ptr(partner),
-        host_ptr(hfr_is), host_ptr(hfr_src), host_ptr(hfr_group), ptr(out),
-        stream_ptr(qc))
+        ptr(qc), ptr(sf), ptr(res), ptr(inten), *noise_ptrs, B, F, C,
+        int(base_band), int(total_band), int(bool(apply_hfr)),
+        int(hfr_group_count), int(hfr_map.zero_band) if apply_hfr else -1,
+        host_ptr(partner), host_ptr(hfr_is), host_ptr(hfr_src),
+        host_ptr(hfr_group), ptr(out), stream_ptr(qc))
     if rc:
         raise launch_failed("hca_transform", rc)
     TRANSFORM_LAUNCHES += 1
@@ -176,6 +189,53 @@ def hca_mdct(pcm) -> torch.Tensor:
     if rc:
         raise launch_failed("hca_mdct", rc)
     MDCT_LAUNCHES += 1
+    return out
+
+
+def mp2_unpack(frames, channels: int):
+    """Kernel B10: Layer II frames u8 [N, fs_max] (CUDA), each zero-padded
+    -> (codes u16 [N, C, 36, 32], levels i32 [N, C, 32], sfidx u8
+    [N, C, 3, 32], err bool [N])."""
+    global MP2_UNPACK_LAUNCHES
+    N, W = frames.shape
+    C = int(channels)
+    check_cuda(frames, "frames", torch.uint8, (N, W))
+    if C not in (1, 2):
+        raise ValueError(f"channels {C} not in (1, 2)")
+    dev = frames.device
+    codes = torch.zeros((N, C, 36, 32), dtype=torch.uint16, device=dev)
+    levels = torch.zeros((N, C, 32), dtype=torch.int32, device=dev)
+    sfidx = torch.zeros((N, C, 3, 32), dtype=torch.uint8, device=dev)
+    err = torch.zeros((N,), dtype=torch.bool, device=dev)
+    if N * W == 0:
+        return codes, levels, sfidx, err
+    rc = _build.load().mp2_unpack(ptr(frames), N, W, C, ptr(codes),
+                                  ptr(levels), ptr(sfidx), ptr(err),
+                                  stream_ptr(frames))
+    if rc:
+        raise launch_failed("mp2_unpack", rc)
+    MP2_UNPACK_LAUNCHES += 1
+    return codes, levels, sfidx, err
+
+
+def mp2_synth(codes, levels, sfidx) -> torch.Tensor:
+    """The Layer II synthesis kernel: codes u16 [B, F, C, 36, 32], levels
+    i32 [B, F, C, 32], sfidx u8 [B, F, C, 3, 32] (CUDA) -> PCM i16
+    [B, C, F * 1152]."""
+    global MP2_SYNTH_LAUNCHES
+    B, F, C = codes.shape[:3]
+    check_cuda(codes, "codes", torch.uint16, (B, F, C, 36, 32))
+    check_cuda(levels, "levels", torch.int32, (B, F, C, 32))
+    check_cuda(sfidx, "sfidx", torch.uint8, (B, F, C, 3, 32))
+    out = torch.empty((B, C, F * 1152), dtype=torch.int16,
+                      device=codes.device)
+    if B * F * C == 0:
+        return out
+    rc = _build.load().mp2_synth(ptr(codes), ptr(levels), ptr(sfidx), B, F,
+                                 C, ptr(out), stream_ptr(codes))
+    if rc:
+        raise launch_failed("mp2_synth", rc)
+    MP2_SYNTH_LAUNCHES += 1
     return out
 
 

@@ -12,6 +12,9 @@ of each other, so both phases run one frame per GPU thread:
   cursor where the spectra start and a per-frame error flag.
 - `coefficients` (kernel B2): 8 subframes x channels x coded_count prefix
   symbols from that cursor.
+- `noise_maps` (v3 streams with min_resolution 0): the PNS fill's source
+  band, scale index and mask per value, in plain PyTorch on the device, from
+  B1's scalefactors and resolutions; kernel B3 adds the fill.
 
 Each has a plain PyTorch twin beside it (`side_info_plain`,
 `coefficients_plain`): vectorised across frames, sequential over symbols,
@@ -49,6 +52,35 @@ _VAL_HI = [0x88888888, 0x88888888, 0x88888888, 0x88888888,
 #: kernel launches since import (or the last reset); see chip_smoke.py
 SIDE_INFO_LAUNCHES = 0
 COEFF_LAUNCHES = 0
+
+# PNS noise LCG (hca.cpp:1616): x' = 0x343FD*x + 0x269EC3 mod 2^32. The map
+# is affine, so the state after n draws is a 32-step square-and-multiply over
+# these precomputed (a, b) = f^(2^k) pairs.
+_MASK32 = 0xFFFFFFFF
+_LCG_POWS = []
+_a, _b = 0x343FD, 0x269EC3
+for _k in range(32):
+    _LCG_POWS.append((_a, _b))
+    _b = (_a * _b + _b) & _MASK32
+    _a = (_a * _a) & _MASK32
+del _a, _b, _k
+
+
+def _mul32(a: int, x: torch.Tensor) -> torch.Tensor:
+    """(a * x) mod 2^32 for x in [0, 2^32), without int64 overflow."""
+    hi = ((a >> 16) * x) & 0xFFFF
+    return ((a & 0xFFFF) * x + (hi << 16)) & _MASK32
+
+
+def lcg_jump(n_draws: torch.Tensor) -> torch.Tensor:
+    """State after n_draws (mod 2^32) applications of the noise LCG to
+    seed 1, int64 in [0, 2^32)."""
+    n = n_draws & _MASK32
+    x = torch.ones_like(n)
+    for k, (a, b) in enumerate(_LCG_POWS):
+        hit = ((n >> k) & 1) == 1
+        x = torch.where(hit, (_mul32(a, x) + b) & _MASK32, x)
+    return x
 
 
 def vlc_tables():
@@ -297,6 +329,64 @@ class DeviceUnpacker:
         r = torch.where(sf > 0, r, 0)
         r = torch.where(k < coded, r, 0)
         return r.to(torch.uint8)
+
+    # -- v3 PNS noise maps --------------------------------------------------
+
+    def noise_maps(self, sf: torch.Tensor, res: torch.Tensor, B: int):
+        """PNS noise fill maps (reconstruct_noise, hca.cpp:1602-1635) of the
+        frames of B streams: sf/res u8 [N, C, 128], N = B * F frame-major
+        per stream -> (src u8, sci u8, mask bool), each [N, C, 8, 128], on
+        the device of sf.
+
+        The draw order is subframe-major, then channel, then noise slot; a
+        (subframe, channel) with nc noise bands and vc > 0 valid bands takes
+        nc draws. A band's draw ordinal is the frames-before prefix (per
+        stream, so a padded tail frame moves no real frame) + s * NC + the
+        channels-before prefix + its noise rank; the LCG state there is a
+        closed-form jump from seed 1. The drawn 15-bit value picks the
+        (vc-1-j)-th valid band, found by a gather (the JAX package's one-hot
+        select computes the same index). Plain PyTorch: the JAX package
+        computes these maps in XLA, outside its kernels."""
+        N, C, dev = sf.shape[0], self.C, sf.device
+        k = torch.arange(128, device=dev)
+        coded = torch.tensor(self.coded, device=dev)[None, :, None]
+        sf_i = sf.long()
+        active = (sf_i > 0) & (k < coded)
+        noise_f = active & (res < 1)
+        valid_f = active & (res >= 1)
+        nrank = noise_f.long().cumsum(-1) - 1                  # [N, C, 128]
+        vrank = valid_f.long().cumsum(-1) - 1
+        nc = noise_f.sum(-1)                                   # [N, C]
+        vc = valid_f.sum(-1)
+        nc_eff = torch.where((nc > 0) & (vc > 0), nc, 0)
+        NC = nc_eff.sum(-1)                                    # [N]
+        pre_c = nc_eff.cumsum(-1) - nc_eff                     # exclusive
+        per_frame = (8 * NC).view(B, -1)
+        before = (per_frame.cumsum(1) - per_frame).view(N)
+        s8 = torch.arange(8, device=dev)
+        ordinal = (before[:, None, None, None]
+                   + s8[None, None, :, None] * NC[:, None, None, None]
+                   + pre_c[:, :, None, None]
+                   + nrank[:, :, None, :])                     # [N, C, 8, 128]
+        rand = lcg_jump(ordinal + 1)                           # state at the draw
+        vc4 = vc[:, :, None, None]
+        j = ((rand & 0x7FFF) * vc4) >> 15
+        target = (vc4 - 1 - j).clamp(min=0)                    # valid rank wanted
+        # band of each valid rank (slot 128 collects the other bands)
+        band_of = torch.zeros((N, C, 129), dtype=torch.int64, device=dev)
+        band_of.scatter_(2, torch.where(valid_f, vrank, 128),
+                         k.expand(N, C, 128).contiguous())
+        has = vc4 > 0
+        vb = torch.where(has, torch.gather(band_of, 2, target.view(N, C, -1))
+                         .view(N, C, 8, 128), 0)
+        sf_vb = torch.where(has, torch.gather(sf_i, 2, vb.view(N, C, -1))
+                            .view(N, C, 8, 128), 0)
+        sci = torch.clamp(sf_i[:, :, None, :] - sf_vb + 62, min=0)
+        mask = (noise_f & (vc > 0)[..., None])[:, :, None, :].expand(
+            N, C, 8, 128)
+        src = torch.where(mask, vb, k)
+        return (src.to(torch.uint8), sci.to(torch.uint8),
+                mask.contiguous())
 
     # -- B2: coefficients ---------------------------------------------------
 

@@ -1,4 +1,4 @@
-"""Batched HCA bank decode and ADX bank decode/encode on one device.
+"""Batched HCA, ADX and AHX bank decode and encode on one device.
 
 HCA: counterpart of the device engine of pycricodecs_tpu/parallel/pipeline.py
 (`decode_batch`, `_decode_group`, `_decode_group_inner`):
@@ -8,13 +8,15 @@ HCA: counterpart of the device engine of pycricodecs_tpu/parallel/pipeline.py
 2. per chunk of up to 64 streams of a group, the host stacks the raw
    enciphered frames, checks frame sync and CRC, and copies them to the
    device;
-3. the device deciphers and unpacks the bitstream (kernels B1, B2) and runs
-   the transform to interleaved PCM16 (kernel B3);
+3. the device deciphers and unpacks the bitstream (kernels B1, B2), builds
+   the PNS noise maps of v3 streams with min_resolution 0 (plain PyTorch,
+   `DeviceUnpacker.noise_maps`) and runs the transform, noise add included,
+   to interleaved PCM16 (kernel B3);
 4. the PCM comes back to the host, which trims the encoder delay, zeroes the
    tail of truncated streams and writes the WAVs.
 
-Only configs the device engine covers are decoded: a v3 stream with PNS
-noise (min_resolution 0) or a config the unpacker rejects raises
+Only configs the device unpacker covers are decoded: one it rejects (zero
+coded_count, the v3 HFR extension at 128 scalefactors) raises
 NotImplementedError.
 
 ADX (`adx_decode_batch`, `adx_encode_batch`): counterparts of the JAX
@@ -33,6 +35,14 @@ stacks the PCM timelines and copies them to the device, which runs the MDCT
 the frame packer (kernel hca_pack); the frames come back and the host
 prepends each stream's header.
 
+AHX decode (`ahx_decode_batch`): counterpart of the JAX function of the same
+name with device=False (its host lane), byte for byte. The host parses each
+AHX or bare Layer II stream and walks its frames; per channel count, the
+frames of all streams go to the device as one zero-padded stack, kernel B10
+unpacks them (each frame by its own header, so VBR streams mix in) and the
+synthesis kernel `mp2_synth` runs the host lane's f64 arithmetic in its
+order; the host trims to min(frames * 1152, total samples) and writes WAVs.
+
 On a CPU `device` every path runs the kernels' plain PyTorch twins.
 """
 from __future__ import annotations
@@ -45,9 +55,11 @@ import numpy as np
 import torch
 
 from ..models import adx as adx_model
+from ..models import ahx as ahx_model
 from ..models import hca as hca_model
 from ..ops import (adx_kernels, hca_encode_device, hca_frame, hca_kernels,
-                   hca_unpack_device)
+                   hca_unpack_device, mp2_frame, mp2_kernels,
+                   mp2_unpack_device)
 from ..utils import hca_crypt
 from ..utils import wav as wavmod
 from ..utils.crc import crc16_batch
@@ -94,11 +106,9 @@ def _describe(info: hca_frame.HcaInfo) -> str:
 
 def _unpacker(info: hca_frame.HcaInfo, device) -> \
         hca_unpack_device.DeviceUnpacker:
-    """The group's unpacker, or NotImplementedError for configs outside
-    this engine (PNS noise; configs the unpacker rejects)."""
-    if info.min_resolution == 0:
-        raise NotImplementedError(
-            f"v3 PNS noise fill is not ported yet: {_describe(info)}")
+    """The group's unpacker, or NotImplementedError for configs the
+    unpacker rejects (zero coded_count, the v3 HFR extension at 128
+    scalefactors: the host-unpack branch, not ported)."""
     try:
         return hca_unpack_device.DeviceUnpacker(info, device)
     except ValueError as exc:
@@ -226,10 +236,16 @@ def _decode_group(up: hca_unpack_device.DeviceUnpacker, group, infos,
         t1 = time.perf_counter()
         frames = torch.from_numpy(frames_np).to(up.device)
         qc, sf, res, inten, err = up(frames.view(Bc * fmax, fs))
+        noise = None
+        if info0.min_resolution == 0:
+            # v3 PNS: the fill applies whenever min_resolution is 0, as in
+            # the JAX fused device path (apply_noise=up.need_noise)
+            noise = tuple(m.view(Bc, fmax, C, 8, 128)
+                          for m in up.noise_maps(sf, res, Bc))
         pcm = hca_kernels.hca_decode_transform_batched(
             qc.view(Bc, fmax, C, 8, 128), sf.view(Bc, fmax, C, 128),
             res.view(Bc, fmax, C, 128), inten.view(Bc, fmax, C, 8), hfr,
-            **cfg)
+            noise=noise, **cfg)
         t2 = time.perf_counter()
         if bool(err.any()):
             raise hca_frame.HcaError("Unpack error (device)")
@@ -457,4 +473,100 @@ def hca_encode_batch(wavs: Sequence[bytes], quality: int = 1,
             device=device)
         for i, blob in zip(members, encoded):
             results[i] = blob
+    return results
+
+
+# ---------------------------------------------------------------------------
+# AHX / MPEG Layer II decode
+# ---------------------------------------------------------------------------
+
+def _parse_mp2(blob: bytes):
+    """(first header, frame walk, total samples or 0, sample rate) of an
+    AHX or bare Layer II stream; ValueError if it does not parse."""
+    offset, total, rate = 0, 0, 0
+    if ahx_model.is_ahx(blob):
+        info = ahx_model.parse_header(blob)
+        offset = info["data_offset"]
+        total = info["total_samples"]
+        rate = info["sample_rate"]        # the container rate wins
+    hdr0, walk = mp2_frame.scan_frames(blob, offset)
+    return hdr0, walk, total, rate or hdr0.sample_rate
+
+
+def _stack_mp2_frames(walks) -> np.ndarray:
+    """Frame bytes of a group as u8 [B, Fmax, fs_max], each frame and each
+    stream's frame list zero-padded."""
+    fmax = max(len(w) for w in walks)
+    fs_max = max(len(fr) for w in walks for _, fr in w)
+    out = np.zeros((len(walks), fmax, fs_max), dtype=np.uint8)
+    for b, walk in enumerate(walks):
+        # the walk is contiguous: one buffer, and a window of fs_max bytes
+        # at each frame's start, cleared past the frame's own size
+        buf = np.frombuffer(b"".join(fr for _, fr in walk) + bytes(fs_max),
+                            np.uint8)
+        pos = np.array([p for p, _ in walk], np.int64) - walk[0][0]
+        size = np.array([len(fr) for _, fr in walk], np.int64)
+        rows = out[b, :len(walk)]
+        rows[:] = np.lib.stride_tricks.sliding_window_view(buf, fs_max)[pos]
+        for s in np.unique(size[size < fs_max]):
+            rows[size == s, s:] = 0
+    return out
+
+
+def ahx_decode_batch(blobs: Sequence[bytes], *, device="cuda",
+                     on_error: str = "raise") -> List:
+    """Decode many AHX (or bare MPEG Layer II) streams on `device`; returns
+    WAV bytes per stream, byte-equal to pycricodecs_tpu.parallel.
+    ahx_decode_batch(blobs, device=False).
+
+    The host parses each stream (AHX header: data offset, total samples,
+    rate; then the frame walk) and stacks the frames of every stream with
+    the same channel count; per group one launch of kernel B10 unpacks
+    every frame (each with its own header, so VBR streams mix in) and one
+    launch of the synthesis kernel makes the PCM, which the host trims to
+    min(frames * 1152, total samples) and writes as WAV.
+
+    on_error: "raise" aborts on the first stream that does not parse (before
+    anything is decoded) or has a truncated frame; "isolate" returns None for
+    such streams and decodes the rest."""
+    if on_error not in ("raise", "isolate"):
+        raise ValueError("on_error must be 'raise' or 'isolate'")
+    device = torch.device(device)
+    parsed: List = [None] * len(blobs)
+    for i, blob in enumerate(blobs):
+        try:
+            parsed[i] = _parse_mp2(bytes(blob))
+        except ValueError:
+            if on_error == "raise":
+                raise
+    groups: dict = {}
+    for idx, p in enumerate(parsed):
+        if p is not None:
+            groups.setdefault(p[0].nch, []).append(idx)
+
+    results: List = [None] * len(blobs)
+    for nch, members in groups.items():
+        frames_np = _stack_mp2_frames([parsed[i][1] for i in members])
+        B, fmax, fs_max = frames_np.shape
+        frames = torch.from_numpy(frames_np).to(device)
+        codes, levels, sfidx, err = mp2_unpack_device.mp2_unpack(
+            frames.view(B * fmax, fs_max), nch)
+        pcm_dev = mp2_kernels.mp2_decode_pcm(
+            codes.view(B, fmax, nch, 36, 32), levels.view(B, fmax, nch, 32),
+            sfidx.view(B, fmax, nch, 3, 32))
+        err = err.view(B, fmax).cpu().numpy()
+        pcm = pcm_dev.cpu().numpy()
+        for row, idx in enumerate(members):
+            _hdr, walk, total, rate = parsed[idx]
+            if err[row, :len(walk)].any():
+                # the host unpacker raises on these frames
+                if on_error == "raise":
+                    raise ValueError("Layer II frame truncated mid-field.")
+                continue
+            n = len(walk) * mp2_frame.SAMPLES_PER_FRAME
+            if total:
+                n = min(n, total)
+            chunk = pcm[row, :, :n]
+            results[idx] = wavmod.write_wav(
+                np.ascontiguousarray(chunk.T).reshape(-1), nch, rate)
     return results

@@ -3,7 +3,9 @@
 tools/make_torch_port_fixtures.py encodes these signals with the JAX
 package to write tests/data/torch_port/; chip_smoke.py rebuilds the HCA and
 ADX input WAVs from the same recipe on the GPU machine, which has no JAX,
-and holds them to the hashes recorded there.
+and holds them to the hashes recorded there. The AHX fixtures are only
+decoded there, so their signals (ahx_bank_pcm, tones) serve the fixture
+tool and its regeneration test.
 """
 from __future__ import annotations
 
@@ -47,6 +49,49 @@ def hca_wav(name: str, write_wav) -> bytes:
         return write_wav(pcm, channels, SAMPLE_RATE)
     return write_wav(pcm, channels, SAMPLE_RATE, looping=True,
                      loop_start=loop[0], loop_end=loop[1])
+
+
+HCA_PNS = "pns_v3_mono_48k_1s"
+
+
+def pns_wav(write_wav) -> bytes:
+    """The input WAV of the v3 PNS fixture: bench.py's two tones without the
+    noise, mono, 1 s. Their spectral leakage leaves small nonzero
+    scalefactors in the high bands, which a v3 decode with min_resolution 0
+    PNS-fills (the bench signal's noise floor leaves none)."""
+    t = np.arange(SAMPLE_RATE) / SAMPLE_RATE
+    sig = 0.4 * np.sin(2 * np.pi * 440 * t) + 0.1 * np.sin(2 * np.pi * 991 * t)
+    pcm = np.clip(sig * 32767, -32768, 32767).astype(np.int16)
+    return write_wav(pcm, 1, SAMPLE_RATE)
+
+
+AHX_BANK = "ahx_bank_lsf_mono_22k_96k_10s"
+
+
+def ahx_bank_pcm() -> np.ndarray:
+    """bench_all.py's AHX bank signal (configs 8 and 11: _sine_wav(10, 1,
+    sr=22050, seed=8)): mono PCM16 at 22,050 Hz, 10 s."""
+    rate = 22050
+    n = rate * 10
+    rng = np.random.default_rng(8)
+    t = np.arange(n) / rate
+    sig = (0.4 * np.sin(2 * np.pi * 440 * t)
+           + 0.1 * np.sin(2 * np.pi * 991 * t)
+           + 0.02 * rng.standard_normal(n))
+    return np.clip(sig * 4000, -32768, 32767).astype(np.int16)
+
+
+def tones(seconds: float, channels: int, rate: int, seed: int) -> np.ndarray:
+    """Three tones and noise, PCM16 [channels, n] (the signal of the JAX
+    package's Layer II unpack tests)."""
+    n = int(rate * seconds)
+    t = np.arange(n) / rate
+    rng = np.random.default_rng(seed)
+    base = sum(a * np.sin(2 * np.pi * f * t + rng.uniform(0, 6))
+               for f, a in ((197, 0.3), (1201, 0.2), (3333, 0.1)))
+    base = base + 0.03 * rng.standard_normal(n)
+    pcm = np.stack([base * (1 - 0.1 * c) for c in range(channels)], 0)
+    return np.clip(pcm * 32767, -32768, 32767).astype(np.int16)
 
 
 ADX_BANK = "adx_m3_bd4_stereo_48k_10s"

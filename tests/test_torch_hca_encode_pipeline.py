@@ -113,7 +113,13 @@ def test_fixture_encodes_to_the_committed_stream(name):
 
 def test_signal_table_matches_the_fixtures():
     expected, _ = H.load_fixtures()
-    assert sorted(signals.HCA_STREAMS) == sorted(expected)
+    # beside the encode fixtures: the v3 PNS stream, a relabelled encode of
+    # signals.pns_wav that is only decoded
+    assert sorted([*signals.HCA_STREAMS, signals.HCA_PNS]) == sorted(expected)
+    assert [n for n, e in expected.items() if e.get("v3_pns")] == \
+        [signals.HCA_PNS]
+    assert hashlib.sha256(signals.pns_wav(port_write_wav)).hexdigest() == \
+        expected[signals.HCA_PNS]["wav_in_sha256"]
     for name, (channels, seconds, quality, loop) in \
             signals.HCA_STREAMS.items():
         e = expected[name]

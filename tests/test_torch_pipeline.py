@@ -4,9 +4,9 @@ and with its host engine.
 
 One mixed call covers: several configs and lengths, a truncated stream
 (tail zeroing), per-stream subkeys on enciphered streams, and a looped
-stream (smpl chunk). Also: on_error="isolate" with one corrupt CRC, the
-NotImplementedError for configs outside the slice, the launch counters, the
-refusal of chip_smoke.py without a GPU, and the committed fixtures.
+stream (smpl chunk). Also: on_error="isolate" with one corrupt CRC, a v3
+PNS stream beside a v2 one, the launch counters, the refusal of
+chip_smoke.py without a GPU, and the committed fixtures.
 """
 import cProfile
 import hashlib
@@ -146,13 +146,20 @@ def test_isolate_one_corrupt_crc(mixed):
         port_parallel.decode_batch(blobs, device="cpu")
 
 
-def test_pns_noise_stream_raises_not_implemented():
+def test_pns_noise_stream_decodes_like_jax():
+    """A v3 PNS stream (min_resolution 0) beside a v2 stream: byte-equal to
+    the JAX package's host engine and single-stream decode, in both error
+    modes."""
+    from pycricodecs_tpu.models import hca as jax_hca
     from tests.test_hca import _relabel_v3
     v3 = _relabel_v3(H.encode(1, 0, seed=77, samples=24576))
     ok = H.encode(2, 2, seed=23, samples=10000)
     for mode in ("raise", "isolate"):
-        with pytest.raises(NotImplementedError, match="PNS noise"):
-            port_parallel.decode_batch([ok, v3], device="cpu", on_error=mode)
+        got = port_parallel.decode_batch([ok, v3], device="cpu",
+                                         on_error=mode)
+        assert got == jax_parallel.decode_batch([ok, v3], engine="host",
+                                                on_error=mode)
+        assert got[1] == jax_hca.decode(v3)
 
 
 def test_launch_counters_stay_zero_on_cpu():
@@ -240,7 +247,24 @@ def test_profile_tool_names_the_pipeline_pieces():
     assert 0 < pieces["build_timeline"] \
         <= pieces["stack_timelines (stacking, build_timeline included)"] \
         < pieces["hca_encode_batch (whole call)"]
-    for extra in ([], ["--adx"], ["--hca-encode"]):
+    # the AHX bank's pieces, in a real AHX decode
+    _, ahx_blobs = H.load_ahx_fixtures()
+    cp = cProfile.Profile()
+    cp.enable()
+    port_parallel.ahx_decode_batch([ahx_blobs["ahx11_lsf_mono_22k_1s"]] * 2,
+                                   device="cpu")
+    cp.disable()
+    stats = pstats.Stats(cp).stats
+    for label, fsuffix, fname in prof_tool.AHX_HOST_PIECES:
+        assert any((f == "~" and fname in fn) if fsuffix == "~"
+                   else (f.endswith(fsuffix) and fn == fname)
+                   for f, _, fn in stats), label
+    pieces = prof_tool.host_pieces(cp, prof_tool.AHX_HOST_PIECES)
+    assert 0 < pieces["scan_frames"] \
+        <= pieces["_parse_mp2 (AHX header + frame walk)"] \
+        < pieces["ahx_decode_batch (whole call)"]
+    assert os.path.exists(prof_tool.AHX_BANK)
+    for extra in ([], ["--adx"], ["--hca-encode"], ["--ahx"]):
         r = subprocess.run([sys.executable, "tools/profile_torch_slice.py",
                             *extra], cwd=ROOT, capture_output=True,
                            text=True, timeout=300)

@@ -107,6 +107,27 @@ def wav(samples=4000, channels=2, rate=48000, seed=0, lead_in=64,
                      loop_end=loop[1])
 
 
+AHX_FIXTURE_DIR = os.path.join(FIXTURE_DIR, "ahx")
+
+
+def load_ahx_fixtures():
+    """(ahx/expected.json dict, name -> AHX or bare Layer II bytes)."""
+    with open(os.path.join(AHX_FIXTURE_DIR, "expected.json")) as f:
+        expected = json.load(f)
+    blobs = {}
+    for name, e in expected.items():
+        with open(os.path.join(AHX_FIXTURE_DIR, e["file"]), "rb") as f:
+            blobs[name] = f.read()
+    return expected, blobs
+
+
+def mp2_offset(blob: bytes) -> int:
+    """Where the Layer II frames of an AHX or bare stream start."""
+    from pycricodecs_tpu.models.ahx import AHX
+    return AHX.parse_header(blob)["data_offset"] if blob[:1] == b"\x80" \
+        else 0
+
+
 def load_adx_fixtures():
     """(adx/expected.json dict, name -> ADX bytes) of the ADX fixtures."""
     with open(os.path.join(ADX_FIXTURE_DIR, "expected.json")) as f:

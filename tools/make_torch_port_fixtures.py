@@ -21,6 +21,11 @@ engines agree, which this script checks).
   6-channel (two pairs, two unpaired channels) and a looping q2 stereo WAV
   (smpl loop 4000-40000: the loop chunk, the header padding and the
   replayed loop region of the encoder).
+- pns_v3_mono_48k_1s.hca: the v3 PNS stream, a quality-0 mono encode of
+  signals.pns_wav relabelled as v3.0 with min_resolution 0 (the relabel of
+  tests/test_hca.py: for mono streams without HFR the v2 and v3 frame
+  bitstreams coincide), so its resolution-0 bands are noise-filled;
+  expected.json marks it "v3_pns" and records no encode of it.
 
 ADX (tests/data/torch_port/adx/, with its own expected.json): each stream is
 pycricodecs_tpu.models.adx.encode of a WAV rebuilt by adx_wav() of
@@ -40,6 +45,24 @@ scale word and the stream passes the decoders' strict 7-byte CRI signature
 check (adx.cpp:345-348) at every geometry; without it the bench signal's
 first scale word has a nonzero high byte and every decoder refuses it.
 
+AHX (tests/data/torch_port/ahx/, with its own expected.json): AHX and bare
+MPEG Layer II streams from the JAX package's encoders, each recorded with
+the sha256 of the WAV pycricodecs_tpu.parallel.ahx_decode_batch(...,
+device=False) makes of it (the host lane; AHX.decode agrees where the
+stream has no declared sample count beyond its frames, which this script
+checks) and with the JAX device program's largest distance from it in
+int16 LSB (mp2_kernels.decode_transform_device_batched, f32 matmuls):
+- ahx_bank_lsf_mono_22k_96k_10s: bench_all configs 8/11's stream,
+  AHX.encode of signals.ahx_bank_pcm at 96 kbps (MPEG-2 LSF, table 4,
+  sblimit 30, 192 frames);
+- 1 s streams, one per unpacker configuration: AHX 0x10 LSF mono 16 kHz,
+  AHX 0x11 LSF mono 22.05 kHz, bare LSF mono 24 kHz, MPEG-1 stereo and
+  joint stereo (bound 8) at 44.1 kHz 192 kbps, the hand-packed joint stream
+  whose bound varies per frame (tests/test_mp2_unpack_pallas.py
+  _joint_stream), a CRC-protected LSF stream (64 kbps frames rewritten as
+  96 kbps frames with the protection bit cleared and a CRC word, unchecked by
+  both packages, after the header), and a VBR stream (64 then 96 kbps).
+
 Usage: python3 tools/make_torch_port_fixtures.py
 """
 import hashlib
@@ -51,10 +74,12 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 from pycricodecs_tpu_torch.utils.signals import (  # noqa: E402
-    ADX_STREAMS, HCA_STREAMS, adx_wav, hca_wav)
+    ADX_STREAMS, AHX_BANK, HCA_PNS, HCA_STREAMS, adx_wav, ahx_bank_pcm,
+    hca_wav, pns_wav, tones)
 
 OUT_DIR = os.path.join(ROOT, "tests", "data", "torch_port")
 ADX_DIR = os.path.join(OUT_DIR, "adx")
+AHX_DIR = os.path.join(OUT_DIR, "ahx")
 
 
 def make_adx_streams() -> dict:
@@ -79,7 +104,80 @@ def make_streams() -> dict:
     for name, (_, _, quality, _) in HCA_STREAMS.items():
         wav = hca_wav(name, write_wav)
         out[name] = (wav, hca_encode_host.encode(wav, quality=quality))
+    wav = pns_wav(write_wav)
+    out[HCA_PNS] = (wav, relabel_v3(hca_encode_host.encode(wav, quality=0)))
     return out
+
+
+def relabel_v3(hca: bytes) -> bytes:
+    """A mono v2.0 stream without HFR relabelled as v3.0 with
+    min_resolution 0 (the header CRC rewritten), as tests/test_hca.py
+    _relabel_v3 does."""
+    from pycricodecs_tpu.utils.crc import crc16
+    out = bytearray(hca)
+    hs = int.from_bytes(hca[6:8], "big")
+    assert out[4:6] == b"\x02\x00" and out[24:28] == b"comp"
+    out[4:6] = b"\x03\x00"          # version 3.0
+    out[30] = 0                      # comp chunk: min_resolution = 0
+    out[hs - 2:hs] = crc16(bytes(out[:hs - 2])).to_bytes(2, "big")
+    return bytes(out)
+
+
+def crc_protected(mp2: bytes, bitrate_idx: int) -> bytes:
+    """Every frame of an LSF mono stream moved into a frame of bitrate
+    index `bitrate_idx` (no padding) with the protection bit cleared and a
+    16-bit CRC word after the header; the old payload follows unchanged, so
+    the frame decodes to the same samples. The CRC word is not checked by
+    either package's decoder."""
+    from pycricodecs_tpu.ops import mp2_frame
+    _, walk = mp2_frame.scan_frames(mp2, 0)
+    out = []
+    for _, fr in walk:
+        hdr = mp2_frame.parse_header(fr)
+        w = mp2_frame.header_word(hdr.version, bitrate_idx, 0, 0, hdr.mode)
+        w &= ~(1 << 16)                                  # CRC present
+        size = mp2_frame.parse_header(w.to_bytes(4, "big")).frame_size
+        body = w.to_bytes(4, "big") + b"\x00\x00" + fr[4:]
+        assert len(body) <= size
+        out.append(body + bytes(size - len(body)))
+    return b"".join(out)
+
+
+def make_ahx_streams() -> dict:
+    """name -> (file name, stream bytes) of the AHX fixtures."""
+    from pycricodecs_tpu.models.ahx import AHX, encode_mp2
+    from pycricodecs_tpu.utils.wav import write_wav
+    from tests.test_mp2_unpack_pallas import _joint_stream
+
+    def ahx(pcm, rate, **kw):
+        return AHX.encode(write_wav(pcm.reshape(-1), 1, rate), **kw)
+
+    return {
+        AHX_BANK: (AHX_BANK + ".ahx",
+                   ahx(ahx_bank_pcm(), 22050, bitrate_kbps=96)),
+        "ahx10_lsf_mono_16k_1s": ("ahx10_lsf_mono_16k_1s.ahx", ahx(
+            tones(1.0, 1, 16000, 11), 16000, AhxVersion=0x10)),
+        "ahx11_lsf_mono_22k_1s": ("ahx11_lsf_mono_22k_1s.ahx", ahx(
+            tones(1.0, 1, 22050, 12), 22050, bitrate_kbps=64)),
+        "mp2_lsf_mono_24k_1s": ("mp2_lsf_mono_24k_1s.mp2", encode_mp2(
+            tones(1.0, 1, 24000, 13)[0], 24000)),
+        "mp2_stereo_44k_192k_1s": ("mp2_stereo_44k_192k_1s.mp2", encode_mp2(
+            tones(1.0, 2, 44100, 14), 44100, bitrate_kbps=192)),
+        "mp2_joint8_44k_192k_1s": ("mp2_joint8_44k_192k_1s.mp2", encode_mp2(
+            tones(1.0, 2, 44100, 15), 44100, bitrate_kbps=192,
+            joint_bound=8)),
+        "mp2_joint_varying_bound": ("mp2_joint_varying_bound.mp2",
+                                    _joint_stream()),
+        "mp2_crc_lsf_mono_22k_1s": ("mp2_crc_lsf_mono_22k_1s.mp2",
+                                    crc_protected(encode_mp2(
+                                        tones(1.0, 1, 22050, 16)[0], 22050,
+                                        bitrate_kbps=64), 10)),
+        "mp2_vbr_lsf_mono_22k_1s": ("mp2_vbr_lsf_mono_22k_1s.mp2",
+                                    encode_mp2(tones(0.5, 1, 22050, 17)[0],
+                                               22050, bitrate_kbps=64)
+                                    + encode_mp2(tones(0.5, 1, 22050, 18)[0],
+                                                 22050, bitrate_kbps=96)),
+    }
 
 
 def reference_sha256(blob: bytes, engine: str) -> str:
@@ -102,10 +200,14 @@ def main() -> None:
     os.makedirs(OUT_DIR, exist_ok=True)
     expected = {}
     for name, (wav, blob) in make_streams().items():
-        channels, seconds, quality, loop = HCA_STREAMS[name]
-        if parallel.hca_encode_batch([wav], quality=quality,
-                                     device=True)[0] != blob:
-            raise SystemExit(f"{name}: batch and host encoders disagree")
+        if name == HCA_PNS:
+            channels, seconds, quality, loop = 1, 1.0, 0, None
+        else:
+            channels, seconds, quality, loop = HCA_STREAMS[name]
+            if parallel.hca_encode_batch([wav], quality=quality,
+                                         device=True)[0] != blob:
+                raise SystemExit(f"{name}: batch and host encoders "
+                                 f"disagree")
         with open(os.path.join(OUT_DIR, name + ".hca"), "wb") as f:
             f.write(blob)
         sha = reference_sha256(blob, "host")
@@ -115,11 +217,14 @@ def main() -> None:
                           "quality": quality, "loop": loop,
                           "wav_in_sha256": sha256(wav),
                           "hca_sha256": sha256(blob), "wav_sha256": sha}
+        if name == HCA_PNS:
+            expected[name]["v3_pns"] = True
         print(name, len(blob), sha)
     with open(os.path.join(OUT_DIR, "expected.json"), "w") as f:
         json.dump(expected, f, indent=1, sort_keys=True)
         f.write("\n")
     write_adx_fixtures()
+    write_ahx_fixtures()
 
 
 def sha256(data: bytes) -> str:
@@ -148,6 +253,42 @@ def write_adx_fixtures() -> None:
                           "wav_sha256": sha256(dec)}
         print(name, len(blob), sha256(blob))
     with open(os.path.join(ADX_DIR, "expected.json"), "w") as f:
+        json.dump(expected, f, indent=1, sort_keys=True)
+        f.write("\n")
+
+
+def write_ahx_fixtures() -> None:
+    import numpy as np
+
+    from pycricodecs_tpu import parallel
+    from pycricodecs_tpu.models.ahx import AHX
+    from pycricodecs_tpu.ops import mp2_frame, mp2_kernels
+
+    os.makedirs(AHX_DIR, exist_ok=True)
+    expected = {}
+    for name, (fname, blob) in make_ahx_streams().items():
+        wav = parallel.ahx_decode_batch([blob], device=False)[0]
+        offset = AHX.parse_header(blob)["data_offset"] \
+            if fname.endswith(".ahx") else 0
+        st = mp2_frame.unpack(blob, offset)
+        if fname.endswith(".ahx") and AHX.decode(blob) != wav:
+            raise SystemExit(f"{name}: AHX.decode and the batch decode "
+                             f"disagree")
+        host = mp2_kernels.decode_pcm16_host(st.codes, st.levels, st.sfidx)
+        dev = mp2_kernels.decode_transform_device_batched(
+            st.codes[None], st.levels[None], st.sfidx[None])[0]
+        diff = np.abs(dev.astype(np.int32) - host.astype(np.int32))
+        with open(os.path.join(AHX_DIR, fname), "wb") as f:
+            f.write(blob)
+        expected[name] = {"file": fname, "channels": st.header.nch,
+                          "sample_rate": st.header.sample_rate,
+                          "frames": st.nframes, "crc": st.header.crc,
+                          "stream_sha256": sha256(blob),
+                          "wav_sha256": sha256(wav),
+                          "jax_device_max_lsb": int(diff.max()),
+                          "jax_device_lsb_samples": int((diff > 0).sum())}
+        print(name, len(blob), st.nframes, int(diff.max()))
+    with open(os.path.join(AHX_DIR, "expected.json"), "w") as f:
         json.dump(expected, f, indent=1, sort_keys=True)
         f.write("\n")
 

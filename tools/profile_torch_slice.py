@@ -6,7 +6,9 @@ chip_smoke.py drives): by default the HCA bank decode with
 pycricodecs_tpu_torch.decode_batch; with --adx the ADX bank decode with
 adx_decode_batch; with --hca-encode the HCA bank encode with
 hca_encode_batch (256 copies of the bank's input WAV, rebuilt by
-pycricodecs_tpu_torch/utils/signals.py, quality 2).
+pycricodecs_tpu_torch/utils/signals.py, quality 2); with --ahx the AHX bank
+decode with ahx_decode_batch (256 copies of
+tests/data/torch_port/ahx/ahx_bank_lsf_mono_22k_96k_10s.ahx).
 
 1. one warm-up run, then one plain run timed on the host clock;
 2. one run under torch.profiler (CPU + CUDA activities): device time summed
@@ -18,13 +20,14 @@ pycricodecs_tpu_torch/utils/signals.py, quality 2).
    payload slicing + lane stacking, H2D, launch, D2H, interleave, WAV write.
    HCA encode: WAV parse, init_encode, build_timeline, stacking, H2D, the
    device work's enqueue, D2H (`.cpu()`, which waits for the device), header
-   assembly.
+   assembly. AHX: header parse and frame walk (scan_frames, parse_header),
+   frame stacking, H2D, the two launches, D2H, interleave + WAV write.
 
 Prints each part with the card's name and power limit, and last one JSON
 line of the numbers. There is no CPU path.
 
 Run from the repository root:
-    python3 tools/profile_torch_slice.py [--adx | --hca-encode]
+    python3 tools/profile_torch_slice.py [--adx | --hca-encode | --ahx]
         [--trace trace.json]
 """
 import argparse
@@ -44,6 +47,8 @@ BANK = os.path.join(ROOT, "tests", "data", "torch_port",
                     "bank_q2_stereo_48k_10s.hca")
 ADX_BANK = os.path.join(ROOT, "tests", "data", "torch_port", "adx",
                         "adx_m3_bd4_stereo_48k_10s.adx")
+AHX_BANK = os.path.join(ROOT, "tests", "data", "torch_port", "ahx",
+                        "ahx_bank_lsf_mono_22k_96k_10s.ahx")
 ENCODE_QUALITY = 2
 STREAMS = 256
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -86,6 +91,19 @@ ENCODE_HOST_PIECES = [
      "hca_encode_device.py", "hca_encode_frames"),
     ("Tensor.cpu (wait + D2H)", "~", "'cpu' of 'torch._C."),
     ("assemble (header + frames)", "hca_encode_device.py", "assemble"),
+]
+AHX_HOST_PIECES = [
+    ("ahx_decode_batch (whole call)", "pipeline.py", "ahx_decode_batch"),
+    ("_parse_mp2 (AHX header + frame walk)", "pipeline.py", "_parse_mp2"),
+    ("scan_frames", "mp2_frame.py", "scan_frames"),
+    ("parse_header (Layer II, per frame)", "mp2_frame.py", "parse_header"),
+    ("_stack_mp2_frames", "pipeline.py", "_stack_mp2_frames"),
+    ("Tensor.to (H2D, pageable)", "~", "'to' of 'torch._C."),
+    ("mp2_unpack (B10 enqueue)", "mp2_unpack_device.py", "mp2_unpack"),
+    ("mp2_decode_pcm (synthesis enqueue)", "mp2_kernels.py",
+     "mp2_decode_pcm"),
+    ("Tensor.cpu (wait + D2H)", "~", "'cpu' of 'torch._C."),
+    ("write_wav", "wav.py", "write_wav"),
 ]
 
 
@@ -141,6 +159,8 @@ def main() -> None:
                            "one")
     mode.add_argument("--hca-encode", action="store_true",
                       help="profile the HCA bank encode")
+    mode.add_argument("--ahx", action="store_true",
+                      help="profile the AHX bank decode")
     ap.add_argument("--trace", help="write the profiler's chrome trace here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -157,7 +177,8 @@ def main() -> None:
         from pycricodecs_tpu_torch.utils.wav import write_wav
         bank = [signals.hca_wav(signals.HCA_BANK, write_wav)] * STREAMS
     else:
-        with open(ADX_BANK if args.adx else BANK, "rb") as f:
+        path = AHX_BANK if args.ahx else ADX_BANK if args.adx else BANK
+        with open(path, "rb") as f:
             bank = [f.read()] * STREAMS
 
     def run(stats=None) -> float:
@@ -167,6 +188,8 @@ def main() -> None:
             port.hca_encode_batch(bank, quality=ENCODE_QUALITY, device=dev)
         elif args.adx:
             port.adx_decode_batch(bank, device=dev)
+        elif args.ahx:
+            port.ahx_decode_batch(bank, device=dev)
         else:
             port.decode_batch(bank, device=dev, stats=stats)
         torch.cuda.synchronize()
@@ -208,8 +231,9 @@ def main() -> None:
     cprof_wall = run(st)
     cp.disable()
     cprof = {"wall_s": cprof_wall}
-    if args.adx or args.hca_encode:
+    if args.adx or args.hca_encode or args.ahx:
         pieces = host_pieces(cp, ENCODE_HOST_PIECES if args.hca_encode
+                             else AHX_HOST_PIECES if args.ahx
                              else ADX_HOST_PIECES)
         print(f"[{card}] cProfile run: wall {cprof_wall:.4f} s", flush=True)
     else:
@@ -222,14 +246,14 @@ def main() -> None:
               f"total {st.total_seconds:.4f} s", flush=True)
     for label, secs in pieces.items():
         print(f"  {secs:>9.4f} s  {label}")
-    if not (args.adx or args.hca_encode):
+    if not (args.adx or args.hca_encode or args.ahx):
         print(f"  {stack_s:>9.4f} s  frame stacking + sync check "
               f"(DecodeStats.unpack - crc16_batch)")
     cprof["host_s"] = pieces
 
     print(json.dumps({
         "card": card,
-        "bank": ("hca_encode" if args.hca_encode
+        "bank": ("hca_encode" if args.hca_encode else "ahx" if args.ahx
                  else "adx" if args.adx else "hca"),
         "streams": STREAMS, "plain_wall_s": plain_wall,
         "profiled": {"wall_s": prof_wall, "device_busy_s": busy_s,
