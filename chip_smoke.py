@@ -2,7 +2,8 @@
 """GPU smoke test of the PyTorch + CUDA port (pycricodecs_tpu_torch).
 
 Drives the port's main paths on one CUDA GPU: the batched HCA bank decode,
-the batched ADX bank decode and encode, then the batched HCA bank encode.
+the batched ADX bank decode and encode, the batched HCA bank encode, the v3
+PNS decode, the AHX decode and the HCA key search.
 
 HCA:
 
@@ -74,9 +75,27 @@ AHX (tests/data/torch_port/ahx/, hashes from the JAX package's host lane):
    the bank call timed (median of 3 after a warm-up); kernels and twins
    timed by CUDA events.
 
+Key search and zero coded_count (tests/data/torch_port/keysearch/, hashes
+from the JAX package):
+14. B4 `hca_imdct_ola` and B5 `hca_imdct` against their twins
+   (`imdct_ola_plain`, `imdct_butterflies`; equal f32 values, +0.0 == -0.0)
+   on the bank chunk's real spectra (128 rows x 3,752 subframes) and on
+   random spectra with extremes; B2's end cursor (and its cursor-only mode)
+   against the twin's on the bank chunk and on the key search's rows under
+   4,096 wrong keys; `find_key` at full width (bench_all config 6's
+   traffic: the bank stream enciphered by `crypt`, cipher 56, 200,000
+   seeded candidates with the true key at index 100,000, 8 frames), the
+   scores' sha256 equal to the JAX package's and the true key first, B1, B2
+   and B4 launched, timed (median of 3 after a warm-up, keys/s) with the
+   stage split; 16 copies of the zero-coded_count stream through
+   `decode_batch`, every WAV equal to its recorded sha256; B4 and B5 timed
+   at the chunk shape, and B5's yardstick, one `torch.matmul` by the
+   128 x 128 DCT-IV matrix with TF32 off. B5 has no main path (the JAX
+   package runs it only in its tests), so its launch count is 0.
+
 Prints a JSON line of per-kernel results (launches on the main paths, max
 |kernel - twin|, kernel/twin ms, the bound from the bytes and operations of
-the timed call), the card line, and last a JSON line
+the timed call; B5's library call), the card line, and last a JSON line
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; there
 is no CPU path.
 
@@ -136,6 +155,13 @@ KERNELS = {
     "mp2_synth": dict(
         source="pycricodecs_tpu_torch/csrc/mp2_synth.cu",
         replaces="pycricodecs_tpu/ops/mp2_kernels.py:179"),
+    "hca_imdct_ola": dict(
+        source="pycricodecs_tpu_torch/csrc/hca_imdct.cu",
+        replaces="pycricodecs_tpu/ops/pallas_kernels.py:236"),
+    # test-only in the JAX package: no main path launches it
+    "hca_imdct": dict(
+        source="pycricodecs_tpu_torch/csrc/hca_imdct.cu",
+        replaces="pycricodecs_tpu/ops/pallas_kernels.py:130"),
 }
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, and the
@@ -169,10 +195,13 @@ FP64_OPS_PER_S = 17e12
 # - mp2_synth, f64 operations per output sample: dequantise 5 (mul, add,
 #   sub, div, mul), matrixing 126 (64 outputs x 32 mul + 31 add per 32
 #   samples), window 31 (16 mul + 15 add), PCM 2 (mul, add); counted
-#   against FP64_OPS_PER_S.
+#   against FP64_OPS_PER_S;
+# - B4 (hca_imdct_ola): B3's IMDCT 35 and window + overlap-add 3 per output
+#   value; B5 (hca_imdct): the IMDCT's 35.
 OPS = {"hca_side_info": 1, "hca_coefficients": 3, "hca_transform": 42,
        "adx_decode": 13, "adx_encode": 20, "hca_mdct": 23, "hca_pack": 3,
-       "hca_transform_pns": 44, "mp2_unpack": 3, "mp2_synth": 164}
+       "hca_transform_pns": 44, "mp2_unpack": 3, "mp2_synth": 164,
+       "hca_imdct_ola": 38, "hca_imdct": 35}
 OPS_PER_S = {"mp2_synth": FP64_OPS_PER_S}
 
 
@@ -368,6 +397,8 @@ def reset_launches() -> None:
     cuda_kernels.PACK_LAUNCHES = 0
     cuda_kernels.MP2_UNPACK_LAUNCHES = 0
     cuda_kernels.MP2_SYNTH_LAUNCHES = 0
+    cuda_kernels.IMDCT_OLA_LAUNCHES = 0
+    cuda_kernels.IMDCT_LAUNCHES = 0
 
 
 def read_launches() -> dict:
@@ -381,7 +412,9 @@ def read_launches() -> dict:
             "hca_mdct": cuda_kernels.MDCT_LAUNCHES,
             "hca_pack": cuda_kernels.PACK_LAUNCHES,
             "mp2_unpack": cuda_kernels.MP2_UNPACK_LAUNCHES,
-            "mp2_synth": cuda_kernels.MP2_SYNTH_LAUNCHES}
+            "mp2_synth": cuda_kernels.MP2_SYNTH_LAUNCHES,
+            "hca_imdct_ola": cuda_kernels.IMDCT_OLA_LAUNCHES,
+            "hca_imdct": cuda_kernels.IMDCT_LAUNCHES}
 
 
 def drive(path: str, own, fn):
@@ -1129,6 +1162,203 @@ def ahx_phase(dev, card: str, worst: dict, launches: dict) -> dict:
             "mp2_synth": (synth_ms, synth_plain_ms, synth_bd)}
 
 
+# ---------------------------------------------------------------------------
+# B4/B5, the key search, the zero-coded_count decode (phase 14)
+# ---------------------------------------------------------------------------
+
+KEYSEARCH_FIXTURES = os.path.join(FIXTURES, "keysearch")
+ZERO_CODED_STREAMS = 16
+
+
+def extreme_spectra(g, shape, dev):
+    """Random f32 spectra with extremes: +-1e30, zeros of both signs, a
+    denormal, an all-zero row (no inf or NaN: the kernels' inputs are
+    finite, and NaN never compares equal)."""
+    x = torch.randn(shape, generator=g) * 3000
+    flat = x.view(-1)
+    flat[::97] = 0.0
+    flat[1::97] = -0.0
+    flat[2::211] = 1.0e30
+    flat[3::211] = -1.0e30
+    flat[4::307] = 1.0e-40
+    x.view(-1, 128)[0] = 0.0
+    return x.to(dev)
+
+
+def wave_equal(what: str, a: torch.Tensor, b: torch.Tensor) -> float:
+    """f32 tensors with equal values (torch.equal: +0.0 == -0.0, as B4's
+    docstring allows); returns max |a - b| (0)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        raise AssertionError(f"{what}: shape/dtype differ")
+    if not torch.equal(a, b):
+        d = float((a.double() - b.double()).abs().max())
+        raise AssertionError(f"{what}: kernel differs from its twin "
+                             f"(max |diff| {d})")
+    return 0.0
+
+
+def keysearch_phase(dev, card: str, worst: dict, launches: dict) -> dict:
+    """Phase 14; returns name -> (ms, plain_ms, bound dict[, library_ms])."""
+    import pycricodecs_tpu_torch as port
+    from pycricodecs_tpu_torch.ops import hca_frame
+    from pycricodecs_tpu_torch.ops import hca_kernels as K
+    from pycricodecs_tpu_torch.ops import hca_unpack_device as U
+    from pycricodecs_tpu_torch.parallel import pipeline as P
+
+    with open(os.path.join(KEYSEARCH_FIXTURES, "expected.json")) as f:
+        expected = json.load(f)
+    spec = expected["find_key"]
+    with open(os.path.join(FIXTURES, spec["stream"] + ".hca"), "rb") as f:
+        plain = f.read()
+    hs = int.from_bytes(plain[6:8], "big")
+    info = hca_frame.parse_header(plain[:hs])
+    C, F = info.channels, info.frame_count
+
+    # B4 and B5 at the HCA bank chunk's shape, on its real spectra
+    up = U.DeviceUnpacker(info, dev)
+    n = info.frame_count * info.frame_size
+    frames = np.frombuffer(plain, np.uint8, count=n, offset=hs).reshape(
+        F, info.frame_size)
+    chunk = torch.from_numpy(np.tile(frames, (P.CHUNK_STREAMS, 1))).to(dev)
+    qc, sf, res, inten, err = up(chunk)
+    if bool(err.any()):
+        raise AssertionError("B1 flagged an error on the bank chunk")
+    hfr, cfg = K.transform_config(info)
+    B = P.CHUNK_STREAMS
+    spectra = K.reconstruct_spectra(
+        qc.view(B, F, C, 8, 128), sf.view(B, F, C, 128),
+        res.view(B, F, C, 128), inten.view(B, F, C, 8), hfr, **cfg)
+    spec_t = torch.movedim(spectra, 2, 1).reshape(B * C, F * 8, 128) \
+        .contiguous()
+    del qc, sf, res, inten, spectra
+    wave_k = K.imdct_ola(spec_t)
+    wave_t = K.imdct_ola_plain(spec_t)
+    worst["hca_imdct_ola"] = wave_equal("B4 bank chunk", wave_k, wave_t)
+    dct_k = K.imdct(spec_t)
+    dct_t = K.imdct_butterflies(spec_t)
+    worst["hca_imdct"] = wave_equal("B5 bank chunk", dct_k, dct_t)
+    log(f"B4 and B5 at the bank chunk {tuple(spec_t.shape)}: equal to their "
+        f"twins (f32 values)")
+    del wave_t, dct_t
+    g = torch.Generator().manual_seed(14)
+    for shape in ((7, 1000, 128), (300, 8, 128), (1, 33, 128)):
+        x = extreme_spectra(g, shape, dev)
+        wave_equal(f"B4 random {shape}", K.imdct_ola(x), K.imdct_ola_plain(x))
+        wave_equal(f"B5 random {shape}", K.imdct(x), K.imdct_butterflies(x))
+        log(f"B4 and B5 on random spectra with extremes {shape}: equal to "
+            f"their twins")
+
+    # B2's end cursor against the twin's: the bank chunk, and the key
+    # search's rows under 4,096 wrong keys (most run past the frame end)
+    dec = up.decipher(chunk)
+    _, res, _, cur, _ = up.side_info(dec)
+    pairs = [("bank end", up.spectra(dec, res, cur)[1],
+              up.spectra_plain(dec, res, cur)[1]),
+             ("bank end, cursor-only", up.spectra(dec, res, cur, False)[1],
+              up.spectra_plain(dec, res, cur)[1])]
+    del chunk, dec
+    enc = port.crypt(plain, True, hs, spec["cipher"], spec["key"])
+    if sha(enc) != spec["enciphered_sha256"]:
+        raise AssertionError("the enciphered bank stream differs from the "
+                             "recorded hash")
+    keys = np.random.default_rng(spec["seed"]).integers(
+        1, 1 << 63, spec["candidates"]).astype(np.uint64)
+    keys[spec["true_index"]] = spec["key"]
+    if sha(keys.astype("<u8").tobytes()) != spec["candidates_sha256"]:
+        raise AssertionError("the candidates differ from the recorded hash")
+    probe = keys[:4096]
+    tables, tix = P._key_tables(hca_frame.parse_header(enc[:hs]), probe, 0,
+                                dev)
+    rows = torch.from_numpy(np.ascontiguousarray(np.tile(
+        np.frombuffer(enc, np.uint8, count=2 * info.frame_size, offset=hs),
+        len(probe)).reshape(-1, info.frame_size))).to(dev)
+    dec = up.decipher(rows, tables, tix.repeat_interleave(2))
+    side = up.side_info(dec)
+    qk, ek = up.spectra(dec, side[1], side[3])
+    qt, et = up.spectra_plain(dec, side[1], side[3])
+    ok = ~side[4]
+    pairs += [("key rows end", ek, et), ("key rows qc", qk[ok], qt[ok])]
+    worst["hca_coefficients"] = max(worst["hca_coefficients"],
+                                    require_equal("B2 end cursor", pairs))
+    past = int((et.long() + 14 > info.frame_size * 8).sum())
+    log(f"B2 end cursor: bank chunk and {dec.shape[0]} key-search rows "
+        f"({past} past the frame end) equal to the twin's, cursor-only too")
+    del rows, dec, side, qk, qt
+
+    # the key search at full width: bench_all config 6's traffic
+    cands = keys
+    st = {}
+    scores, counts = drive(
+        "find_key", ("hca_side_info", "hca_coefficients", "hca_imdct_ola"),
+        lambda: port.find_key(enc, cands, max_frames=spec["max_frames"],
+                              device=dev, stats=st))
+    launches["hca_imdct_ola"] = counts["hca_imdct_ola"]
+    launches["hca_imdct"] = counts["hca_imdct"]
+    if sha(scores.astype("<i8").tobytes()) != spec["scores_sha256"]:
+        raise AssertionError("find_key scores differ from the JAX "
+                             "package's")
+    if port.rank_keys(scores)[0] != spec["true_index"]:
+        raise AssertionError("find_key: the true key does not rank first")
+    log(f"find_key: {len(cands)} candidates x {spec['max_frames']} frames "
+        f"on the card, scores sha256 equal to the JAX package's, the true "
+        f"key first (score {int(scores[spec['true_index']])}, "
+        f"{int((scores >= 0).sum())} accepted); stages of that run (s): "
+        f"{ {k: round(v, 4) for k, v in st.items()} }")
+    port.find_key(enc, cands, max_frames=spec["max_frames"], device=dev)
+    wall, runs = median_wall(lambda: port.find_key(
+        enc, cands, max_frames=spec["max_frames"], device=dev))
+    log(f"find_key [{card}]: median of 3 = {wall:.4f} s for {len(cands)} "
+        f"keys -> {len(cands) / wall:.1f} keys/s; runs "
+        f"{[round(r, 4) for r in runs]}")
+    st = {}
+    port.find_key(enc, cands, max_frames=spec["max_frames"], device=dev,
+                  stats=st)
+    log(f"find_key [{card}] host/device split (s, each stage ended by a "
+        f"synchronise): {st}")
+
+    # the zero-coded_count stream through decode_batch
+    zc = expected["zero_coded"]
+    with open(os.path.join(KEYSEARCH_FIXTURES, zc["file"]), "rb") as f:
+        zblob = f.read()
+    if sha(zblob) != zc["hca_sha256"]:
+        raise AssertionError(f"{zc['file']} differs from its hash")
+    wavs, _ = drive("decode_batch (zero coded_count)",
+                    ("hca_side_info", "hca_coefficients", "hca_transform"),
+                    lambda: port.decode_batch([zblob] * ZERO_CODED_STREAMS,
+                                              device=dev))
+    if any(sha(w) != zc["wav_sha256"] for w in wavs):
+        raise AssertionError("the zero-coded_count stream's WAV differs from "
+                             "the JAX package's")
+    log(f"zero coded_count: {ZERO_CODED_STREAMS} x {zc['file']} decoded on "
+        f"the card, every WAV sha256 equal to the JAX package's")
+
+    # times at the bank chunk's shape; B5's yardstick: one matmul by the
+    # DCT-IV matrix (TF32 off), the same function in another rounding order
+    values = spec_t.numel()
+    ola_ms = cuda_ms(lambda: K.imdct_ola(spec_t), 20)
+    ola_plain_ms = cuda_ms(lambda: K.imdct_ola_plain(spec_t), 3)
+    dct_ms = cuda_ms(lambda: K.imdct(spec_t), 20)
+    dct_plain_ms = cuda_ms(lambda: K.imdct_butterflies(spec_t), 3)
+    matrix = K.imdct_butterflies(torch.eye(128)).to(dev)
+    rows2d = spec_t.view(-1, 128)
+    lib_ms = cuda_ms(lambda: torch.matmul(rows2d, matrix), 20)
+    lib_err = float((torch.matmul(rows2d, matrix) - dct_k.view(-1, 128))
+                    .abs().max())
+    ola_bd = bound("hca_imdct_ola", nbytes(spec_t, wave_k), values)
+    dct_bd = bound("hca_imdct", nbytes(spec_t, dct_k), values)
+    for name, ms, plain_ms, bd in (
+            ("hca_imdct_ola", ola_ms, ola_plain_ms, ola_bd),
+            ("hca_imdct", dct_ms, dct_plain_ms, dct_bd)):
+        log(f"{name} [{card}] at {tuple(spec_t.shape)}: kernel {ms:.4f} ms, "
+            f"twin {plain_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms by "
+            f"{bd['bound_by']}")
+    log(f"hca_imdct library yardstick [{card}]: torch.matmul by the 128 x 128 "
+        f"DCT-IV matrix (TF32 off) {lib_ms:.4f} ms, max |diff| from B5 "
+        f"{lib_err:.6g} (another summation order)")
+    return {"hca_imdct_ola": (ola_ms, ola_plain_ms, ola_bd),
+            "hca_imdct": (dct_ms, dct_plain_ms, dct_bd, lib_ms)}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -1353,12 +1583,16 @@ def main() -> None:
     # -- phase 13: the AHX / MPEG Layer II decode ----------------------------
     results.update(ahx_phase(dev, card, worst, launches))
 
+    # -- phase 14: B4/B5, the key search, the zero-coded_count decode --------
+    results.update(keysearch_phase(dev, card, worst, launches))
+
     report = []
-    for name, (ms, plain_ms, bd) in results.items():
+    for name, (ms, plain_ms, bd, *library) in results.items():
         report.append(dict(name=name, route="cuda", **KERNELS[name],
                            launches=launches[name],
                            max_abs_err=worst[name], ms=ms,
-                           plain_ms=plain_ms, **bd, library_ms=None))
+                           plain_ms=plain_ms, **bd,
+                           library_ms=library[0] if library else None))
     log(json.dumps({"kernels": report}))
     log(card)
     log(json.dumps({"ok": True, "device": {

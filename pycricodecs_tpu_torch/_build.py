@@ -43,7 +43,7 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     "hca_side_info": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                       _P, _P, _P, _P, _P, _P],
-    "hca_coefficients": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "hca_coefficients": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     "hca_transform": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                       _I, _I, _P, _P, _P, _P, _P, _P],
     "adx_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
@@ -53,6 +53,8 @@ SIGNATURES = {
                  _P, _P],
     "mp2_unpack": [_P, _I, _I, _I, _P, _P, _P, _P, _P],
     "mp2_synth": [_P, _P, _P, _I, _I, _I, _P, _P],
+    "hca_imdct_ola": [_P, _I, _I, _P, _P],
+    "hca_imdct": [_P, _L, _P, _P],
 }
 
 _lib = None

@@ -1,4 +1,5 @@
-// HCA bitstream unpack kernels for Hopper (sm_90a): B1 side info, B2 spectra.
+// HCA bitstream unpack kernels for Hopper (sm_90a): B1 side info, B2 spectra
+// and the bit cursor after them.
 //
 // Replaces (TPU Pallas kernels of the JAX package):
 //   B1 pycricodecs_tpu/ops/hca_unpack_device.py DeviceUnpacker._side_info_pallas
@@ -205,20 +206,22 @@ __global__ void __launch_bounds__(128)
 hca_coefficients_kernel(const uint8_t* __restrict__ dec,
                         const uint8_t* __restrict__ res,
                         const int32_t* __restrict__ cur0, int N,
-                        CoefficientsCfg cfg, int16_t* __restrict__ qc) {
+                        CoefficientsCfg cfg, int16_t* __restrict__ qc,
+                        int32_t* __restrict__ cur_end) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= N) return;
   const int C = cfg.C;
   const uint8_t* __restrict__ p = dec + (size_t)n * cfg.fs;
   const int nbits = cfg.fs * 8;
   const uint8_t* __restrict__ rrow = res + (size_t)n * C * 128;
-  int16_t* __restrict__ q = qc + (size_t)n * C * 8 * 128;
+  // qc == nullptr: the cursor-only pass of the key search (no spectra)
+  int16_t* __restrict__ q = qc ? qc + (size_t)n * C * 8 * 128 : nullptr;
   int cur = cur0[n];
   // program order: subframe, channel, band (hca.cpp:1195-1201)
   for (int s = 0; s < 8; ++s) {
     for (int c = 0; c < C; ++c) {
       const int coded = cfg.coded[c];
-      int16_t* __restrict__ qs = q + ((size_t)c * 8 + s) * 128;
+      int16_t* __restrict__ qs = q ? q + ((size_t)c * 8 + s) * 128 : nullptr;
       for (int k = 0; k < coded; ++k) {
         const int r = rrow[c * 128 + k];
         const int bits = max_bit(r);
@@ -231,12 +234,15 @@ hca_coefficients_kernel(const uint8_t* __restrict__ dec,
           v = (int)kVlcValue[r * 16 + code];
           adv = (int)kVlcAdvance[r * 16 + code];
         }
-        qs[k] = (int16_t)v;
+        if (qs) qs[k] = (int16_t)v;
         cur += adv;
       }
-      for (int k = coded; k < 128; ++k) qs[k] = 0;
+      if (qs)
+        for (int k = coded; k < 128; ++k) qs[k] = 0;
     }
   }
+  // unclamped: the key search's -6 rule reads how far past the end it ran
+  cur_end[n] = cur;
 }
 
 }  // namespace
@@ -273,7 +279,7 @@ extern "C" int hca_side_info(const void* dec, int N, int fs, int C,
 extern "C" int hca_coefficients(const void* dec, const void* res,
                                 const void* cur, int N, int fs, int C,
                                 const int32_t* coded, void* qc,
-                                void* stream) {
+                                void* cur_end, void* stream) {
   if (C < 1 || C > HCA_MAX_CH || N < 1) return (int)cudaErrorInvalidValue;
   CoefficientsCfg cfg;
   cfg.C = C;
@@ -283,6 +289,6 @@ extern "C" int hca_coefficients(const void* dec, const void* res,
   hca_coefficients_kernel<<<(N + threads - 1) / threads, threads, 0,
                             (cudaStream_t)stream>>>(
       (const uint8_t*)dec, (const uint8_t*)res, (const int32_t*)cur, N, cfg,
-      (int16_t*)qc);
+      (int16_t*)qc, (int32_t*)cur_end);
   return (int)cudaGetLastError();
 }

@@ -8,7 +8,9 @@ pallas_kernels.mdct_enc_pallas), the frame packer `hca_pack`
 (csrc/hca_pack.cu, carries hca_pack_device._scatter_segments_pallas, B9),
 B10 `mp2_unpack` (csrc/mp2_unpack.cu, replaces mp2_unpack_device.
 Mp2DeviceUnpacker._unpack) and the Layer II synthesis `mp2_synth`
-(csrc/mp2_synth.cu, the fixed-order f64 lane; no Pallas kernel).
+(csrc/mp2_synth.cu, the fixed-order f64 lane; no Pallas kernel), B4
+`hca_imdct_ola` and B5 `hca_imdct` (csrc/hca_imdct.cu, replace
+pallas_kernels.imdct_ola_pallas and imdct_pallas).
 The unpack kernels B1/B2 are wrapped in
 hca_unpack_device.py with the helpers below. A wrapper checks its inputs,
 allocates the outputs, launches on the current stream, raises if the launch
@@ -32,6 +34,8 @@ MDCT_LAUNCHES = 0
 PACK_LAUNCHES = 0
 MP2_UNPACK_LAUNCHES = 0
 MP2_SYNTH_LAUNCHES = 0
+IMDCT_OLA_LAUNCHES = 0
+IMDCT_LAUNCHES = 0
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
@@ -277,4 +281,46 @@ def hca_pack(level, boundary, sf, res, intensity, hfr_scales, delta_bits,
     if rc:
         raise launch_failed("hca_pack", rc)
     PACK_LAUNCHES += 1
+    return out
+
+
+def hca_imdct_ola(spec_t) -> torch.Tensor:
+    """Kernel B4: spectra f32 [R, T, 128] (CUDA), T subframes in time order
+    per row -> wave f32 [R, T, 128]: DCT-IV and windowed overlap-add, a
+    zero carry into each row's first subframe."""
+    global IMDCT_OLA_LAUNCHES
+    if spec_t.dim() != 3:
+        raise ValueError(f"spec_t: expected [R, T, 128], got "
+                         f"{tuple(spec_t.shape)}")
+    R, Tn = spec_t.shape[0], spec_t.shape[1]
+    check_cuda(spec_t, "spec_t", torch.float32, (R, Tn, 128))
+    out = torch.empty((R, Tn, 128), dtype=torch.float32,
+                      device=spec_t.device)
+    if R * Tn == 0:
+        return out
+    rc = _build.load().hca_imdct_ola(ptr(spec_t), R, Tn, ptr(out),
+                                     stream_ptr(spec_t))
+    if rc:
+        raise launch_failed("hca_imdct_ola", rc)
+    IMDCT_OLA_LAUNCHES += 1
+    return out
+
+
+def hca_imdct(spec) -> torch.Tensor:
+    """Kernel B5: DCT-IV of every 128-value row, f32 [..., 128] (CUDA) ->
+    f32 of the same shape."""
+    global IMDCT_LAUNCHES
+    if spec.dim() < 1 or spec.shape[-1] != 128:
+        raise ValueError(f"spec: expected [..., 128], got "
+                         f"{tuple(spec.shape)}")
+    check_cuda(spec, "spec", torch.float32, tuple(spec.shape))
+    out = torch.empty_like(spec)
+    rows = spec.numel() // 128
+    if rows == 0:
+        return out
+    rc = _build.load().hca_imdct(ptr(spec), rows, ptr(out),
+                                 stream_ptr(spec))
+    if rc:
+        raise launch_failed("hca_imdct", rc)
+    IMDCT_LAUNCHES += 1
     return out

@@ -7,10 +7,14 @@ stages) -> windowed overlap-add -> PCM16.
 
 `hca_decode_transform_batched` launches kernel B3 (csrc/hca_transform.cu,
 wrapper in cuda_kernels.py) on CUDA tensors and runs the plain twins below
-on CPU tensors. The twins keep the JAX reference's op order: every float
-value is one rounded fp32 multiply, add or subtract, as separate PyTorch ops
-(no addcmul, matmul or reduction), so the CPU run is byte-equal to the JAX
-package and the kernel is byte-equal to the twins.
+on CPU tensors. The key search's float-wave decode `hca_decode_wave` runs
+`reconstruct_spectra` (plain PyTorch, as the JAX package leaves it to XLA)
+and then `imdct_ola`: kernel B4 (csrc/hca_imdct.cu) on CUDA, its twin
+`imdct_ola_plain` on the CPU; `imdct` is kernel B5, the DCT-IV alone. The
+twins keep the JAX reference's op order: every float value is one rounded
+fp32 multiply, add or subtract, as separate PyTorch ops (no addcmul, matmul
+or reduction), so the CPU run is byte-equal to the JAX package and the
+kernel is byte-equal to the twins.
 
 Shapes: B streams, F frames, C channels, 8 subframes, 128 bands.
 """
@@ -196,6 +200,28 @@ def window_overlap_add(dct):
     return torch.cat([first, second], dim=-1)
 
 
+def imdct_ola_plain(spec_t):
+    """Plain PyTorch twin of kernel B4: f32 [R, T, 128] spectra -> wave."""
+    return window_overlap_add(imdct_butterflies(spec_t))
+
+
+def imdct_ola(spec_t):
+    """DCT-IV + windowed overlap-add over each row's T subframes, a zero
+    carry into its first: f32 [R, T, 128] -> f32 [R, T, 128]. A CUDA input
+    launches kernel B4, a CPU input runs imdct_ola_plain."""
+    if spec_t.device.type == "cpu":
+        return imdct_ola_plain(spec_t)
+    return cuda_kernels.hca_imdct_ola(spec_t)
+
+
+def imdct(spec):
+    """DCT-IV of every 128-value row, f32 [..., 128]. A CUDA input
+    launches kernel B5, a CPU input runs imdct_butterflies."""
+    if spec.device.type == "cpu":
+        return imdct_butterflies(spec)
+    return cuda_kernels.hca_imdct(spec)
+
+
 def quantize_pcm16(wave):
     """f32 wave -> i16: truncate toward zero, saturate (XLA's f32->s32)."""
     scaled = wave * 32768.0
@@ -240,3 +266,19 @@ def hca_decode_transform_batched(qc, sf, res, inten, hfr_map, *, base_band,
     if qc.device.type == "cpu":
         return decode_transform_plain(qc, sf, res, inten, hfr_map, **cfg)
     return cuda_kernels.hca_transform(qc, sf, res, inten, hfr_map, **cfg)
+
+
+def hca_decode_wave(qc, sf, res, inten, hfr_map, *, base_band, total_band,
+                    stereo_pairs, apply_hfr, hfr_group_count, noise=None):
+    """Float-domain decode, no PCM16 quantisation (the JAX package's
+    hca_kernels.hca_decode_wave): the key tester inspects this wave. Inputs
+    as hca_decode_transform_batched; returns f32 [B, C, F * 8, 128], each
+    stream's frames in time order with a zero carry into its first."""
+    B, F, C = qc.shape[0], qc.shape[1], qc.shape[2]
+    spectra = reconstruct_spectra(
+        qc, sf, res, inten, hfr_map, base_band=int(base_band),
+        total_band=int(total_band), stereo_pairs=tuple(stereo_pairs),
+        apply_hfr=bool(apply_hfr), hfr_group_count=int(hfr_group_count),
+        noise=noise)                                        # [B,F,C,8,128]
+    spec_t = torch.movedim(spectra, 2, 1).reshape(B * C, F * 8, 128)
+    return imdct_ola(spec_t.contiguous()).view(B, C, F * 8, 128)

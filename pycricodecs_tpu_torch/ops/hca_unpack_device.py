@@ -10,14 +10,22 @@ of each other, so both phases run one frame per GPU thread:
   the intensity values (v2 4-bit, v3 delta-coded with escapes), then the
   resolutions from scalefactors, ATH curve and noise level. Also the bit
   cursor where the spectra start and a per-frame error flag.
-- `coefficients` (kernel B2): 8 subframes x channels x coded_count prefix
-  symbols from that cursor.
+- `coefficients` / `spectra` (kernel B2): 8 subframes x channels x
+  coded_count prefix symbols from that cursor, and the unclamped cursor
+  after the last one (the key search's end-of-frame rules); `spectra` can
+  skip the spectra and return the cursor alone.
 - `noise_maps` (v3 streams with min_resolution 0): the PNS fill's source
   band, scale index and mask per value, in plain PyTorch on the device, from
   B1's scalefactors and resolutions; kernel B3 adds the fill.
 
+A coded_count of 0 (a v2 stereo secondary under base_band_count 0) needs no
+special case: both kernels loop over the coded count at run time, and the
+reads at cs_count 0 are the reference's (3 delta bits, and for delta bits
+1-5 one 6-bit value into sf[0]). `decipher` takes the stream's own table or,
+for the key search, one table per row.
+
 Each has a plain PyTorch twin beside it (`side_info_plain`,
-`coefficients_plain`): vectorised across frames, sequential over symbols,
+`spectra_plain`): vectorised across frames, sequential over symbols,
 int64 arithmetic. A CUDA tensor goes to the kernel (or raises); a CPU tensor
 goes to the twin. Error conditions the host reference raises on (scalefactor
 delta out of range, v3 intensity out of range) come back as the `err` flag,
@@ -33,6 +41,7 @@ import torch
 from .. import _build
 from . import cuda_kernels as ck
 from . import hca_tables as T
+from .hca_frame import HcaError
 
 VERSION_V200 = 0x0200
 
@@ -144,8 +153,6 @@ class DeviceUnpacker:
         self.max_res = int(info.max_resolution)
         self.coded = [int(x) for x in np.asarray(info.coded_count)]
         self.ctype = [int(x) for x in np.asarray(info.channel_type)]
-        if any(c <= 0 for c in self.coded):
-            raise ValueError("zero coded_count needs the host unpacker")
         if info.ms_stereo:
             raise ValueError("ms_stereo unsupported")  # parse rejects too
         self.ath = np.ascontiguousarray(info.ath, dtype=np.uint8)
@@ -165,11 +172,15 @@ class DeviceUnpacker:
                     or self.version <= VERSION_V200):
                 extra = self.hfr
                 cs += extra
+            # the config decides both: every frame of such a stream fails
             if cs > 128:
-                raise ValueError("Unpack error (scalefactor count)")
+                # the JAX host unpacker raises this on every frame
+                raise HcaError("Unpack error (scalefactor count)")
             if cs >= 128 and extra:
-                # the host/reference path reads sf[cs] out of bounds here
-                raise ValueError("cs_count == 128 with HFR extension")
+                # the extension copies sf[cs] = sf[128], past the channel's
+                # row: the JAX Python unpacker raises IndexError, its native
+                # one reads the next row; the port refuses the stream
+                raise HcaError("cs_count == 128 with HFR extension")
             self.cs_counts.append(cs)
             self.extras.append(extra)
         self._chan = np.ascontiguousarray(
@@ -179,9 +190,14 @@ class DeviceUnpacker:
 
     # -- decipher -----------------------------------------------------------
 
-    def decipher(self, frames: torch.Tensor) -> torch.Tensor:
+    def decipher(self, frames: torch.Tensor, tables=None,
+                 row_table=None) -> torch.Tensor:
         """Frame bytes (on this unpacker's device) through the 256-entry
-        substitution table."""
+        substitution table: the stream's own, or per row, with u8 tables
+        [T, 256] and row_table i64 [N] (the table of each row of frames)."""
+        if tables is not None:
+            idx = row_table[:, None] * 256 + frames.long()
+            return tables.reshape(-1)[idx]
         if self._cipher_t is None:
             return frames.contiguous()
         return self._cipher_t[frames.long()]
@@ -234,11 +250,12 @@ class DeviceUnpacker:
             db = peek(cur, 3)
             cur = cur + 3
             v0 = peek(cur, 6)
-            has_first = db > 0
-            cur = cur + torch.where(has_first, 6, 0)
-            sf[:, 0] = torch.where(has_first, v0, 0)
             is_abs = db >= 6
             is_delta = (db >= 1) & (db <= 5)
+            # the delta branch reads its first value even at cs 0
+            has_first = is_delta | (is_abs & (cs > 0))
+            cur = cur + torch.where(has_first, 6, 0)
+            sf[:, 0] = torch.where(has_first, v0, 0)
             expected = (1 << db) - 1
             half = expected >> 1
             dcount = torch.where(is_delta, db, 0)
@@ -332,11 +349,15 @@ class DeviceUnpacker:
 
     # -- v3 PNS noise maps --------------------------------------------------
 
-    def noise_maps(self, sf: torch.Tensor, res: torch.Tensor, B: int):
+    def noise_maps(self, sf: torch.Tensor, res: torch.Tensor, B: int,
+                   live=None):
         """PNS noise fill maps (reconstruct_noise, hca.cpp:1602-1635) of the
         frames of B streams: sf/res u8 [N, C, 128], N = B * F frame-major
         per stream -> (src u8, sci u8, mask bool), each [N, C, 8, 128], on
-        the device of sf.
+        the device of sf. `live` (bool [N], or None for all): a frame not
+        live draws nothing and gets no mask, so each stream's (or each
+        key's) LCG starts at 1 and advances only across its live frames, in
+        frame order (the key search's rule, JAX pipeline.py:1147-1166).
 
         The draw order is subframe-major, then channel, then noise slot; a
         (subframe, channel) with nc noise bands and vc > 0 valid bands takes
@@ -358,7 +379,10 @@ class DeviceUnpacker:
         vrank = valid_f.long().cumsum(-1) - 1
         nc = noise_f.sum(-1)                                   # [N, C]
         vc = valid_f.sum(-1)
-        nc_eff = torch.where((nc > 0) & (vc > 0), nc, 0)
+        draws = (nc > 0) & (vc > 0)
+        if live is not None:
+            draws = draws & live[:, None]
+        nc_eff = torch.where(draws, nc, 0)
         NC = nc_eff.sum(-1)                                    # [N]
         pre_c = nc_eff.cumsum(-1) - nc_eff                     # exclusive
         per_frame = (8 * NC).view(B, -1)
@@ -382,8 +406,10 @@ class DeviceUnpacker:
         sf_vb = torch.where(has, torch.gather(sf_i, 2, vb.view(N, C, -1))
                             .view(N, C, 8, 128), 0)
         sci = torch.clamp(sf_i[:, :, None, :] - sf_vb + 62, min=0)
-        mask = (noise_f & (vc > 0)[..., None])[:, :, None, :].expand(
-            N, C, 8, 128)
+        mask = noise_f & (vc > 0)[..., None]
+        if live is not None:
+            mask = mask & live[:, None, None]
+        mask = mask[:, :, None, :].expand(N, C, 8, 128)
         src = torch.where(mask, vb, k)
         return (src.to(torch.uint8), sci.to(torch.uint8),
                 mask.contiguous())
@@ -394,31 +420,46 @@ class DeviceUnpacker:
                      cur: torch.Tensor) -> torch.Tensor:
         """dec u8 [N, fs], res u8 [N, C, 128], cur i32 [N] (from
         side_info) -> qc i16 [N, C, 8, 128], zero above coded_count."""
-        if dec.device.type == "cpu":
-            return self.coefficients_plain(dec, res, cur)
-        return self._coefficients_cuda(dec, res, cur)
+        return self.spectra(dec, res, cur)[0]
 
-    def _coefficients_cuda(self, dec, res, cur):
+    def spectra(self, dec: torch.Tensor, res: torch.Tensor,
+                cur: torch.Tensor, want_qc: bool = True):
+        """Kernel B2: as `coefficients`, and the bit cursor after the last
+        code, i32 [N], unclamped (reads past the frame end return 0 and
+        still advance it, as BitReader does). want_qc=False is the
+        cursor-only pass: qc comes back None and the kernel writes none."""
+        if dec.device.type == "cpu":
+            qc, end = self.spectra_plain(dec, res, cur)
+            return (qc if want_qc else None), end
+        return self._spectra_cuda(dec, res, cur, want_qc)
+
+    def _spectra_cuda(self, dec, res, cur, want_qc):
         global COEFF_LAUNCHES
         N, C = dec.shape[0], self.C
         ck.check_cuda(dec, "dec", torch.uint8, (N, self.fs))
         ck.check_cuda(res, "res", torch.uint8, (N, C, 128))
         ck.check_cuda(cur, "cur", torch.int32, (N,))
         qc = torch.empty((N, C, 8, 128), dtype=torch.int16,
-                         device=dec.device)
+                         device=dec.device) if want_qc else None
+        end = torch.empty((N,), dtype=torch.int32, device=dec.device)
         if N == 0:
-            return qc
+            return qc, end
         rc = _build.load().hca_coefficients(
             ck.ptr(dec), ck.ptr(res), ck.ptr(cur), N, self.fs, C,
-            ck.host_ptr(self._coded), ck.ptr(qc), ck.stream_ptr(dec))
+            ck.host_ptr(self._coded), ck.ptr(qc) if want_qc else None,
+            ck.ptr(end), ck.stream_ptr(dec))
         if rc:
             raise ck.launch_failed("hca_coefficients", rc)
         COEFF_LAUNCHES += 1
-        return qc
+        return qc, end
 
     def coefficients_plain(self, dec, res, cur):
+        """Plain PyTorch twin of kernel B2's qc."""
+        return self.spectra_plain(dec, res, cur)[0]
+
+    def spectra_plain(self, dec, res, cur):
         """Plain PyTorch twin of kernel B2 (the JAX unpacker's _vlc_symbol
-        in program order: subframe, channel, band)."""
+        in program order: subframe, channel, band): (qc, end cursor)."""
         N, C, dev = dec.shape[0], self.C, dec.device
         peek = _Bits(dec).peek
         val_np, adv_np = vlc_tables()
@@ -442,7 +483,7 @@ class DeviceUnpacker:
                     qc[:, c, s, k] = torch.where(big, v_big, val[idx]).to(
                         torch.int16)
                     cur = cur + torch.where(big, adv_big, adv_t[idx])
-        return qc
+        return qc, cur.to(torch.int32)
 
     # -- full unpack --------------------------------------------------------
 

@@ -1,6 +1,9 @@
-"""Batched bank decode and encode (see pipeline.py)."""
+"""Batched bank decode and encode, and the HCA key search (see
+pipeline.py)."""
 from .pipeline import (DecodeStats, adx_decode_batch, adx_encode_batch,
-                       ahx_decode_batch, decode_batch, hca_encode_batch)
+                       ahx_decode_batch, decode_batch, find_key,
+                       hca_encode_batch, rank_keys, score_key)
 
 __all__ = ["DecodeStats", "adx_decode_batch", "adx_encode_batch",
-           "ahx_decode_batch", "decode_batch", "hca_encode_batch"]
+           "ahx_decode_batch", "decode_batch", "find_key", "hca_encode_batch",
+           "rank_keys", "score_key"]

@@ -15,9 +15,18 @@ HCA: counterpart of the device engine of pycricodecs_tpu/parallel/pipeline.py
 4. the PCM comes back to the host, which trims the encoder delay, zeroes the
    tail of truncated streams and writes the WAVs.
 
-Only configs the device unpacker covers are decoded: one it rejects (zero
-coded_count, the v3 HFR extension at 128 scalefactors) raises
-NotImplementedError.
+Every config decodes on the device, zero coded_count included (a v2
+stereo secondary with base_band_count 0). The unpacker refuses only a
+scalefactor count past 128, or 128 with the v3 HFR extension: each stream of
+such a config fails with HcaError (returned under on_error="isolate").
+
+Key search (`find_key`, `score_key`, `rank_keys`): counterparts of the JAX
+functions. The host parses the header and runs the key-independent frame
+checks (silent, sync, CRC); the device builds one cipher table per
+candidate, unpacks every (key, frame) row with B1 and B2 under its key's
+table and applies the reference's status rules; the keys whose first two
+frames pass go through all frames again, their clean frames through the PNS
+maps and the float-wave decode (kernel B4), and are scored on the device.
 
 ADX (`adx_decode_batch`, `adx_encode_batch`): counterparts of the JAX
 functions of the same names with device=True. The host parses headers (or
@@ -95,28 +104,6 @@ def _config_key(info: hca_frame.HcaInfo) -> tuple:
             info.channel_config, info.track_count, info.ath_type)
 
 
-def _describe(info: hca_frame.HcaInfo) -> str:
-    return (f"HCA v{info.version >> 8}.{info.version & 0xFF}, "
-            f"{info.channels} ch, frame_size {info.frame_size}, "
-            f"min_resolution {info.min_resolution}, bands "
-            f"{info.base_band_count}+{info.stereo_band_count}"
-            f"/{info.total_band_count}, hfr {info.hfr_group_count}x"
-            f"{info.bands_per_hfr_group}")
-
-
-def _unpacker(info: hca_frame.HcaInfo, device) -> \
-        hca_unpack_device.DeviceUnpacker:
-    """The group's unpacker, or NotImplementedError for configs the
-    unpacker rejects (zero coded_count, the v3 HFR extension at 128
-    scalefactors: the host-unpack branch, not ported)."""
-    try:
-        return hca_unpack_device.DeviceUnpacker(info, device)
-    except ValueError as exc:
-        raise NotImplementedError(
-            f"config not covered by the device unpacker ({exc}): "
-            f"{_describe(info)}") from exc
-
-
 def decode_batch(blobs: Sequence[bytes], key: int = 0, subkey: int = 0,
                  subkeys: Optional[Sequence[int]] = None, *,
                  device="cuda", return_arrays: bool = False,
@@ -160,13 +147,24 @@ def decode_batch(blobs: Sequence[bytes], key: int = 0, subkey: int = 0,
             _config_key(info) + (int(info.sample_rate),
                                  bytes(np.asarray(info.cipher, np.uint8))),
             []).append(idx)
-    # every group's config must be covered before any decode starts
-    unpackers = {gk: _unpacker(infos[g[0]][0], device)
-                 for gk, g in groups.items()}
+    # a config the unpacker refuses (the scalefactor count past 128, or
+    # at 128 with the v3 HFR extension) fails each of its streams, before
+    # any decode starts
+    unpackers = {}
+    for gk, group in groups.items():
+        try:
+            unpackers[gk] = hca_unpack_device.DeviceUnpacker(
+                infos[group[0]][0], device)
+        except hca_frame.HcaError as exc:
+            if on_error == "raise":
+                raise
+            failures.update(dict.fromkeys(group, exc))
 
     results: List = [None] * len(blobs)
     for gk, group in groups.items():
-        up = unpackers[gk]
+        up = unpackers.get(gk)
+        if up is None:
+            continue
         if on_error == "raise":
             _decode_group(up, group, infos, results, stats)
             continue
@@ -277,6 +275,222 @@ def _decode_group(up: hca_unpack_device.DeviceUnpacker, group, infos,
         stats.unpack_seconds += t_unpack
         stats.device_seconds += t_device
         stats.fetch_seconds += t_fetch
+
+
+# ---------------------------------------------------------------------------
+# HCA key search
+# ---------------------------------------------------------------------------
+
+#: (key, frame) rows per device batch of the key search: bounds its memory
+KEY_ROWS = 131072
+
+
+def _lap(stats: Optional[dict], name: str, t0: float, device) -> float:
+    """Add the seconds since t0 to stats[name] (after a synchronise, so the
+    device work is in them) and return the new start; no-op without stats."""
+    if stats is None:
+        return t0
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t = time.perf_counter()
+    stats[name] = stats.get(name, 0.0) + t - t0
+    return t
+
+
+def _key_tables(info, candidates, subkey: int, device, zero_is_plain=False):
+    """(cipher tables u8 [T, 256], each candidate's table i64 [K]) on
+    `device`. Type 56: one table per candidate, the key times the subkey
+    factor mod 2^64 (as JAX pipeline.py:1103-1109); types 0 and 1 ignore
+    the key: one table for all. zero_is_plain: a type-56 key that is 0
+    after the subkey takes the identity table, as a stream keyed with 0
+    does (score_key), where the batch tables give _cipher56(0)'s."""
+    K = len(candidates)
+    if info.ciph_type != 56:
+        table = hca_crypt.cipher_table(info.ciph_type, 0)
+        return (torch.from_numpy(table[None].copy()).to(device),
+                torch.zeros(K, dtype=torch.int64, device=device))
+    keys = np.asarray(candidates, dtype=np.uint64)
+    if subkey:
+        factor = np.uint64(hca_crypt.scramble_subkey(1, subkey))
+        with np.errstate(over="ignore"):
+            keys = keys * factor
+    tables = hca_crypt.cipher_tables_56_batch(keys, device)
+    if zero_is_plain:
+        plain = torch.from_numpy(keys == 0).to(device)
+        tables[plain] = torch.arange(256, device=device).to(torch.uint8)
+    return tables, torch.arange(K, device=device)
+
+
+def _frame_status(up, frames, pre, tables, tix, nf: int, want_soa: bool):
+    """The bitstream half of the key test (clHCA_TestBlock up to the wave,
+    JAX hca_frame.test_frames_native) for each (key, frame) row of the keys
+    with tables[tix] and the first nf frames: status i64 [Kc, nf] (0 silent,
+    -1 bad sync or CRC, unpack error or nonzero tail, -6 cursor past
+    fs * 8 - 14, 1 clean), and with want_soa the unpacked rows (qc, sf,
+    res, inten), [Kc * nf, C, ...] key-major, else None."""
+    Kc, fs = tix.shape[0], up.fs
+    rows = frames[:nf].unsqueeze(0).expand(Kc, nf, fs).reshape(Kc * nf, fs)
+    dec = up.decipher(rows, tables, tix.repeat_interleave(nf))
+    sf, res, inten, cur, err = up.side_info(dec)
+    qc, end = up.spectra(dec, res, cur, want_qc=want_soa)
+    end = end.long()
+    # any nonzero deciphered byte from ceil(end / 8) to fs - 2 (exclusive)
+    j = torch.arange(fs, device=dec.device)
+    tail = ((dec != 0) & (j >= ((end + 7) >> 3)[:, None])
+            & (j < fs - 2)).any(dim=1)
+    status = torch.where(tail, -1, 1)
+    status = torch.where(end + 14 > fs * 8, -6, status)
+    status = torch.where(err, -1, status)
+    pre_r = pre[:nf].repeat(Kc)
+    status = torch.where(pre_r == 1, 0, torch.where(pre_r == -1, -1, status))
+    soa = (qc, sf, res, inten) if want_soa else None
+    return status.view(Kc, nf), soa
+
+
+def _wave_scores(wave: torch.Tensor) -> torch.Tensor:
+    """Per-frame score of f32 waves [n, C, 8, 128] (JAX pipeline.py:
+    1200-1215): 2 or more clipped samples (|x| > 1) score their count,
+    one scores 2; else all blank (trunc(x * 32768) in {0, -1}, in f64)
+    scores 0, channel 0 blank beside a non-blank channel 1 scores 3, the
+    rest 1."""
+    n, C = wave.shape[0], wave.shape[1]
+    n_samp = 8 * 128
+    mag = wave.abs()
+    clips = (mag > 1.0).reshape(n, -1).sum(dim=1)
+    scaled = torch.trunc(wave.double() * 32768.0)
+    blank = (mag <= 1.0) & ((scaled == 0) | (scaled == -1))
+    blanks = blank.reshape(n, -1).sum(dim=1)
+    chblank = blank.reshape(n, C, -1).sum(dim=2)
+    cl = torch.where(clips == 1, 2, clips)
+    sc = torch.where(cl > 1, cl, 1)
+    all_blank = blanks == C * n_samp
+    sc = torch.where((cl <= 1) & all_blank, 0, sc)
+    if C >= 2:
+        half = ((cl <= 1) & ~all_blank & (chblank[:, 0] == n_samp)
+                & (chblank[:, 1] != n_samp))
+        sc = torch.where(half, 3, sc)
+    return sc
+
+
+def _score_keys(up, info, frames, pre, tables, tix, F: int,
+                stats: Optional[dict]) -> torch.Tensor:
+    """Summed frame scores i64 [Kc] of keys that passed the first frames:
+    every frame's status again, then the clean frames' waves."""
+    dev = frames.device
+    t0 = time.perf_counter()
+    Kc, C = tix.shape[0], info.channels
+    status, (qc, sf, res, inten) = _frame_status(up, frames, pre, tables,
+                                                 tix, F, True)
+    t0 = _lap(stats, "phase2", t0, dev)
+    frame_scores = torch.where(status < 0, -1, 0).view(-1)
+    live = (status == 1).view(-1)
+    sel = live.nonzero().squeeze(1)
+    n = int(sel.numel())
+    if n:
+        noise = None
+        if info.min_resolution == 0:
+            # v3 PNS: each key's LCG from 1 across its clean frames only
+            noise = tuple(m[sel].view(n, 1, C, 8, 128)
+                          for m in up.noise_maps(sf, res, Kc, live=live))
+        hfr, cfg = hca_kernels.transform_config(info)
+        # each clean frame alone: T = 8 rows and a zero carry
+        wave = hca_kernels.hca_decode_wave(
+            qc[sel].view(n, 1, C, 8, 128), sf[sel].view(n, 1, C, 128),
+            res[sel].view(n, 1, C, 128), inten[sel].view(n, 1, C, 8), hfr,
+            noise=noise, **cfg)
+        t0 = _lap(stats, "wave", t0, dev)
+        frame_scores[sel] = _wave_scores(wave)
+    frame_scores = frame_scores.view(Kc, F)
+    total = frame_scores.sum(dim=1)
+    total = torch.where((frame_scores < 0).any(dim=1), -1, total)
+    _lap(stats, "scoring", t0, dev)
+    return total
+
+
+def _find_key(data, candidates, subkey: int, max_frames: int, device,
+              stats: Optional[dict], zero_is_plain: bool) -> np.ndarray:
+    device = torch.device(device)
+    t0 = time.perf_counter()
+    data = bytes(data)
+    hs = int.from_bytes(data[6:8], "big")
+    info = hca_frame.parse_header(data[:hs])
+    fs = info.frame_size
+    F = min(max_frames, info.frame_count)
+    raw = data[hs:hs + F * fs]      # as the JAX slice, negative F included
+    F = len(raw) // fs
+    candidates = list(candidates)
+    K = len(candidates)
+    scores = np.full(K, -1, dtype=np.int64)
+    if K == 0 or F == 0:
+        return scores
+    up = hca_unpack_device.DeviceUnpacker(info, device)
+    # key-independent prechecks (hca_frame.test_frames_native): silent
+    # first (score 0), then sync and CRC (-1)
+    fb = np.frombuffer(raw, np.uint8, count=F * fs).reshape(F, fs)
+    silent = ~fb[:, 2:fs - 2].any(axis=1)
+    bad = (fb[:, 0] != 0xFF) | (fb[:, 1] != 0xFF) | (crc16_batch(fb) != 0)
+    pre = torch.from_numpy(np.where(silent, 1, np.where(bad, -1, 0))
+                           .astype(np.int64)).to(device)
+    frames = torch.from_numpy(fb.copy()).to(device)
+    tables, tix = _key_tables(info, candidates, subkey, device,
+                              zero_is_plain)
+    t0 = _lap(stats, "tables", t0, device)
+
+    # phase 1: the cursor-only pass over the first frames of every key;
+    # most wrong keys fail the bitstream rules there
+    nf = min(2, F)
+    step = max(1, KEY_ROWS // nf)
+    alive = []
+    for k0 in range(0, K, step):
+        status, _ = _frame_status(up, frames, pre, tables,
+                                  tix[k0:k0 + step], nf, False)
+        alive.append((status >= 0).all(dim=1))
+    alive_idx = torch.cat(alive).nonzero().squeeze(1)
+    t0 = _lap(stats, "phase1", t0, device)
+
+    # phase 2: every frame of the surviving keys, and their waves
+    step = max(1, KEY_ROWS // F)
+    for k0 in range(0, int(alive_idx.numel()), step):
+        idx = alive_idx[k0:k0 + step]
+        total = _score_keys(up, info, frames, pre, tables, tix[idx], F,
+                            stats)
+        scores[idx.cpu().numpy()] = total.cpu().numpy()
+    return scores
+
+
+def find_key(data: bytes, candidates, subkey: int = 0, max_frames: int = 16,
+             *, device="cuda", stats: Optional[dict] = None) -> np.ndarray:
+    """Score many candidate keycodes against one enciphered HCA stream on
+    `device`; int64 scores aligned with `candidates`, equal to
+    pycricodecs_tpu.parallel.find_key's: -1 = rejected; among the rest the
+    LOWEST positive total is the most plausible (1 per clean frame, clips
+    inflate it), 0 = all silent. Rank with `rank_keys`.
+
+    stats: a dict that collects the seconds of each stage ("tables",
+    "phase1", "phase2", "wave", "scoring"), each ended by a synchronise;
+    None (the default) adds no synchronise. Raises HcaError for a header
+    that does not parse or a config the unpacker refuses."""
+    return _find_key(data, candidates, subkey, max_frames, device, stats,
+                     zero_is_plain=False)
+
+
+def score_key(data: bytes, keycode: int, subkey: int = 0,
+              max_frames: int = 16, *, device="cuda") -> int:
+    """Summed key-test score of one keycode over the first frames of an HCA
+    stream, equal to pycricodecs_tpu.ops.hca_frame.score_key: find_key of
+    one candidate, except that a key of 0 (after the subkey) deciphers with
+    the identity table, as a stream keyed with 0 does."""
+    return int(_find_key(data, [keycode], subkey, max(max_frames, 0), device,
+                         None, zero_is_plain=True)[0])
+
+
+def rank_keys(scores) -> np.ndarray:
+    """Candidate indices best-first from find_key/score_key totals:
+    accepted keys (> 0) by ascending total, then all-silent keys (0), then
+    rejected keys (< 0) (JAX pipeline.py:1224-1233)."""
+    s = np.asarray(scores, dtype=np.int64)
+    grp = np.where(s > 0, 0, np.where(s == 0, 1, 2))
+    return np.lexsort((s, grp))
 
 
 # ---------------------------------------------------------------------------

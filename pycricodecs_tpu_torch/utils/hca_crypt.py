@@ -8,6 +8,7 @@ enciphering uses the inverted table.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .crc import crc16, crc16_batch
 
@@ -81,6 +82,51 @@ def _cipher56(keycode: int) -> np.ndarray:
     table[0] = 0
     table[0xFF] = 0xFF
     return table
+
+
+def cipher_tables_56_batch(keycodes, device) -> torch.Tensor:
+    """Type-56 tables of K keycodes (uint64, subkey already applied) ->
+    uint8 [K, 256] on `device`: the numpy branch of the JAX package's
+    cipher_tables_56_batch (utils/hca_crypt.py:106-141) in int64 PyTorch
+    ops. A keycode of 0 is not decremented and gives _cipher56(0)'s table,
+    as there (not the identity of cipher_table(56, 0))."""
+    kq = np.array(keycodes, dtype=np.uint64).reshape(-1)
+    kq[kq != 0] -= np.uint64(1)
+    K = kq.shape[0]
+    # the int64 bit pattern: bytes 0-6 survive the arithmetic shifts below
+    k = torch.from_numpy(kq.view(np.int64)).to(device)
+    shifts = 8 * torch.arange(7, device=device)
+    kc = (k[:, None] >> shifts) & 0xFF                          # [K, 7]
+    seed = torch.stack([
+        kc[:, 1], kc[:, 1] ^ kc[:, 6], kc[:, 2] ^ kc[:, 3], kc[:, 2],
+        kc[:, 2] ^ kc[:, 1], kc[:, 3] ^ kc[:, 4], kc[:, 3],
+        kc[:, 3] ^ kc[:, 2], kc[:, 4] ^ kc[:, 5], kc[:, 4],
+        kc[:, 4] ^ kc[:, 3], kc[:, 5] ^ kc[:, 6], kc[:, 5],
+        kc[:, 5] ^ kc[:, 4], kc[:, 6] ^ kc[:, 1], kc[:, 6]], dim=1)
+
+    def rows(keys):                                      # [N] -> [N, 16]
+        mul = ((keys & 1) << 3) | 5
+        add = (keys & 0xE) | 1
+        key = keys >> 4
+        out = []
+        for _ in range(16):
+            key = (key * mul + add) & 0xF
+            out.append(key)
+        return torch.stack(out, dim=-1)
+
+    base_r = rows(kc[:, 0])                              # [K, 16]
+    base_c = rows(seed.reshape(-1)).reshape(K, 16, 16)   # [K, 16, 16]
+    base = ((base_r[:, :, None] << 4) | base_c).reshape(K, 256)
+    order = (17 * (torch.arange(256, device=device) + 1)) & 0xFF
+    vals = base[:, order]                                # key-independent walk
+    mask = (vals != 0) & (vals != 0xFF)
+    pos = torch.cumsum(mask, dim=1)                      # 1-based write slots
+    table = torch.zeros((K, 256), dtype=torch.int64, device=device)
+    # unmasked entries write 0 into column 0, which is 0 anyway
+    table.scatter_(1, torch.where(mask, pos, 0), torch.where(mask, vals, 0))
+    table[:, 0] = 0
+    table[:, 0xFF] = 0xFF
+    return table.to(torch.uint8)
 
 
 def invert_cipher_table(table: np.ndarray) -> np.ndarray:

@@ -107,6 +107,10 @@ def test_decipher_is_a_table_lookup():
 
 
 def test_unpacker_rejects_like_jax():
+    """The JAX device unpacker refuses a zero coded_count (its host unpacker
+    takes it); the port's unpacker takes it, as its kernels loop over the
+    coded count at run time. Both refuse the v3 extension at 128
+    scalefactors, with the same message (the port's is an HcaError)."""
     ji, pi = H.parse_both(H.encode(2, 4, seed=10))
     for mutate in (lambda i: setattr(i, "coded_count",
                                      np.array([0, 32], np.int32)),
@@ -117,6 +121,10 @@ def test_unpacker_rejects_like_jax():
         mutate(pi)
         with pytest.raises(ValueError) as ref:
             jax_unpack.DeviceUnpacker(ji)
-        with pytest.raises(ValueError) as got:
+        if "zero coded_count" in str(ref.value):
+            up = port_unpack.DeviceUnpacker(pi, "cpu")
+            assert up.coded == [0, 32]
+            continue
+        with pytest.raises(port_frame.HcaError) as got:
             port_unpack.DeviceUnpacker(pi, "cpu")
         assert str(got.value) == str(ref.value)

@@ -80,6 +80,63 @@ def assert_info_equal(got, ref) -> None:
             assert g[name] == r[name], name
 
 
+def repack_stream(blob: bytes, header: bytes = None,
+                  zero_secondary: bool = False) -> bytes:
+    """A plain stream's frames re-packed by the JAX package's
+    hca_frame.pack_frame from their own unpack (the host reference), under
+    `header` (default: the stream's own): level and boundary, scalefactors
+    under each channel's own delta bits (bits 32-34 of the frame are the
+    first channel's; a mono stream has no other), HFR scales, intensities
+    and spectra. Each frame then ends in zero padding right after its last
+    code, so the key test accepts it. zero_secondary: channel 1 is a stereo
+    secondary re-packed with coded_count 0 under delta bits 3, i.e. with
+    only the one 6-bit value the reader puts in sf[0]."""
+    hs = header_size(blob)
+    ji = jax_frame.parse_header(blob[:hs])
+    assert ji.ciph_type == 0 and (ji.channels == 1 or zero_secondary)
+    header = bytes(blob[:hs]) if header is None else bytes(header)
+    ni = jax_frame.parse_header(header)
+    fs, G = ji.frame_size, ji.hfr_group_count
+    data = blob[hs:hs + ji.frame_count * fs]
+    un = jax_frame._unpack_frames_py(ji, data)
+    out = [header]
+    for f in range(ji.frame_count):
+        frame = data[f * fs:(f + 1) * fs]
+        sf = un.scalefactors[f].copy()
+        res = un.resolutions[f].copy()
+        delta_bits = [frame[4] >> 5] * ji.channels
+        if zero_secondary:
+            sf[1, :] = 0
+            sf[1, 0] = 1 + (f * 7) % 63
+            res[1, :] = 0
+            delta_bits[1] = 3
+        out.append(jax_frame.pack_frame(
+            ni, (frame[2] << 1) | (frame[3] >> 7), frame[3] & 0x7F, sf, res,
+            un.intensity[f], sf[:, 128 - G:], delta_bits, un.qc[f]))
+    return b"".join(out)
+
+
+def zero_coded_stream(blob: bytes) -> bytes:
+    """A v2.0 stereo stream whose secondary channel has coded_count 0,
+    built from a plain v2.0 intensity-pair stream `blob`: its comp chunk
+    edited to base_band_count 0 and stereo_band_count base + stereo (so the
+    primary keeps its coded count and the intensity pair covers every band
+    below total_band_count), the header CRC recomputed, and every frame
+    re-packed (repack_stream with zero_secondary)."""
+    from pycricodecs_tpu.utils.crc import crc16
+    hs = header_size(blob)
+    ji = jax_frame.parse_header(blob[:hs])
+    assert ji.version == 0x0200 and list(ji.channel_type) == [1, 2]
+    head = bytearray(blob[:hs])
+    assert head[24:28] == b"comp"
+    head[36] += head[35]                  # stereo_band_count += base
+    head[35] = 0                          # base_band_count = 0
+    head[hs - 2:hs] = crc16(bytes(head[:hs - 2])).to_bytes(2, "big")
+    ni = jax_frame.parse_header(bytes(head))
+    assert list(ni.coded_count) == [int(ji.coded_count[0]), 0]
+    return repack_stream(blob, bytes(head), zero_secondary=True)
+
+
 def load_fixtures():
     """(expected.json dict, name -> HCA bytes) of the committed fixtures."""
     with open(os.path.join(FIXTURE_DIR, "expected.json")) as f:

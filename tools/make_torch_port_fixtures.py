@@ -63,7 +63,22 @@ int16 LSB (mp2_kernels.decode_transform_device_batched, f32 matmuls):
   96 kbps frames with the protection bit cleared and a CRC word, unchecked by
   both packages, after the header), and a VBR stream (64 then 96 kbps).
 
-Usage: python3 tools/make_torch_port_fixtures.py
+Key search (tests/data/torch_port/keysearch/, with its own expected.json):
+- "find_key": the full-width key search of chip_smoke.py (bench_all config
+  6's traffic on the bank stream): bank_q2_stereo_48k_10s enciphered with
+  cipher 56 under the test suite's key, candidates
+  np.random.default_rng(0).integers(1, 1 << 63, 200000) as uint64 with the
+  true key at index 100,000, max_frames 8; records the enciphered stream's,
+  the candidates' (uint64 little-endian) and the scores' (int64
+  little-endian) sha256 from pycricodecs_tpu.parallel.find_key;
+- "zero_coded": zero_coded_v2_stereo_48k_1s.hca, q4_stereo_48k_1s re-packed
+  with base_band_count 0 (tests/torch_port_helpers.py zero_coded_stream: the
+  secondary's coded_count is 0), with the sha256 of the WAV that
+  pycricodecs_tpu.parallel.decode_batch makes of it (host and device
+  engines agree, which this script checks).
+
+Usage: python3 tools/make_torch_port_fixtures.py [--keysearch]
+(--keysearch writes only the key search directory.)
 """
 import hashlib
 import json
@@ -80,6 +95,11 @@ from pycricodecs_tpu_torch.utils.signals import (  # noqa: E402
 OUT_DIR = os.path.join(ROOT, "tests", "data", "torch_port")
 ADX_DIR = os.path.join(OUT_DIR, "adx")
 AHX_DIR = os.path.join(OUT_DIR, "ahx")
+KEYSEARCH_DIR = os.path.join(OUT_DIR, "keysearch")
+ZERO_CODED = "zero_coded_v2_stereo_48k_1s"
+KEYSEARCH = dict(stream="bank_q2_stereo_48k_10s", cipher=56,
+                 key=0xCF222F1FE0748978, seed=0, candidates=200000,
+                 true_index=100000, max_frames=8)
 
 
 def make_adx_streams() -> dict:
@@ -195,6 +215,9 @@ def main() -> None:
                                + " --xla_cpu_max_isa=SSE4_2").strip()
     import jax
     jax.config.update("jax_platforms", "cpu")
+    if "--keysearch" in sys.argv[1:]:
+        write_keysearch_fixtures()
+        return
     from pycricodecs_tpu import parallel
 
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -225,6 +248,7 @@ def main() -> None:
         f.write("\n")
     write_adx_fixtures()
     write_ahx_fixtures()
+    write_keysearch_fixtures()
 
 
 def sha256(data: bytes) -> str:
@@ -290,6 +314,56 @@ def write_ahx_fixtures() -> None:
         print(name, len(blob), st.nframes, int(diff.max()))
     with open(os.path.join(AHX_DIR, "expected.json"), "w") as f:
         json.dump(expected, f, indent=1, sort_keys=True)
+        f.write("\n")
+
+
+def keysearch_candidates(spec: dict):
+    """The full-width key search's candidates, uint64 [n]."""
+    import numpy as np
+    cands = np.random.default_rng(spec["seed"]).integers(
+        1, 1 << 63, spec["candidates"]).astype(np.uint64)
+    cands[spec["true_index"]] = spec["key"]
+    return cands
+
+
+def write_keysearch_fixtures() -> None:
+    import numpy as np
+
+    from pycricodecs_tpu import parallel
+    from pycricodecs_tpu.models import hca as jax_hca
+    from tests.torch_port_helpers import zero_coded_stream
+
+    os.makedirs(KEYSEARCH_DIR, exist_ok=True)
+    spec = dict(KEYSEARCH)
+    with open(os.path.join(OUT_DIR, spec["stream"] + ".hca"), "rb") as f:
+        plain = f.read()
+    hs = int.from_bytes(plain[6:8], "big")
+    enc = jax_hca.crypt(plain, True, hs, spec["cipher"], spec["key"])
+    cands = keysearch_candidates(spec)
+    scores = parallel.find_key(enc, cands, max_frames=spec["max_frames"])
+    order = parallel.rank_keys(scores)
+    if order[0] != spec["true_index"]:
+        raise SystemExit("find_key: the true key does not rank first")
+    spec.update(enciphered_sha256=sha256(enc),
+                candidates_sha256=sha256(cands.astype("<u8").tobytes()),
+                scores_sha256=sha256(scores.astype("<i8").tobytes()),
+                true_score=int(scores[spec["true_index"]]),
+                accepted=int((scores >= 0).sum()))
+    print("find_key", spec)
+
+    with open(os.path.join(OUT_DIR, "q4_stereo_48k_1s.hca"), "rb") as f:
+        blob = zero_coded_stream(f.read())
+    wav = parallel.decode_batch([blob], engine="host")[0]
+    if parallel.decode_batch([blob], engine="device")[0] != wav:
+        raise SystemExit(f"{ZERO_CODED}: host and device engines disagree")
+    with open(os.path.join(KEYSEARCH_DIR, ZERO_CODED + ".hca"), "wb") as f:
+        f.write(blob)
+    zero = {"file": ZERO_CODED + ".hca", "source": "q4_stereo_48k_1s",
+            "hca_sha256": sha256(blob), "wav_sha256": sha256(wav)}
+    print(ZERO_CODED, len(blob), zero["wav_sha256"])
+    with open(os.path.join(KEYSEARCH_DIR, "expected.json"), "w") as f:
+        json.dump({"find_key": spec, "zero_coded": zero}, f, indent=1,
+                  sort_keys=True)
         f.write("\n")
 
 
