@@ -28,7 +28,9 @@ ADX (tests/data/torch_port/adx/, hashes from the JAX package):
    random block bytes for every geometry of the fixtures in modes 2/3/4
    (random scale words reach mode 2 predictors 4-7 and mode 4's 1 << 31
    scale); random PCM with zero blocks for modes 2/3/4, bit depths
-   2/4/5/8/11/12, scale_fix off and on;
+   2/4/5/8/11/12 (odd spb 25, spb 1 and 1,012 among them), scale_fix off
+   and on; loud rails at bit depth 2 (the u16 wrap, the 0x1000 cap); lane
+   counts that leave B8's last CTA ragged; one block, and one chunk plus 3;
 7. `adx_decode_batch` of 256 copies of the 10 s stereo bank stream (4-bit,
    block 0x12, mode 3, version 4) and of the 1 s fixtures, and
    `adx_encode_batch` of 256 copies of the bank's 10 s WAV (rebuilt by
@@ -36,8 +38,9 @@ ADX (tests/data/torch_port/adx/, hashes from the JAX package):
    to its recorded hash) and of each 1 s case: every output's sha256 equal to the JAX
    package's; each path launched its kernel;
 8. at the bank shape (512 lanes x 15,000 blocks), B7 and B8 against their
-   twins once more (timed once, CUDA events), the kernels timed by CUDA
-   events, and each bank call timed (median of 3).
+   twins on the first 300 blocks of every lane (the twins timed once there,
+   CUDA events), the kernels timed at the full shape by CUDA events, and
+   each bank call timed (median of 3).
 
 HCA encode (tests/data/torch_port/, input WAVs rebuilt by signals.hca_wav
 and held to their recorded hashes):
@@ -95,7 +98,8 @@ from the JAX package):
 
 Prints a JSON line of per-kernel results (launches on the main paths, max
 |kernel - twin|, kernel/twin ms, the bound from the bytes and operations of
-the timed call; B5's library call), the card line, and last a JSON line
+the timed call, and for B7/B8 from their dependent chain at the card's
+maximum SM clock; B5's library call), the card line, and last a JSON line
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; there
 is no CPU path.
 
@@ -121,6 +125,7 @@ BANK_STREAMS = 256
 RANDOM_FRAMES = 4096
 ADX_RANDOM_LANES = 64
 ADX_RANDOM_BLOCKS = 24
+ADX_PREFIX_BLOCKS = 300
 
 KERNELS = {
     "hca_side_info": dict(
@@ -203,10 +208,37 @@ OPS = {"hca_side_info": 1, "hca_coefficients": 3, "hca_transform": 42,
        "hca_transform_pns": 44, "mp2_unpack": 3, "mp2_synth": 164,
        "hca_imdct_ola": 38, "hca_imdct": 35}
 OPS_PER_S = {"mp2_synth": FP64_OPS_PER_S}
+# Dependent operations on the critical path of one step of a serial
+# recurrence (the third bound term, `chain`: steps per lane x these ops x
+# CHAIN_CYCLES_PER_OP / the card's maximum SM clock). Assumption: every
+# integer op on the path (IMAD, IMAD.HI, IADD3, SHF, IMNMX, SEL) has a
+# latency of 4 cycles to a dependent instruction on Hopper.
+# - B7: multiply a0 * p1, shift, the three-way add, two clamps = 5;
+# - B8 as the kernel orders it: the prediction's multiply-add (x - c1 * q2
+#   formed a step early), shift, the dividend's clamp (min and max side by
+#   side), the rounding add, the select, the division's mask (r & add),
+#   multiply-high, shift and sign fix, the simulated decoder's multiply-add,
+#   shift and two clamps = 13 (14 in adx_encode_plain's order).
+CHAIN_OPS = {"adx_decode": 5, "adx_encode": 13}
+CHAIN_CYCLES_PER_OP = 4
 
 
 def log(*args) -> None:
     print(*args, flush=True)
+
+
+_SM_CLOCK_MHZ = []
+
+
+def max_sm_clock_mhz() -> float:
+    """The card's maximum SM clock (nvidia-smi clocks.max.sm), read once."""
+    if not _SM_CLOCK_MHZ:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, check=True, timeout=60).stdout
+        _SM_CLOCK_MHZ.append(float(out.strip().splitlines()[0]))
+    return _SM_CLOCK_MHZ[0]
 
 
 def card_line() -> str:
@@ -259,14 +291,20 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(name: str, moved_bytes: int, units: int) -> dict:
-    """The least time of a kernel's work: moved bytes over HBM bandwidth or
-    its counted operations over the scalar peak, whichever is larger."""
-    by_bytes = moved_bytes / HBM_BYTES_PER_S * 1e3
-    by_ops = (OPS[name] * units / OPS_PER_S.get(name, SCALAR_OPS_PER_S)
-              * 1e3)
-    return dict(bound_ms=max(by_bytes, by_ops),
-                bound_by="bytes" if by_bytes >= by_ops else "operations")
+def bound(name: str, moved_bytes: int, units: int,
+          chain_steps: int = 0) -> dict:
+    """The least time of a kernel's work: moved bytes over HBM bandwidth,
+    its counted operations over the scalar peak, or, for a serial
+    recurrence (CHAIN_OPS), its steps per lane times the critical path's
+    latency, whichever is largest."""
+    terms = {"bytes": moved_bytes / HBM_BYTES_PER_S * 1e3,
+             "operations": (OPS[name] * units
+                            / OPS_PER_S.get(name, SCALAR_OPS_PER_S) * 1e3)}
+    if name in CHAIN_OPS:
+        terms["chain"] = (chain_steps * CHAIN_OPS[name] * CHAIN_CYCLES_PER_OP
+                          / (max_sm_clock_mhz() * 1e6) * 1e3)
+    by = max(terms, key=terms.get)
+    return dict(bound_ms=terms[by], bound_by=by)
 
 
 def cuda_ms_once(fn):
@@ -327,19 +365,31 @@ def adx_random_decode_checks(dev, geometries) -> int:
     return worst
 
 
-# bit depth -> block size of the random encode checks (bd 12 at 0x12 leaves
-# the last block byte unfilled: 10 codes in 15 of 16 bytes)
-ENCODE_GEOMETRIES = {2: 0x12, 4: 0x12, 5: 12, 8: 0x12, 11: 13, 12: 0x12}
+# (bit depth, block size) of the random encode checks, each in modes 2/3/4
+# with scale_fix off and on: bd 12 at 0x12 leaves the last block byte
+# unfilled (10 codes in 15 of 16 bytes); bd 5 at 0x12 has an odd spb (25),
+# so no lane starts 16-byte aligned; bd 8 at 3 is spb 1; bd 2 at 255 the
+# largest spb (1,012); bd 4 at 13 (spb 22) ends each block's groups of 8
+# in a tail of 6
+ENCODE_GEOMETRIES = [(2, 0x12), (4, 0x12), (4, 13), (5, 12), (5, 0x12),
+                     (8, 0x12), (8, 3), (11, 13), (12, 0x12), (2, 255)]
+# lane counts of the edge checks: one lane, lanes that fill no CTA and
+# lane counts whose last CTA is ragged on a 132-SM card (133 -> 2 lanes per
+# CTA, 601 -> 5)
+ENCODE_LANE_COUNTS = (1, 3, 133, 600, 601)
 
 
-def random_pcm(rng, L, nb, spb) -> np.ndarray:
+def random_pcm(rng, L, nb, spb, loud=False) -> np.ndarray:
     """PCM16 lanes [L, nb, spb]: full-range noise, tones, and runs of zero
-    blocks (zero-residual blocks once the history has settled at 0)."""
+    blocks (zero-residual blocks once the history has settled at 0); loud:
+    random rails (-32768 or 32767), residuals past 0xFFFF."""
     t = np.arange(nb * spb)
     pcm = np.empty((L, nb * spb), dtype=np.int64)
     for lane in range(L):
-        kind = lane % 4
-        if kind == 0:
+        kind = 0 if loud else lane % 4
+        if loud:
+            pcm[lane] = rng.choice(np.array([-32768, 32767]), nb * spb)
+        elif kind == 0:
             pcm[lane] = rng.integers(-32768, 32768, nb * spb)
         else:
             f = rng.uniform(50, 8000) / 48000
@@ -347,41 +397,104 @@ def random_pcm(rng, L, nb, spb) -> np.ndarray:
             pcm[lane] = (amp * np.sin(2 * np.pi * f * t)
                          + rng.normal(0, 30, nb * spb)).astype(np.int64)
     pcm = np.clip(pcm, -32768, 32767).reshape(L, nb, spb)
-    pcm[:, :3] = 0                         # leading zero blocks (history 0)
+    pcm[:, :min(3, nb // 4)] = 0           # leading zero blocks (history 0)
     pcm[1::3, nb // 2:nb // 2 + 6] = 0     # zero runs mid-stream
     return pcm.astype(np.int16)
 
 
-def adx_random_encode_checks(dev) -> int:
-    """B8 against its twin + packer on random PCM, every mode x bit depth x
-    scale_fix."""
-    from pycricodecs_tpu_torch.models.adx import samples_per_block
+def encode_pair(dev, rng, what, pcm_np, bd, bs, mode, scale_fix,
+                loud=False):
+    """B8 and its twin on the same PCM and random lanes (zero history):
+    (max |diff| (0), the twin's blocks). loud: the default coefficients
+    (highpass 0x1F4 at 48 kHz) on every lane, and fail unless some residual
+    against the original samples passes 0xFFFF."""
+    from pycricodecs_tpu_torch.models import adx as adx_model
     from pycricodecs_tpu_torch.ops import adx_kernels as A
+    from pycricodecs_tpu_torch.ops import cuda_kernels
+    L = pcm_np.shape[0]
+    pcm = torch.from_numpy(pcm_np).to(dev)
+    _, _, c0, c1 = random_lanes(rng, L, dev)
+    if loud:
+        a, b = adx_model.calculate_coefficients(0x1F4, 48000)
+        c0, c1 = torch.full_like(c0, a), torch.full_like(c1, b)
+    h1 = torch.zeros(L, dtype=torch.int32, device=dev)
+    h2 = h1.clone()
+    if loud:
+        x = pcm.to(torch.int32)
+        r = ((x[:, :, 2:] << 12) - c0[:, None, None] * x[:, :, 1:-1]
+             - c1[:, None, None] * x[:, :, :-2]) >> 12
+        if int(r.abs().max()) <= 0xFFFF:
+            raise AssertionError(f"{what}: no residual passes 0xFFFF")
+    kw = dict(block_size=bs, bit_depth=bd, encoding_mode=mode,
+              filter_=3 if mode == 2 else 0, scale_fix=scale_fix)
+    got = cuda_kernels.adx_encode(pcm, c0, c1, h1, h2, **kw)
+    want = A.adx_encode_blocks_plain(pcm, c0, c1, h1, h2, **kw)
+    return require_equal(what, [("blocks", got, want)]), want
+
+
+def adx_random_encode_checks(dev) -> int:
+    """B8 against its twin + packer on random PCM: every geometry x mode x
+    scale_fix, loud PCM at bit depth 2, lane counts that leave the last CTA
+    ragged, one block and one chunk plus 3 blocks."""
+    from pycricodecs_tpu_torch.models.adx import samples_per_block
     from pycricodecs_tpu_torch.ops import cuda_kernels
     rng = np.random.default_rng(8)
     worst = 0
-    for bd, bs in ENCODE_GEOMETRIES.items():
+    L = ADX_RANDOM_LANES
+    for bd, bs in ENCODE_GEOMETRIES:
         spb = samples_per_block(bs, bd)
+        nb = max(4, min(ADX_RANDOM_BLOCKS, 4096 // spb))
         for mode in (2, 3, 4):
             for scale_fix in (False, True):
-                L, nb = ADX_RANDOM_LANES, ADX_RANDOM_BLOCKS
-                pcm = torch.from_numpy(random_pcm(rng, L, nb, spb)).to(dev)
-                _, _, c0, c1 = random_lanes(rng, L, dev)
-                h1 = torch.zeros(L, dtype=torch.int32, device=dev)
-                h2 = h1.clone()
-                kw = dict(block_size=bs, bit_depth=bd, encoding_mode=mode,
-                          filter_=3 if mode == 2 else 0, scale_fix=scale_fix)
-                got = cuda_kernels.adx_encode(pcm, c0, c1, h1, h2, **kw)
-                want = A.adx_encode_blocks_plain(pcm, c0, c1, h1, h2, **kw)
+                w, want = encode_pair(
+                    dev, rng, f"B8 random bd {bd} bs {bs} mode {mode} fix "
+                    f"{scale_fix}", random_pcm(rng, L, nb, spb), bd, bs, mode,
+                    scale_fix)
+                worst = max(worst, w)
                 zero = (want == 0).all(-1)            # all-zero blocks
                 if not bool(zero.any()) or bool(zero.all()):
                     raise AssertionError("random PCM without zero blocks")
-                worst = max(worst, require_equal(
-                    f"B8 random bd {bd} bs {bs} mode {mode} fix {scale_fix}",
-                    [("blocks", got, want)]))
-            log(f"B8 random bd {bd} block {bs} mode {mode}: {L} lanes x "
-                f"{nb} blocks, scale_fix off/on, {int(zero.sum())} all-zero "
-                f"blocks: byte-equal to the twin")
+            log(f"B8 random bd {bd} block {bs} (spb {spb}) mode {mode}: {L} "
+                f"lanes x {nb} blocks, scale_fix off/on, {int(zero.sum())} "
+                f"all-zero blocks: byte-equal to the twin")
+    # loud rails at bit depth 2: the residual range passes 0xFFFF, so the
+    # scale wraps (scale_fix off) and meets the 0x1000 cap
+    nb = ADX_RANDOM_BLOCKS
+    for mode in (2, 3, 4):
+        worst = max(worst, encode_pair(
+            dev, rng, f"B8 loud bd 2 mode {mode}",
+            random_pcm(rng, L, nb, 64, loud=True), 2, 0x12, mode, False,
+            loud=True)[0])
+    log(f"B8 loud rails, bd 2 block 0x12 modes 2/3/4, scale_fix off: {L} "
+        f"lanes x {nb} blocks byte-equal to the twin")
+    # lane counts against the CTA width G (ragged last CTAs)
+    ragged = []
+    for lanes in ENCODE_LANE_COUNTS:
+        G, K, smem = cuda_kernels.adx_encode_plan(lanes, nb, block_size=0x12,
+                                                  bit_depth=4)
+        ragged.append(lanes % G != 0)
+        worst = max(worst, encode_pair(
+            dev, rng, f"B8 {lanes} lanes", random_pcm(rng, lanes, nb, 32), 4,
+            0x12, 3, False)[0])
+        log(f"B8 {lanes} lanes (G {G}, K {K}, {smem} shared bytes) x {nb} "
+            f"blocks: byte-equal to the twin")
+    if not any(ragged):
+        raise AssertionError("no lane count left the last CTA ragged")
+    # one block, and one chunk plus 3 (the last chunk short), aligned and not
+    for bd, bs in ((4, 0x12), (5, 0x12)):
+        spb = samples_per_block(bs, bd)
+        K = cuda_kernels.adx_encode_plan(L, 4096, block_size=bs,
+                                         bit_depth=bd)[1]
+        if cuda_kernels.adx_encode_plan(L, K + 3, block_size=bs,
+                                        bit_depth=bd)[1] != K:
+            raise AssertionError(f"bd {bd}: K + 3 blocks change K")
+        for nb in (1, K + 3):
+            for scale_fix in (False, True):
+                worst = max(worst, encode_pair(
+                    dev, rng, f"B8 bd {bd} {nb} blocks fix {scale_fix}",
+                    random_pcm(rng, L, nb, spb), bd, bs, 3, scale_fix)[0])
+            log(f"B8 bd {bd} block {bs} (K {K}): {L} lanes x {nb} blocks, "
+                f"scale_fix off/on: byte-equal to the twin")
     return worst
 
 
@@ -532,14 +645,21 @@ def adx_phases(dev, card: str, worst: dict, launches: dict) -> dict:
                encoding_mode=bank_h.encoding_mode)
     L, nb, bs = lanes.shape
     spb = bank_h.samples_per_block
+    # the twins on the first ADX_PREFIX_BLOCKS blocks of every lane (phase 7
+    # held the whole bank's outputs to the JAX package's hashes); the
+    # kernels run and are timed at the full bank shape
+    pre = ADX_PREFIX_BLOCKS
     pcm_k = cuda_kernels.adx_decode(*dargs, **dkw)
-    pcm_t, d_plain = cuda_ms_once(lambda: A.adx_decode_plain(*dargs, **dkw))
+    pre_d = [dargs[0][:, :pre].contiguous(), *dargs[1:]]
+    pcm_t, d_plain = cuda_ms_once(lambda: A.adx_decode_plain(*pre_d, **dkw))
     worst["adx_decode"] = max(worst["adx_decode"], require_equal(
-        "B7 bank", [("pcm", pcm_k, pcm_t)]))
-    log(f"B7 bank shape {L} lanes x {nb} blocks: byte-equal to the twin")
+        "B7 bank prefix", [("pcm", pcm_k[:, :pre], pcm_t)]))
+    log(f"B7 at the bank shape {L} lanes x {nb} blocks: its first {pre} "
+        f"blocks byte-equal to the twin on them")
     d_ms = cuda_ms(lambda: cuda_kernels.adx_decode(*dargs, **dkw), 5)
-    d_bound = bound("adx_decode", nbytes(*dargs, pcm_k), L * nb * spb)
-    del pcm_t
+    d_bound = bound("adx_decode", nbytes(*dargs, pcm_k), L * nb * spb,
+                    chain_steps=nb * spb)
+    del pcm_t, pre_d
 
     preps = [adx_model._encode_prep(
         wav_in[bank_name], bit_depth=4, block_size=0x12, encoding_mode=3,
@@ -552,15 +672,20 @@ def adx_phases(dev, card: str, worst: dict, launches: dict) -> dict:
     ekw = dict(block_size=0x12, bit_depth=4, encoding_mode=3, filter_=0,
                scale_fix=False)
     blk_k = cuda_kernels.adx_encode(*eargs, **ekw)
+    pre_e = [eargs[0][:, :pre].contiguous(), *eargs[1:]]
     blk_t, e_plain = cuda_ms_once(
-        lambda: A.adx_encode_blocks_plain(*eargs, **ekw))
+        lambda: A.adx_encode_blocks_plain(*pre_e, **ekw))
     worst["adx_encode"] = max(worst["adx_encode"], require_equal(
-        "B8 bank", [("blocks", blk_k, blk_t)]))
-    log(f"B8 bank shape {pcm_np.shape[0]} lanes x {pcm_np.shape[1]} blocks: "
-        f"byte-equal to the twin")
+        "B8 bank prefix", [("blocks", blk_k[:, :pre], blk_t)]))
+    G, K, smem = cuda_kernels.adx_encode_plan(
+        pcm_np.shape[0], pcm_np.shape[1], block_size=0x12, bit_depth=4)
+    log(f"B8 at the bank shape {pcm_np.shape[0]} lanes x {pcm_np.shape[1]} "
+        f"blocks (G {G} lanes per CTA, K {K} blocks per chunk, {smem} shared "
+        f"bytes): its first {pre} blocks byte-equal to the twin on them")
     e_ms = cuda_ms(lambda: cuda_kernels.adx_encode(*eargs, **ekw), 5)
-    e_bound = bound("adx_encode", nbytes(*eargs, blk_k), pcm_np.size)
-    del blk_t, pcm_k, blk_k, dargs, eargs
+    e_bound = bound("adx_encode", nbytes(*eargs, blk_k), pcm_np.size,
+                    chain_steps=pcm_np.shape[1] * spb)
+    del blk_t, pcm_k, blk_k, dargs, eargs, pre_e
 
     audio_s = BANK_STREAMS * expected[bank_name]["seconds"]
     for label, fn in (("decode", lambda: port.adx_decode_batch(
@@ -573,9 +698,12 @@ def adx_phases(dev, card: str, worst: dict, launches: dict) -> dict:
             f"{[round(r, 4) for r in runs]}")
     for name, ms, plain, bd in (("adx_decode", d_ms, d_plain, d_bound),
                                 ("adx_encode", e_ms, e_plain, e_bound)):
+        log(f"{name} chain bound inputs: {nb * spb} steps per lane x "
+            f"{CHAIN_OPS[name]} critical-path ops x {CHAIN_CYCLES_PER_OP} "
+            f"cycles / {max_sm_clock_mhz():.0f} MHz max SM clock")
         log(f"{name} [{card}] at {L} lanes x {nb} blocks: kernel "
-            f"{ms:.4f} ms, twin {plain:.4f} ms (one run), bound "
-            f"{bd['bound_ms']:.4f} ms by {bd['bound_by']}")
+            f"{ms:.4f} ms, twin {plain:.4f} ms at {L} lanes x {pre} blocks "
+            f"(one run), bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}")
     return {"adx_decode": (d_ms, d_plain, d_bound),
             "adx_encode": (e_ms, e_plain, e_bound)}
 
@@ -1380,6 +1508,8 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     log(f"card: {card}")
+    log(f"max SM clock: {max_sm_clock_mhz():.0f} MHz (nvidia-smi "
+        f"clocks.max.sm)")
     log(f"torch.cuda.get_device_name(0): {torch.cuda.get_device_name(0)}; "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 

@@ -47,7 +47,9 @@ SIGNATURES = {
     "hca_transform": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                       _I, _I, _P, _P, _P, _P, _P, _P],
     "adx_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
-    "adx_encode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    "adx_encode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+                   _P],
+    "adx_encode_plan": [_I, _I, _I, _I, _P],
     "hca_mdct": [_P, _L, _I, _P, _P],
     "hca_pack": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P, _P,
                  _P, _P],

@@ -15,7 +15,10 @@ Counterpart of pycricodecs_tpu/ops/adx_kernels.py:
   adx_encode_serial_pallas): per block the residual min/max against the
   original samples, the zero-block early-out, the scale choice and the
   quantisation against the simulated decoder, mirroring adx_encode_scan;
-  adx_pack then writes the block bytes, which B8 writes itself.
+  adx_pack then writes the block bytes, which B8 writes itself;
+- divisor_table is B8's alone: the (multiplier, shift) rows with which the
+  kernel divides by a per-block divisor exactly as C `/` does. The twins
+  divide with torch.div(..., rounding_mode="trunc").
 
 All arithmetic is int32 with the wrap of the device kernels (no int64
 promotion): in mode 4, `1 << ((12 - scale) & 31)` can be 1 << 31 and
@@ -27,6 +30,7 @@ the twin on a CPU tensor; nothing else picks between them.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..models.adx import STATIC_COEFFICIENTS, samples_per_block
@@ -137,6 +141,53 @@ def adx_decode_device(payload: torch.Tensor, h1: torch.Tensor,
 def _tdiv(a: torch.Tensor, b) -> torch.Tensor:
     """C truncating division."""
     return torch.div(a, b, rounding_mode="trunc")
+
+
+#: the largest divisor kernel B8 meets: limit + 1 of the scale choice at bit
+#: depth 15 (the chain's own divisors stop at 8192, mode 4's 1 << 13)
+DIV_MAX = 1 << 14
+
+
+def _signed_magic(d: int):
+    """(multiplier, shift) of signed division by the constant 2 <= d < 2^31
+    (Granlund-Montgomery; Hacker's Delight, 2nd ed., figure 10-1): for every
+    int32 n, trunc(n / d) = ((mulhi(M, n) + (n if M < 0 else 0)) >> s)
+    + (1 if n < 0 else 0), M read as int32."""
+    two31 = 1 << 31
+    anc = two31 - 1 - two31 % d
+    p = 31
+    q1, r1 = divmod(two31, anc)
+    q2, r2 = divmod(two31, d)
+    while True:
+        p += 1
+        q1, r1 = 2 * q1, 2 * r1
+        if r1 >= anc:
+            q1, r1 = q1 + 1, r1 - anc
+        q2, r2 = 2 * q2, 2 * r2
+        if r2 >= d:
+            q2, r2 = q2 + 1, r2 - d
+        delta = d - r2
+        if not (q1 < delta or (q1 == delta and r1 == 0)):
+            break
+    m = (q2 + 1) & 0xFFFFFFFF
+    return m - (1 << 32) * (m >> 31), p - 32
+
+
+def divisor_table() -> np.ndarray:
+    """Kernel B8's exact-division table, int32 [DIV_MAX + 1, 4]: row d holds
+    (mul, add, shift, fix) with which the kernel divides any int32 n by d,
+    as C `/` does:
+        q = mulhi(n, mul) + (n & add)      (32-bit wrap)
+        q = q >> shift                     (arithmetic)
+        q = q + ((n >>> 31) & fix)         (1 for a negative n)
+    d >= 2: the signed magic pair, add = -1 where mul < 0, fix = 1; d = 1:
+    mul 0, add -1, shift 0, fix 0 (q = n). Row 0 is unused."""
+    tab = np.zeros((DIV_MAX + 1, 4), np.int32)
+    tab[1] = (0, -1, 0, 0)
+    for d in range(2, DIV_MAX + 1):
+        m, s = _signed_magic(d)
+        tab[d] = (m, -1 if m < 0 else 0, s, 1)
+    return tab
 
 
 def _scale_from_minmax(minimum, maximum, limit: int, scale_fix: bool):

@@ -166,13 +166,39 @@ def adx_encode(pcm, c0, c1, h1, h2, *, block_size, bit_depth, encoding_mode,
     if L * nb == 0:
         return out
     rc = _build.load().adx_encode(
-        ptr(pcm), ptr(c0), ptr(c1), ptr(h1), ptr(h2), L, nb, int(block_size),
+        ptr(pcm), ptr(c0), ptr(c1), ptr(h1), ptr(h2),
+        ptr(_divisor_table(pcm.device)), L, nb, int(block_size),
         int(bit_depth), int(encoding_mode), int(filter_), int(bool(scale_fix)),
         ptr(out), stream_ptr(pcm))
     if rc:
         raise launch_failed("adx_encode", rc)
     ADX_ENCODE_LAUNCHES += 1
     return out
+
+
+#: device -> B8's division table on it (adx_kernels.divisor_table)
+_DIVISOR_TABLES: dict = {}
+
+
+def _divisor_table(device: torch.device) -> torch.Tensor:
+    """B8's exact-division table as an int32 CUDA tensor, built once per
+    device."""
+    if device not in _DIVISOR_TABLES:
+        from .adx_kernels import divisor_table
+        _DIVISOR_TABLES[device] = torch.from_numpy(divisor_table()).to(device)
+    return _DIVISOR_TABLES[device]
+
+
+def adx_encode_plan(L: int, nb: int, *, block_size: int,
+                    bit_depth: int) -> tuple:
+    """Kernel B8's launch geometry for such a call on the current CUDA
+    device: (lanes per CTA, blocks per chunk, dynamic shared bytes)."""
+    plan = (ctypes.c_int * 3)()
+    rc = _build.load().adx_encode_plan(int(L), int(nb), int(block_size),
+                                       int(bit_depth), plan)
+    if rc:
+        raise launch_failed("adx_encode_plan", rc)
+    return tuple(plan)
 
 
 def hca_mdct(pcm) -> torch.Tensor:
