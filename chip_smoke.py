@@ -25,11 +25,13 @@ HCA:
 
 ADX (tests/data/torch_port/adx/, hashes from the JAX package):
 6. B7 decode and B8 encode against their twins on the card, byte for byte:
-   random block bytes for every geometry of the fixtures in modes 2/3/4
-   (random scale words reach mode 2 predictors 4-7 and mode 4's 1 << 31
-   scale); random PCM with zero blocks for modes 2/3/4, bit depths
-   2/4/5/8/11/12 (odd spb 25, spb 1 and 1,012 among them), scale_fix off
-   and on; loud rails at bit depth 2 (the u16 wrap, the 0x1000 cap); lane
+   random block bytes for bit depths 2/4/5/8/11/12/15 in modes 2/3/4 (odd
+   spb 25, spb 1 and 1,012, lane strides off a 16-byte boundary; random
+   scale words reach mode 2 predictors 4-7 and mode 4's 1 << 31 scale),
+   lane counts that leave B7's last CTA ragged, one block, one chunk plus
+   3 and 25 blocks of the bank's geometry; random PCM with zero blocks for
+   modes 2/3/4, bit depths 2/4/5/8/11/12 (odd spb 25, spb 1 and 1,012
+   among them), scale_fix off and on; loud rails at bit depth 2 (the u16 wrap, the 0x1000 cap); lane
    counts that leave B8's last CTA ragged; one block, and one chunk plus 3;
 7. `adx_decode_batch` of 256 copies of the 10 s stereo bank stream (4-bit,
    block 0x12, mode 3, version 4) and of the 1 s fixtures, and
@@ -46,6 +48,8 @@ HCA encode (tests/data/torch_port/, input WAVs rebuilt by signals.hca_wav
 and held to their recorded hashes):
 9. B6 `hca_mdct` against `mdct_plain`, bit for bit (f32 as i32): random
    PCM16 with both rails, and the bank's PCM (256 x 2 x 3,752 blocks);
+   B6's library yardstick timed (the cast, a pad and one `torch.matmul` by
+   the folded 256 x 128 matrix over an unfold view, TF32 off);
 10. the packer `hca_pack` (B9's work) against `pack_frames_plain`, byte for
    byte: the bank's encode tensors; per 1 s fixture config rate-controlled
    tensors of noise and random tensors in the legal ranges (most overflow
@@ -92,14 +96,16 @@ from the JAX package):
    and B4 launched, timed (median of 3 after a warm-up, keys/s) with the
    stage split; 16 copies of the zero-coded_count stream through
    `decode_batch`, every WAV equal to its recorded sha256; B4 and B5 timed
-   at the chunk shape, and B5's yardstick, one `torch.matmul` by the
-   128 x 128 DCT-IV matrix with TF32 off. B5 has no main path (the JAX
+   at the chunk shape, with B5's yardstick, one `torch.matmul` by the
+   128 x 128 DCT-IV matrix, and B4's, a pad and one `torch.matmul` by the
+   folded 256 x 128 matrix over an unfold view, TF32 off. B5 has no main
+   path (the JAX
    package runs it only in its tests), so its launch count is 0.
 
 Prints a JSON line of per-kernel results (launches on the main paths, max
 |kernel - twin|, kernel/twin ms, the bound from the bytes and operations of
 the timed call, and for B7/B8 from their dependent chain at the card's
-maximum SM clock; B5's library call), the card line, and last a JSON line
+maximum SM clock; the library calls of B4, B5 and B6), the card line, and last a JSON line
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; there
 is no CPU path.
 
@@ -335,33 +341,86 @@ def random_lanes(rng, L, dev):
             for a in (hist[0], hist[1], coef[:, 0], coef[:, 1])]
 
 
-def adx_random_decode_checks(dev, geometries) -> int:
-    """B7 against its twin on random block bytes, every geometry x mode."""
+# (bit depth, block size) of the random decode checks, each in modes 2/3/4:
+# bit depths 2/4/5/8/11/12/15, spb 64, 32, 25 (odd), 16, 1, 8, 10, 8, 1,012
+# and 16 (block 12); 24 blocks of block 13, 3 or 255 leave every lane's
+# bytes off a 16-byte boundary
+DECODE_GEOMETRIES = [(2, 0x12), (4, 0x12), (5, 0x12), (8, 0x12), (8, 3),
+                     (11, 13), (12, 0x12), (15, 0x12), (2, 255), (5, 12)]
+
+
+def decode_pair(dev, rng, what, L, nb, bd, bs, mode) -> int:
+    """B7 against its twin on random block bytes; mode 2 draws predictors
+    4-7 and mode 4 scale words 13 mod 32 (1 << 31, which wraps)."""
     from pycricodecs_tpu_torch.ops import adx_kernels as A
+    from pycricodecs_tpu_torch.ops import cuda_kernels
+    raw = rng.integers(0, 256, (L, nb, bs), dtype=np.uint8)
+    raw[0, 0, :2] = (0x00, 0x0D)    # mode 4: 1 << 31 (wraps)
+    raw[-1, -1, :2] = (0xE0, 0x10)  # mode 2: predictor 7
+    words = (raw[..., 0].astype(np.int32) << 8) | raw[..., 1]
+    if mode == 2 and not (words >> 13 >= 4).any():
+        raise AssertionError("no mode 2 predictor 4-7 drawn")
+    if mode == 4 and not ((words & 31) == 13).any():
+        raise AssertionError("no mode 4 1 << 31 scale drawn")
+    h1, h2, c0, c1 = random_lanes(rng, L, dev)
+    payload = torch.from_numpy(raw).to(dev)
+    kw = dict(bit_depth=bd, encoding_mode=mode)
+    got = cuda_kernels.adx_decode(payload, h1, h2, c0, c1, **kw)
+    want = A.adx_decode_plain(payload, h1, h2, c0, c1, **kw)
+    return require_equal(what, [("pcm", got, want)])
+
+
+def adx_random_decode_checks(dev) -> int:
+    """B7 against its twin on random block bytes: every geometry x mode,
+    lane counts that leave the last CTA ragged, one block and one chunk
+    plus 3 blocks, and a lane stride off a 16-byte boundary at the bank's
+    geometry."""
+    from pycricodecs_tpu_torch.models.adx import samples_per_block
     from pycricodecs_tpu_torch.ops import cuda_kernels
     rng = np.random.default_rng(7)
     worst = 0
-    for bd, bs in geometries:
+    L = ADX_RANDOM_LANES
+    for bd, bs in DECODE_GEOMETRIES:
+        spb = samples_per_block(bs, bd)
+        nb = max(4, min(ADX_RANDOM_BLOCKS, 4096 // spb))
+        G, K, smem = cuda_kernels.adx_decode_plan(L, nb, block_size=bs,
+                                                  bit_depth=bd)
         for mode in (2, 3, 4):
-            L, nb = ADX_RANDOM_LANES, ADX_RANDOM_BLOCKS
-            raw = rng.integers(0, 256, (L, nb, bs), dtype=np.uint8)
-            raw[0, 0, :2] = (0x00, 0x0D)    # mode 4: 1 << 31 (wraps)
-            raw[1, 0, :2] = (0xE0, 0x10)    # mode 2: predictor 7
-            words = (raw[..., 0].astype(np.int32) << 8) | raw[..., 1]
-            if mode == 2 and not (words >> 13 >= 4).any():
-                raise AssertionError("no mode 2 predictor 4-7 drawn")
-            if mode == 4 and not ((words & 31) == 13).any():
-                raise AssertionError("no mode 4 1 << 31 scale drawn")
-            h1, h2, c0, c1 = random_lanes(rng, L, dev)
-            payload = torch.from_numpy(raw).to(dev)
-            kw = dict(bit_depth=bd, encoding_mode=mode)
-            got = cuda_kernels.adx_decode(payload, h1, h2, c0, c1, **kw)
-            want = A.adx_decode_plain(payload, h1, h2, c0, c1, **kw)
-            worst = max(worst, require_equal(
-                f"B7 random bd {bd} bs {bs} mode {mode}",
-                [("pcm", got, want)]))
-            log(f"B7 random bd {bd} block {bs} mode {mode}: {L} lanes x "
-                f"{nb} blocks byte-equal to the twin")
+            worst = max(worst, decode_pair(
+                dev, rng, f"B7 random bd {bd} bs {bs} mode {mode}", L, nb,
+                bd, bs, mode))
+        log(f"B7 random bd {bd} block {bs} (spb {spb}; G {G}, K {K}, {smem} "
+            f"shared bytes): {L} lanes x {nb} blocks ({nb * bs % 16} bytes "
+            f"past a 16-byte lane stride), modes 2/3/4 byte-equal to the "
+            f"twin")
+    # lane counts against the CTA width G (ragged last CTAs)
+    nb = ADX_RANDOM_BLOCKS
+    ragged = []
+    for lanes in ENCODE_LANE_COUNTS:
+        G, K, smem = cuda_kernels.adx_decode_plan(lanes, nb, block_size=0x12,
+                                                  bit_depth=4)
+        ragged.append(lanes % G != 0)
+        worst = max(worst, decode_pair(dev, rng, f"B7 {lanes} lanes", lanes,
+                                       nb, 4, 0x12, 3))
+        log(f"B7 {lanes} lanes (G {G}, K {K}, {smem} shared bytes) x {nb} "
+            f"blocks: byte-equal to the twin")
+    if not any(ragged):
+        raise AssertionError("no lane count left the last CTA ragged")
+    # one block, one chunk plus 3 (the last chunk short), and 25 blocks of
+    # the bank's geometry (a 450-byte lane stride)
+    for bd, bs in ((4, 0x12), (5, 0x12)):
+        K = cuda_kernels.adx_decode_plan(L, 4096, block_size=bs,
+                                         bit_depth=bd)[1]
+        if cuda_kernels.adx_decode_plan(L, K + 3, block_size=bs,
+                                        bit_depth=bd)[1] != K:
+            raise AssertionError(f"bd {bd}: K + 3 blocks change K")
+        for nb in (1, K + 3, 25):
+            for mode in (2, 3, 4):
+                worst = max(worst, decode_pair(
+                    dev, rng, f"B7 bd {bd} {nb} blocks mode {mode}", L, nb,
+                    bd, bs, mode))
+            log(f"B7 bd {bd} block {bs} (K {K}): {L} lanes x {nb} blocks, "
+                f"modes 2/3/4 byte-equal to the twin")
     return worst
 
 
@@ -578,10 +637,12 @@ def adx_phases(dev, card: str, worst: dict, launches: dict) -> dict:
     bank_h = adx_model.parse_adx_header(blobs[bank_name])
 
     # -- phase 6: B7 / B8 against their twins on random inputs --------------
-    geometries = sorted({(adx_model.parse_adx_header(b).bit_depth,
-                          adx_model.parse_adx_header(b).block_size)
-                         for b in blobs.values()})
-    worst["adx_decode"] = adx_random_decode_checks(dev, geometries)
+    fixture_geometries = {(adx_model.parse_adx_header(b).bit_depth,
+                           adx_model.parse_adx_header(b).block_size)
+                          for b in blobs.values()}
+    if not fixture_geometries <= set(DECODE_GEOMETRIES):
+        raise AssertionError("a fixture's geometry is not a phase-6 case")
+    worst["adx_decode"] = adx_random_decode_checks(dev)
     worst["adx_encode"] = adx_random_encode_checks(dev)
 
     # -- phase 7: the ADX bank decode and encode, held to the JAX hashes ----
@@ -654,7 +715,10 @@ def adx_phases(dev, card: str, worst: dict, launches: dict) -> dict:
     pcm_t, d_plain = cuda_ms_once(lambda: A.adx_decode_plain(*pre_d, **dkw))
     worst["adx_decode"] = max(worst["adx_decode"], require_equal(
         "B7 bank prefix", [("pcm", pcm_k[:, :pre], pcm_t)]))
-    log(f"B7 at the bank shape {L} lanes x {nb} blocks: its first {pre} "
+    G, K, smem = cuda_kernels.adx_decode_plan(L, nb, block_size=bs,
+                                              bit_depth=bank_h.bit_depth)
+    log(f"B7 at the bank shape {L} lanes x {nb} blocks (G {G} lanes per CTA, "
+        f"K {K} blocks per chunk, {smem} shared bytes): its first {pre} "
         f"blocks byte-equal to the twin on them")
     d_ms = cuda_ms(lambda: cuda_kernels.adx_decode(*dargs, **dkw), 5)
     d_bound = bound("adx_decode", nbytes(*dargs, pcm_k), L * nb * spb,
@@ -867,6 +931,22 @@ def hca_encode_phases(dev, card: str, worst: dict, launches: dict) -> dict:
         f"bit-equal to the twin")
     mdct_ms = cuda_ms(lambda: cuda_kernels.hca_mdct(bank_pcm), 20)
     mdct_bound = bound("hca_mdct", nbytes(bank_pcm, spec_k), spec_k.numel())
+    # the library yardstick: the int16 -> f32 cast and a zero block padded
+    # in front (two calls), each block with the one before as a 256-value
+    # unfold view (no call), one matmul by the folded 256 x 128 matrix of
+    # the window fold, the DCT-IV and the 1 / 32768 (TF32 off)
+    mdct_matrix = D.mdct_plain(torch.eye(256).view(1, 256, 256))[0, :, 1] \
+        .contiguous().to(dev)
+
+    def mdct_library():
+        x = torch.nn.functional.pad(bank_pcm.float(), (128, 0))
+        return torch.matmul(x.unfold(-1, 256, 128), mdct_matrix)
+    mdct_lib_ms = cuda_ms(mdct_library, 20)
+    mdct_lib_err = float((mdct_library() - spec_k).abs().max())
+    log(f"hca_mdct library yardstick [{card}]: 3 calls, the cast, F.pad and "
+        f"torch.matmul of the unfold view by the folded 256 x 128 matrix "
+        f"(TF32 off) {mdct_lib_ms:.4f} ms, max |diff| from B6 "
+        f"{mdct_lib_err:.6g} (another summation order)")
     del spec_k, spec_t
 
     # -- phase 10: hca_pack against pack_frames_plain -----------------------
@@ -980,7 +1060,7 @@ def hca_encode_phases(dev, card: str, worst: dict, launches: dict) -> dict:
         log(f"{name} [{card}] at the encode bank shape: kernel {ms:.4f} ms, "
             f"twin {plain_ms:.4f} ms (one run), bound {bd['bound_ms']:.4f} "
             f"ms by {bd['bound_by']}")
-    return {"hca_mdct": (mdct_ms, mdct_plain_ms, mdct_bound),
+    return {"hca_mdct": (mdct_ms, mdct_plain_ms, mdct_bound, mdct_lib_ms),
             "hca_pack": (pack_ms, pack_plain_ms, pack_bound)}
 
 
@@ -1461,7 +1541,10 @@ def keysearch_phase(dev, card: str, worst: dict, launches: dict) -> dict:
         f"the card, every WAV sha256 equal to the JAX package's")
 
     # times at the bank chunk's shape; B5's yardstick: one matmul by the
-    # DCT-IV matrix (TF32 off), the same function in another rounding order
+    # DCT-IV matrix (TF32 off), the same function in another rounding order;
+    # B4's: the zero subframe padded in front (one call), each subframe
+    # with the one before as a 256-value unfold view (no call), one matmul
+    # by the folded 256 x 128 DCT-IV + overlap-add matrix
     values = spec_t.numel()
     ola_ms = cuda_ms(lambda: K.imdct_ola(spec_t), 20)
     ola_plain_ms = cuda_ms(lambda: K.imdct_ola_plain(spec_t), 3)
@@ -1472,6 +1555,15 @@ def keysearch_phase(dev, card: str, worst: dict, launches: dict) -> dict:
     lib_ms = cuda_ms(lambda: torch.matmul(rows2d, matrix), 20)
     lib_err = float((torch.matmul(rows2d, matrix) - dct_k.view(-1, 128))
                     .abs().max())
+    ola_matrix = K.imdct_ola_plain(torch.eye(256).view(256, 2, 128))[:, 1] \
+        .contiguous().to(dev)
+
+    def ola_library():
+        x = torch.nn.functional.pad(spec_t, (0, 0, 1, 0))
+        return torch.matmul(x.view(x.shape[0], -1).unfold(1, 256, 128),
+                            ola_matrix)
+    ola_lib_ms = cuda_ms(ola_library, 20)
+    ola_lib_err = float((ola_library() - wave_k).abs().max())
     ola_bd = bound("hca_imdct_ola", nbytes(spec_t, wave_k), values)
     dct_bd = bound("hca_imdct", nbytes(spec_t, dct_k), values)
     for name, ms, plain_ms, bd in (
@@ -1483,7 +1575,11 @@ def keysearch_phase(dev, card: str, worst: dict, launches: dict) -> dict:
     log(f"hca_imdct library yardstick [{card}]: torch.matmul by the 128 x 128 "
         f"DCT-IV matrix (TF32 off) {lib_ms:.4f} ms, max |diff| from B5 "
         f"{lib_err:.6g} (another summation order)")
-    return {"hca_imdct_ola": (ola_ms, ola_plain_ms, ola_bd),
+    log(f"hca_imdct_ola library yardstick [{card}]: 2 calls, F.pad and "
+        f"torch.matmul of the unfold view by the folded 256 x 128 matrix "
+        f"(TF32 off) {ola_lib_ms:.4f} ms, max |diff| from B4 "
+        f"{ola_lib_err:.6g} (another summation order)")
+    return {"hca_imdct_ola": (ola_ms, ola_plain_ms, ola_bd, ola_lib_ms),
             "hca_imdct": (dct_ms, dct_plain_ms, dct_bd, lib_ms)}
 
 

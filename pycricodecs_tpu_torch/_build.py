@@ -9,7 +9,9 @@ checkout builds its own kernels and a rebuild happens only when one of them
 changes. The constant tables the kernels read are generated from
 `ops/hca_tables.py` and `ops/mp2_tables.py` into that directory
 (`hca_tables.inc`), so the kernels and the plain PyTorch twins read the
-same fp32 and fp64 bit patterns.
+same fp32 and fp64 bit patterns. The DCT-IV of B4 and B5 is generated there
+too (`hca_dct4.inc`), as straight-line code from `dct4_schedule()`, the slot
+schedule the CPU tests run.
 
 Floating-point contract: `-fmad=false` and no fast-math flag, so every
 multiply and add rounds once, as in the JAX reference; `-ftz`, `-prec-div`
@@ -49,6 +51,7 @@ SIGNATURES = {
     "adx_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     "adx_encode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
                    _P],
+    "adx_decode_plan": [_I, _I, _I, _I, _P],
     "adx_encode_plan": [_I, _I, _I, _I, _P],
     "hca_mdct": [_P, _L, _I, _P, _P],
     "hca_pack": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P, _P,
@@ -137,6 +140,82 @@ def tables_header() -> str:
     return "".join(out)
 
 
+def dct4_schedule():
+    """The slot schedule of the reference's 7 add/sub + 7 twiddle stage
+    DCT-IV (hca.cpp:1898-1979), in place: one thread holds a row's 128
+    values in 128 slots (registers), and every stage is a butterfly that
+    writes its two results back into its operands' slots. Returns
+    (stages, slot_of): stages[i] lists (a, b, tw) per butterfly, the slots
+    of its first and second operand and, for a twiddle stage, the flat
+    index into IMDCT_SIN / IMDCT_COS (-1 for an add/sub stage); slot_of[l]
+    is the slot that holds logical output l at the end.
+
+    Add/sub stage: (a, b) <- (a + b, a - b). Twiddle stage, with s1 in slot
+    a, s2 in slot b: (a, b) <- (s1 * sin - s2 * cos, s1 * cos + s2 * sin).
+    Where each result lands logically (the add/sub tree's index rotation,
+    the twiddle stages' flip of the second half) is only a relabelling of
+    the slots, tracked here; the arithmetic per value is the reference's."""
+    slot_of = list(range(128))          # logical index -> slot
+    stages = []
+    for i in range(7):                  # part 1: add/sub tree
+        c2 = 64 >> i
+        ops, new = [], [0] * 128
+        for base in range(0, 128, 2 * c2):
+            for j in range(c2):
+                a, b = slot_of[base + 2 * j], slot_of[base + 2 * j + 1]
+                ops.append((a, b, -1))
+                new[base + j], new[base + c2 + j] = a, b
+        stages.append(ops)
+        slot_of = new
+    for i in range(7):                  # part 2: twiddle stages
+        c2 = 1 << i
+        ops, new = [], [0] * 128
+        for g, base in enumerate(range(0, 128, 2 * c2)):
+            for j in range(c2):
+                a, b = slot_of[base + j], slot_of[base + c2 + j]
+                ops.append((a, b, i * 64 + g * c2 + j))
+                new[base + j], new[base + 2 * c2 - 1 - j] = a, b
+        stages.append(ops)
+        slot_of = new
+    return stages, slot_of
+
+
+def dct4_source() -> str:
+    """C++ of `dct4_schedule()`: `dct4_slots(v)` runs the 14 stages on the
+    128 slots in place (twiddles as f32 literals), `dct4_order(v, y)` names
+    the results in logical order (register renaming, no instructions once
+    inlined)."""
+    from .ops import hca_tables as T
+
+    sin = _f32_literals(T.IMDCT_SIN)
+    cos = _f32_literals(T.IMDCT_COS)
+    stages, slot_of = dct4_schedule()
+    out = ["// generated by pycricodecs_tpu_torch/_build.py (dct4_source); "
+           "do not edit\n", "#pragma once\n",
+           "__device__ __forceinline__ void dct4_slots(float (&v)[128]) {\n",
+           "  float a, b;\n"]
+    for i, ops in enumerate(stages):
+        out.append(f"  // stage {i}\n")
+        for a, b, tw in ops:
+            if tw < 0:
+                out.append(f"  a = v[{a}]; b = v[{b}]; "
+                           f"v[{a}] = __fadd_rn(a, b); "
+                           f"v[{b}] = __fsub_rn(a, b);\n")
+            else:
+                sn, cs = sin[tw], cos[tw]
+                out.append(f"  a = v[{a}]; b = v[{b}]; "
+                           f"v[{a}] = __fsub_rn(__fmul_rn(a, {sn}), "
+                           f"__fmul_rn(b, {cs})); "
+                           f"v[{b}] = __fadd_rn(__fmul_rn(a, {cs}), "
+                           f"__fmul_rn(b, {sn}));\n")
+    out.append("}\n")
+    out.append("__device__ __forceinline__ void dct4_order("
+               "const float (&v)[128], float (&y)[128]) {\n")
+    out += [f"  y[{l}] = v[{s}];\n" for l, s in enumerate(slot_of)]
+    out.append("}\n")
+    return "".join(out)
+
+
 def _nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):
@@ -150,11 +229,13 @@ def build() -> Path:
     global BUILD_SECONDS, BUILD_LOG
     sources = sorted(CSRC_DIR.glob("*.cu"))
     header = tables_header()
+    dct4 = dct4_source()
     h = hashlib.sha256()
     for src in sources:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(header.encode())
+    h.update(dct4.encode())
     h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     out_dir = BUILD_DIR / h.hexdigest()[:16]
     lib = out_dir / LIB_NAME
@@ -162,9 +243,10 @@ def build() -> Path:
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
     # write-then-rename: a concurrent build never sees a partial file
-    inc_tmp = out_dir / f"hca_tables.inc.{os.getpid()}.tmp"
-    inc_tmp.write_text(header)
-    os.replace(inc_tmp, out_dir / "hca_tables.inc")
+    for name, text in (("hca_tables.inc", header), ("hca_dct4.inc", dct4)):
+        inc_tmp = out_dir / f"{name}.{os.getpid()}.tmp"
+        inc_tmp.write_text(text)
+        os.replace(inc_tmp, out_dir / name)
     pid = os.getpid()
     tmp = out_dir / f"{LIB_NAME}.{pid}.tmp"
     nvcc = _nvcc()

@@ -14,7 +14,10 @@
 // has only 512 lanes, so the latency of the dependent chain, not memory
 // (~0.19 ms for the bank's 630 MB at 3.35 TB/s), sets the time. The
 // critical path of one step:
-// - B7: multiply a0 * p1, shift, the three-way add, two clamps (5 ops);
+// - B7: multiply a0 * p1, shift, the three-way add, two clamps (5 ops;
+//   compiled, the shift and add are one LEA.HI.SX32, so 4 dependent
+//   instructions, and a step issues about 6 with a1 * p2 >> 12 and its add
+//   to q * s off the chain);
 // - B8 in adx_encode_plain's order: the prediction's multiply-add (c1 * q2
 //   is known one step early), subtract, shift, the rounding select, the
 //   exact division (multiply-high, add, shift, sign fix), two clamps, the
@@ -23,21 +26,29 @@
 //   the rounding add and select, the division's four, the simulated
 //   decoder's multiply-add, shift and two clamps (13).
 //
-// B7: one thread per lane, serial over the lane's blocks; it reads the raw
-// block bytes, takes the big-endian scale word, derives (scale, a0, a1) by
-// mode, reads the codes MSB first at any width 2..15 and writes PCM16, eight
-// samples per 16-byte store where aligned.
+// B7 and B8 share a launch shape (chunk_plan): a CTA owns G lanes
+// (G = ceil(L / SMs), at most 32, so a 512-lane bank spreads over 128 SMs)
+// and walks them in chunks of K blocks, G and K from a 100 KB shared-memory
+// budget (spb up to 1,012 fits). Warp 0 runs the G chains and nothing else;
+// warps 1-3 stage, double-buffered, one barrier per chunk.
 //
-// B8: a CTA owns G lanes (G = ceil(L / SMs), at most 32, so a 512-lane bank
-// spreads over 128 SMs) and walks them in chunks of K blocks, K from a
-// shared-memory budget (spb up to 1,012 fits). Warp 0 runs the G chains and
-// nothing else; warps 1-3 stage: they copy the next chunk of every lane's
-// PCM into shared memory (16-byte cp.async where the lane's bytes are
-// 16-byte aligned, int16 copies elsewhere, e.g. an odd spb), compute each
-// block's residual min/max over t >= 2 (original samples only, as the JAX
-// kernel does outside its loop), and store the previous chunk's packed
-// bytes to device memory from a shared tile, 16 bytes a thread where
-// aligned. Both tiles are double-buffered: the staging of chunk c + 1 and
+// B7: the stagers copy chunk c + 1 of every lane's raw block bytes into
+// shared memory (16-byte cp.async where the lane's bytes are 16-byte
+// aligned, byte copies elsewhere), take each block's big-endian scale word
+// to (scale, a0, a1) by mode, extract its codes MSB first at any width
+// 2..15 and write q * scale (int32, wrapping) into a q * s tile, and store
+// chunk c - 1's PCM from a shared tile, 16 bytes a thread where aligned.
+// A chain thread reads its lane's q * s values two 16-byte loads per group
+// of 8, carries (p1, p2) across blocks and chunks, forms a1 * p2 >> 12 one
+// step early and writes int16 into the PCM tile, the groups of 8 unguarded,
+// then a tail.
+//
+// B8: the stagers copy the next chunk of every lane's PCM into shared
+// memory (16-byte cp.async where the lane's bytes are 16-byte aligned,
+// int16 copies elsewhere, e.g. an odd spb), compute each block's residual
+// min/max over t >= 2 (original samples only, as the JAX kernel does
+// outside its loop), and store the previous chunk's packed bytes to device
+// memory from a shared tile, 16 bytes a thread where aligned. Both tiles are double-buffered: the staging of chunk c + 1 and
 // the store of chunk c - 1 overlap the chains of chunk c, one barrier per
 // chunk. A chain thread finishes pass 1 with r0 and r1 (they need the
 // carried history), picks the scale, and quantises against the simulated
@@ -64,11 +75,9 @@
 
 namespace {
 
-constexpr int kThreads = 32;
-
-// B8's launch: one chain warp and three staging warps per CTA
-constexpr int kEncThreads = 128;
-constexpr int kStagers = kEncThreads - 32;
+// B7's and B8's launch: one chain warp and three staging warps per CTA
+constexpr int kCtaThreads = 128;
+constexpr int kStagers = kCtaThreads - 32;
 constexpr int kMaxLanesPerCta = 32;
 constexpr int kMaxChunk = 64;
 constexpr int kSmemBudget = 100 * 1024;
@@ -94,85 +103,272 @@ __device__ __forceinline__ int32_t clamp16(int32_t v) {
   return min(max(v, -32768), 32767);
 }
 
-__global__ void __launch_bounds__(kThreads)
-adx_decode_kernel(const uint8_t* __restrict__ payload,
-                  const int32_t* __restrict__ h1v,
-                  const int32_t* __restrict__ h2v,
-                  const int32_t* __restrict__ c0v,
-                  const int32_t* __restrict__ c1v, int L, int nb, int bs,
-                  int bd, int mode, StaticCoef sc,
-                  int16_t* __restrict__ out) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= L) return;
-  const int spb = (bs - 2) * 8 / bd;
+// The launch geometry of a call, shared by B7 and B8: a CTA owns G lanes
+// (G = ceil(L / SMs), at most 32, halved while one block of each lane
+// overflows the shared budget) and walks them in chunks of K blocks (at
+// most 64, shrunk to the budget, a multiple of 8 from 8 on, so that K * bs
+// is a multiple of 16 for an even bs). `geo(G, K)` gives a kernel's plan,
+// with its `smem` bytes, for such a G and K.
+template <class Geometry>
+auto chunk_plan(int L, int nb, int sms, Geometry geo) {
+  int G = std::min(kMaxLanesPerCta, (L + sms - 1) / sms);
+  while (G > 1 && geo(G, 1).smem > (size_t)kSmemBudget) G = (G + 1) / 2;
+  int K = std::min(nb, kMaxChunk);
+  while (K > 1 && geo(G, K).smem > (size_t)kSmemBudget) --K;
+  if (K >= 8) K &= ~7;
+  return geo(G, K);
+}
+
+// B8's plan: the per-lane strides of the shared tiles (16-byte multiples,
+// padded by 16 so that the chain threads' rows fall in different banks).
+struct EncPlan {
+  int G, K, in_stride, out_stride;
+  size_t smem;
+};
+
+EncPlan enc_geometry(int G, int K, int spb, int bs) {
+  EncPlan p;
+  p.G = G;
+  p.K = K;
+  p.in_stride = ((K * spb * 2 + 15) & ~15) + 16;
+  p.out_stride = ((K * bs + 15) & ~15) + 16;
+  // input and output tiles and the (min, max) pairs, each twice
+  p.smem = 2 * (size_t)G * (p.in_stride + p.out_stride + K * 8);
+  return p;
+}
+
+EncPlan enc_plan(int L, int nb, int bs, int spb, int sms) {
+  return chunk_plan(L, nb, sms, [=](int G, int K) {
+    return enc_geometry(G, K, spb, bs);
+  });
+}
+
+// B7's plan: per lane, the raw block bytes (one copy: only the stagers use
+// it), the codes times their scale as int32 in rows of spb rounded up to 8
+// per block (so the chain reads groups of 8 as two 16-byte loads), the PCM
+// tile and the (a0, a1) pairs (two copies each); strides padded as B8's.
+struct DecPlan {
+  int G, K, raw_stride, qs_stride, out_stride;
+  size_t smem;
+};
+
+DecPlan dec_geometry(int G, int K, int spb, int bs) {
+  DecPlan p;
+  p.G = G;
+  p.K = K;
+  p.raw_stride = ((K * bs + 15) & ~15) + 16;
+  p.qs_stride = K * ((spb + 7) & ~7) * 4 + 16;
+  p.out_stride = ((K * spb * 2 + 15) & ~15) + 16;
+  p.smem = (size_t)G * (p.raw_stride + 2 * (p.qs_stride + p.out_stride + K * 8));
+  return p;
+}
+
+DecPlan dec_plan(int L, int nb, int bs, int spb, int sms) {
+  return chunk_plan(L, nb, sms, [=](int G, int K) {
+    return dec_geometry(G, K, spb, bs);
+  });
+}
+
+// ---------------------------------------------------------------------------
+// B7
+// ---------------------------------------------------------------------------
+
+// Staging warps: chunk c of every lane's raw block bytes into the raw tile
+// (16-byte cp.async where the lane's bytes start 16-byte aligned, then byte
+// copies for the rest; byte copies only where they do not).
+__device__ __forceinline__ void stage_bytes(const uint8_t* __restrict__ src0,
+                                            int lane0, int nl, int nb,
+                                            int bs, int k0, int kc,
+                                            uint8_t* tile, int raw_stride,
+                                            int st) {
+  const int n = kc * bs;
+  for (int g = 0; g < nl; ++g) {
+    const uint8_t* src = src0 + ((size_t)(lane0 + g) * nb + k0) * bs;
+    uint8_t* dst = tile + (size_t)g * raw_stride;
+    const int n16 = (reinterpret_cast<uintptr_t>(src) & 15) == 0 ? n / 16 : 0;
+    for (int i = st; i < n16; i += kStagers)
+      __pipeline_memcpy_async(dst + 16 * i, src + 16 * i, 16);
+    for (int i = 16 * n16 + st; i < n; i += kStagers) dst[i] = __ldg(src + i);
+  }
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+}
+
+// Staging warps: per block of the raw tile, (a0, a1) by mode into `coef`
+// and the codes (MSB first, bd bits, sign-extended, read afresh at every
+// block: a block's leftover bits are skipped) times the scale, int32 with
+// wrap, into the block's row of the q * s tile. A code spans at most 3
+// bytes (7 + 15 bits); the bytes past the block's last code are the next
+// block's or the tile's padding, and their bits are masked off.
+__device__ __forceinline__ void unpack_blocks(
+    const int32_t* __restrict__ c0v, const int32_t* __restrict__ c1v,
+    const StaticCoef& sc, int lane0, int nl, int spb, int bs, int bd,
+    int mode, int K, int kc, const uint8_t* raw, int raw_stride,
+    int32_t* qs, int qs_stride, int2* coef, int st) {
+  const int spb8 = (spb + 7) & ~7;
   const uint32_t mask = (1u << bd) - 1u;
   const int32_t signbit = 1 << (bd - 1);
   const int32_t full = 1 << bd;
-  const int32_t c0 = c0v[lane], c1 = c1v[lane];
-  int32_t p1 = h1v[lane], p2 = h2v[lane];
-  const uint8_t* __restrict__ blk = payload + (size_t)lane * nb * bs;
-  int16_t* __restrict__ o = out + (size_t)lane * nb * spb;
-  for (int b = 0; b < nb; ++b, blk += bs, o += spb) {
+  for (int it = st; it < nl * kc; it += kStagers) {
+    const int g = it / kc, k = it - g * kc;
+    const uint8_t* blk = raw + (size_t)g * raw_stride + k * bs;
     const int32_t scale_raw = ((int32_t)blk[0] << 8) | (int32_t)blk[1];
     int32_t s, a0, a1;
-    if (mode == 4) {
-      s = (int32_t)(1u << ((12 - scale_raw) & 31));
-      a0 = c0;
-      a1 = c1;
-    } else if (mode == 2) {
+    if (mode == 2) {
       const int pred = scale_raw >> 13;  // 0..7
       s = (scale_raw & 0x1FFF) + 1;
       a0 = sc.a0[pred];
       a1 = sc.a1[pred];
     } else {
-      s = scale_raw + 1;
-      a0 = c0;
-      a1 = c1;
+      s = mode == 4 ? (int32_t)(1u << ((12 - scale_raw) & 31)) : scale_raw + 1;
+      a0 = __ldg(c0v + lane0 + g);
+      a1 = __ldg(c1v + lane0 + g);
     }
-    const uint8_t* __restrict__ p = blk + 2;
-    uint32_t acc = 0;  // live bits: the low `navail` (< bd + 8 <= 23)
-    int navail = 0;
-    for (int t = 0; t < spb; t += 8) {
-      const int n = min(8, spb - t);
-      int32_t q[8];
-      // the codes first (independent of the recurrence), then the chain
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        if (k < n) {
-          while (navail < bd) {
-            acc = (acc << 8) | (uint32_t)*p++;
-            navail += 8;
-          }
-          int32_t v = (int32_t)((acc >> (navail - bd)) & mask);
-          navail -= bd;
-          q[k] = (v & signbit) ? v - full : v;
-        }
-      }
-      int16_t v16[8];
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        if (k < n) {
-          const int32_t x = clamp16(wadd(wadd(wmul(q[k], s), wmul(a0, p1) >> 12),
-                                         wmul(a1, p2) >> 12));
-          p2 = p1;
-          p1 = x;
-          v16[k] = (int16_t)x;
-        }
-      }
+    coef[g * K + k] = make_int2(a0, a1);
+    int32_t* q = reinterpret_cast<int32_t*>(
+        reinterpret_cast<uint8_t*>(qs) + (size_t)g * qs_stride) + k * spb8;
+    const uint8_t* codes = blk + 2;
+    for (int t = 0; t < spb; ++t) {
+      const int o = t * bd;
+      const uint8_t* c = codes + (o >> 3);
+      const uint32_t w = ((uint32_t)c[0] << 16) | ((uint32_t)c[1] << 8) | c[2];
+      const int32_t v = (int32_t)((w >> (24 - (o & 7) - bd)) & mask);
+      q[t] = wmul((v & signbit) ? v - full : v, s);
+    }
+  }
+}
+
+// Staging warps: chunk c's PCM from the output tile to `out`, 16 bytes a
+// thread where the lane's samples start 16-byte aligned, int16 copies for
+// the rest.
+__device__ __forceinline__ void store_pcm(int16_t* __restrict__ out,
+                                          int lane0, int nl, int nb, int spb,
+                                          int k0, int kc, const uint8_t* tile,
+                                          int out_stride, int st) {
+  const int n = kc * spb;
+  for (int g = 0; g < nl; ++g) {
+    int16_t* dst = out + ((size_t)(lane0 + g) * nb + k0) * spb;
+    const int16_t* src =
+        reinterpret_cast<const int16_t*>(tile + (size_t)g * out_stride);
+    const int n8 = (reinterpret_cast<uintptr_t>(dst) & 15) == 0 ? n / 8 : 0;
+    for (int i = st; i < n8; i += kStagers)
+      reinterpret_cast<uint4*>(dst)[i] = reinterpret_cast<const uint4*>(src)[i];
+    for (int i = 8 * n8 + st; i < n; i += kStagers) dst[i] = src[i];
+  }
+}
+
+// The chain thread of one lane over kc blocks of its staged q * s rows.
+// p1/p2 carry the history from chunk to chunk; a1 * p2 >> 12 is formed one
+// step early, so a step's chain is a0 * p1, the shift, the three-way add
+// and the two clamps. Groups of 8 run unguarded, then a tail.
+__device__ __forceinline__ void decode_chunk(const int32_t* qs0,
+                                             const int2* coef, int16_t* o0,
+                                             int kc, int spb, int32_t& p1,
+                                             int32_t& p2) {
+  const int spb8 = (spb + 7) & ~7;
+  for (int k = 0; k < kc; ++k) {
+    const int2 c = coef[k];
+    const int32_t a0 = c.x, a1 = c.y;
+    const int32_t* qs = qs0 + k * spb8;
+    int16_t* o = o0 + k * spb;
+    int32_t a1p2 = wmul(a1, p2) >> 12;
+    auto step = [&](int32_t q) {
+      const int32_t x = clamp16(wadd(wadd(q, wmul(a0, p1) >> 12), a1p2));
+      a1p2 = wmul(a1, p1) >> 12;
+      p2 = p1;
+      p1 = x;
+      return (uint32_t)(uint16_t)x;
+    };
+    int t = 0;
+    for (; t + 8 <= spb; t += 8) {
+      const int4 u = *reinterpret_cast<const int4*>(qs + t);
+      const int4 v = *reinterpret_cast<const int4*>(qs + t + 4);
+      uint32_t w[4];
+      w[0] = step(u.x);
+      w[0] |= step(u.y) << 16;
+      w[1] = step(u.z);
+      w[1] |= step(u.w) << 16;
+      w[2] = step(v.x);
+      w[2] |= step(v.y) << 16;
+      w[3] = step(v.z);
+      w[3] |= step(v.w) << 16;
       int16_t* dst = o + t;
-      if (n == 8 && (reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
-        uint32_t w[4];
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
-          w[k] = (uint32_t)(uint16_t)v16[2 * k]
-                 | ((uint32_t)(uint16_t)v16[2 * k + 1] << 16);
+      if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
         *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
       } else {
 #pragma unroll
-        for (int k = 0; k < 8; ++k)
-          if (k < n) dst[k] = v16[k];
+        for (int j = 0; j < 4; ++j) {
+          dst[2 * j] = (int16_t)w[j];
+          dst[2 * j + 1] = (int16_t)(w[j] >> 16);
+        }
       }
     }
+    for (; t < spb; ++t) o[t] = (int16_t)step(qs[t]);
+  }
+}
+
+__global__ void __launch_bounds__(kCtaThreads)
+adx_decode_kernel(const uint8_t* __restrict__ payload,
+                  const int32_t* __restrict__ h1v,
+                  const int32_t* __restrict__ h2v,
+                  const int32_t* __restrict__ c0v,
+                  const int32_t* __restrict__ c1v, int L, int nb, int bs,
+                  int bd, int mode, StaticCoef sc, int G, int K,
+                  int raw_stride, int qs_stride, int out_stride,
+                  int16_t* __restrict__ out) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int spb = (bs - 2) * 8 / bd;
+  const int lane0 = blockIdx.x * G;
+  const int nl = min(G, L - lane0);
+  const int nch = (nb + K - 1) / K;
+  // shared: the raw tile, then two each of the q * s tiles, the PCM tiles
+  // and the (a0, a1) pairs; buffer b of chunk c is c & 1
+  const size_t qs_size = (size_t)G * qs_stride, out_size = (size_t)G * out_stride;
+  uint8_t* qs_base = smem + (size_t)G * raw_stride;
+  uint8_t* out_base = qs_base + 2 * qs_size;
+  int2* coef_base = reinterpret_cast<int2*>(out_base + 2 * out_size);
+  auto qs_tile = [&](int b) {
+    return reinterpret_cast<int32_t*>(qs_base + b * qs_size);
+  };
+  auto out_tile = [&](int b) { return out_base + b * out_size; };
+  auto coef_tile = [&](int b) { return coef_base + b * G * K; };
+  const bool stager = threadIdx.x >= 32;
+  const int st = threadIdx.x - 32;
+  const int g = threadIdx.x;  // the chain thread's lane in the CTA
+  const bool chain = !stager && g < nl;
+  int32_t p1 = 0, p2 = 0;
+  if (chain) {
+    p1 = h1v[lane0 + g];
+    p2 = h2v[lane0 + g];
+  }
+  // step c: the chains decode chunk c while the stagers fill chunk c + 1
+  // and store chunk c - 1
+  for (int c = -1; c <= nch; ++c) {
+    if (stager) {
+      if (c + 1 < nch) {
+        const int b = (c + 1) & 1, k0 = (c + 1) * K;
+        const int kc = min(K, nb - k0);
+        stage_bytes(payload, lane0, nl, nb, bs, k0, kc, smem, raw_stride, st);
+        asm volatile("bar.sync 1, %0;" ::"n"(kStagers) : "memory");
+        unpack_blocks(c0v, c1v, sc, lane0, nl, spb, bs, bd, mode, K, kc, smem,
+                      raw_stride, qs_tile(b), qs_stride, coef_tile(b), st);
+      }
+      if (c >= 1) {
+        const int b = (c - 1) & 1, k0 = (c - 1) * K;
+        store_pcm(out, lane0, nl, nb, spb, k0, min(K, nb - k0), out_tile(b),
+                  out_stride, st);
+      }
+    } else if (chain && c >= 0 && c < nch) {
+      const int b = c & 1, k0 = c * K;
+      decode_chunk(reinterpret_cast<const int32_t*>(
+                       reinterpret_cast<const uint8_t*>(qs_tile(b)) +
+                       (size_t)g * qs_stride),
+                   coef_tile(b) + g * K,
+                   reinterpret_cast<int16_t*>(out_tile(b) +
+                                              (size_t)g * out_stride),
+                   min(K, nb - k0), spb, p1, p2);
+    }
+    __syncthreads();
   }
 }
 
@@ -196,35 +392,6 @@ __device__ __forceinline__ int32_t div_exact(int32_t n, const DivMagic& m) {
   int32_t q = wadd(__mulhi(n, m.mul), n & m.add);
   q >>= m.shift;
   return wadd(q, (int32_t)((uint32_t)n >> 31) & m.fix);
-}
-
-// The launch geometry of B8 for a call: G lanes per CTA, chunks of K blocks,
-// the per-lane strides of the shared tiles (16-byte multiples, padded by 16
-// so that the chain threads' rows fall in different banks).
-struct EncPlan {
-  int G, K, in_stride, out_stride;
-  size_t smem;
-};
-
-EncPlan enc_geometry(int G, int K, int spb, int bs) {
-  EncPlan p;
-  p.G = G;
-  p.K = K;
-  p.in_stride = ((K * spb * 2 + 15) & ~15) + 16;
-  p.out_stride = ((K * bs + 15) & ~15) + 16;
-  // input and output tiles and the (min, max) pairs, each twice
-  p.smem = 2 * (size_t)G * (p.in_stride + p.out_stride + K * 8);
-  return p;
-}
-
-EncPlan enc_plan(int L, int nb, int bs, int spb, int sms) {
-  int G = std::min(kMaxLanesPerCta, (L + sms - 1) / sms);
-  while (G > 1 && enc_geometry(G, 1, spb, bs).smem > (size_t)kSmemBudget)
-    G = (G + 1) / 2;
-  int K = std::min(nb, kMaxChunk);
-  while (K > 1 && enc_geometry(G, K, spb, bs).smem > (size_t)kSmemBudget) --K;
-  if (K >= 8) K &= ~7;  // bs * K a multiple of 16 for an even bs
-  return enc_geometry(G, K, spb, bs);
 }
 
 // Staging warps: chunk c of every lane's PCM into the input tile.
@@ -422,7 +589,7 @@ __device__ __forceinline__ void encode_chunk(
 }
 
 template <bool kFix>
-__global__ void __launch_bounds__(kEncThreads)
+__global__ void __launch_bounds__(kCtaThreads)
 adx_encode_kernel(const int16_t* __restrict__ pcm,
                   const int32_t* __restrict__ c0v,
                   const int32_t* __restrict__ c1v,
@@ -501,6 +668,21 @@ int sm_count(int* sms) {
   return (int)rc;
 }
 
+// A launch geometry for a call on the current device: plan[0] = G lanes
+// per CTA, plan[1] = K blocks per chunk, plan[2] = dynamic shared bytes.
+template <class Plan>
+int export_plan(int L, int nb, int bs, int bd, Plan plan_of, int* plan) {
+  if (!geometry_ok(L, nb, bs, bd, 3)) return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  const int rc = sm_count(&sms);
+  if (rc) return rc;
+  const auto p = plan_of(L, nb, bs, (bs - 2) * 8 / bd, sms);
+  plan[0] = p.G;
+  plan[1] = p.K;
+  plan[2] = (int)p.smem;
+  return 0;
+}
+
 }  // namespace
 
 // Each entry point launches one kernel on the given stream and returns
@@ -511,31 +693,36 @@ extern "C" int adx_decode(const void* payload, const void* h1, const void* h2,
                           int bs, int bd, int mode, const int32_t* static_coef,
                           void* out, void* stream) {
   if (!geometry_ok(L, nb, bs, bd, mode)) return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  int rc = sm_count(&sms);
+  if (rc) return rc;
   StaticCoef sc;
   for (int k = 0; k < 8; ++k) {
     sc.a0[k] = k < 4 ? static_coef[2 * k] : 0;
     sc.a1[k] = k < 4 ? static_coef[2 * k + 1] : 0;
   }
-  adx_decode_kernel<<<(L + kThreads - 1) / kThreads, kThreads, 0,
+  const DecPlan p = dec_plan(L, nb, bs, (bs - 2) * 8 / bd, sms);
+  if (p.smem > 48 * 1024) {
+    rc = (int)cudaFuncSetAttribute(adx_decode_kernel,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)p.smem);
+    if (rc) return rc;
+  }
+  adx_decode_kernel<<<(L + p.G - 1) / p.G, kCtaThreads, p.smem,
                       (cudaStream_t)stream>>>(
       (const uint8_t*)payload, (const int32_t*)h1, (const int32_t*)h2,
-      (const int32_t*)c0, (const int32_t*)c1, L, nb, bs, bd, mode, sc,
-      (int16_t*)out);
+      (const int32_t*)c0, (const int32_t*)c1, L, nb, bs, bd, mode, sc, p.G,
+      p.K, p.raw_stride, p.qs_stride, p.out_stride, (int16_t*)out);
   return (int)cudaGetLastError();
 }
 
-// B8's launch geometry for a call on the current device: plan[0] = G lanes
-// per CTA, plan[1] = K blocks per chunk, plan[2] = dynamic shared bytes.
+// B7's and B8's launch geometry (export_plan) for such a call.
+extern "C" int adx_decode_plan(int L, int nb, int bs, int bd, int* plan) {
+  return export_plan(L, nb, bs, bd, dec_plan, plan);
+}
+
 extern "C" int adx_encode_plan(int L, int nb, int bs, int bd, int* plan) {
-  if (!geometry_ok(L, nb, bs, bd, 3)) return (int)cudaErrorInvalidValue;
-  int sms = 0;
-  const int rc = sm_count(&sms);
-  if (rc) return rc;
-  const EncPlan p = enc_plan(L, nb, bs, (bs - 2) * 8 / bd, sms);
-  plan[0] = p.G;
-  plan[1] = p.K;
-  plan[2] = (int)p.smem;
-  return 0;
+  return export_plan(L, nb, bs, bd, enc_plan, plan);
 }
 
 // divtab: int32 [16385, 4], the rows of ops/adx_kernels.py divisor_table.
@@ -554,7 +741,7 @@ extern "C" int adx_encode(const void* pcm, const void* c0, const void* c1,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
     if (rc) return rc;
   }
-  kernel<<<(L + p.G - 1) / p.G, kEncThreads, p.smem, (cudaStream_t)stream>>>(
+  kernel<<<(L + p.G - 1) / p.G, kCtaThreads, p.smem, (cudaStream_t)stream>>>(
       (const int16_t*)pcm, (const int32_t*)c0, (const int32_t*)c1,
       (const int32_t*)h1, (const int32_t*)h2, (const int4*)divtab, L, nb, bs,
       bd, mode, filter, p.G, p.K, p.in_stride, p.out_stride, (uint8_t*)out);

@@ -67,6 +67,13 @@ def check_cuda(t: torch.Tensor, name: str, dtype: torch.dtype,
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
+def check_aligned(t: torch.Tensor, name: str) -> None:
+    """Raise unless the tensor's data starts on a 16-byte boundary (the
+    kernels read and write it as float4)."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: data is not 16-byte aligned")
+
+
 def launch_failed(kernel: str, rc: int) -> RuntimeError:
     return RuntimeError(f"{kernel}: CUDA launch failed with error {rc}")
 
@@ -189,16 +196,28 @@ def _divisor_table(device: torch.device) -> torch.Tensor:
     return _DIVISOR_TABLES[device]
 
 
+def _adx_plan(entry: str, L: int, nb: int, block_size: int,
+              bit_depth: int) -> tuple:
+    plan = (ctypes.c_int * 3)()
+    rc = getattr(_build.load(), entry)(int(L), int(nb), int(block_size),
+                                       int(bit_depth), plan)
+    if rc:
+        raise launch_failed(entry, rc)
+    return tuple(plan)
+
+
+def adx_decode_plan(L: int, nb: int, *, block_size: int,
+                    bit_depth: int) -> tuple:
+    """Kernel B7's launch geometry for such a call on the current CUDA
+    device: (lanes per CTA, blocks per chunk, dynamic shared bytes)."""
+    return _adx_plan("adx_decode_plan", L, nb, block_size, bit_depth)
+
+
 def adx_encode_plan(L: int, nb: int, *, block_size: int,
                     bit_depth: int) -> tuple:
     """Kernel B8's launch geometry for such a call on the current CUDA
     device: (lanes per CTA, blocks per chunk, dynamic shared bytes)."""
-    plan = (ctypes.c_int * 3)()
-    rc = _build.load().adx_encode_plan(int(L), int(nb), int(block_size),
-                                       int(bit_depth), plan)
-    if rc:
-        raise launch_failed("adx_encode_plan", rc)
-    return tuple(plan)
+    return _adx_plan("adx_encode_plan", L, nb, block_size, bit_depth)
 
 
 def hca_mdct(pcm) -> torch.Tensor:
@@ -320,6 +339,7 @@ def hca_imdct_ola(spec_t) -> torch.Tensor:
                          f"{tuple(spec_t.shape)}")
     R, Tn = spec_t.shape[0], spec_t.shape[1]
     check_cuda(spec_t, "spec_t", torch.float32, (R, Tn, 128))
+    check_aligned(spec_t, "spec_t")
     out = torch.empty((R, Tn, 128), dtype=torch.float32,
                       device=spec_t.device)
     if R * Tn == 0:
@@ -340,6 +360,7 @@ def hca_imdct(spec) -> torch.Tensor:
         raise ValueError(f"spec: expected [..., 128], got "
                          f"{tuple(spec.shape)}")
     check_cuda(spec, "spec", torch.float32, tuple(spec.shape))
+    check_aligned(spec, "spec")
     out = torch.empty_like(spec)
     rows = spec.numel() // 128
     if rows == 0:
