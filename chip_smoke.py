@@ -13,7 +13,9 @@ HCA:
    byte: B1 side info and B2 spectra on a 64-stream chunk of the bank stream
    plus 4096 random-byte frames per fixture config and per a v3.0 relabel of
    the q4 stereo config (which reaches B1's v3 branches: the scalefactor
-   extension copy and the delta-coded intensity with its error rule), B3
+   extension copy and the delta-coded intensity with its error rule) and per
+   a relabel of it to frame size 515 (B2's byte staging), each 4096 + 13
+   frames (a ragged last CTA), B3
    transform on random legal inputs for all five fixture configs at
    64 streams x 469 frames;
 4. decodes the 256-stream x 10 s stereo bank (BASELINE config 5) with
@@ -53,7 +55,8 @@ and held to their recorded hashes):
 10. the packer `hca_pack` (B9's work) against `pack_frames_plain`, byte for
    byte: the bank's encode tensors; per 1 s fixture config rate-controlled
    tensors of noise and random tensors in the legal ranges (most overflow
-   the writer); a frame whose last symbol ends inside the CRC slot;
+   the writer); 525 random frames (a ragged last CTA) at frame sizes 515 and
+   256; a frame whose last symbol ends inside the CRC slot;
 11. `hca_encode_batch` of 256 copies of the 10 s stereo WAV, quality 2:
    every stream equal to bank_q2_stereo_48k_10s.hca, the bank decoded back
    to the JAX package's WAV hash; each 1 s fixture equal to its .hca;
@@ -89,7 +92,9 @@ from the JAX package):
    on the bank chunk's real spectra (128 rows x 3,752 subframes) and on
    random spectra with extremes; B2's end cursor (and its cursor-only mode)
    against the twin's on the bank chunk and on the key search's rows under
-   4,096 wrong keys; `find_key` at full width (bench_all config 6's
+   4,096 wrong keys; B2's cursor-only launch at phase 1's shape (400,000
+   key rows, its end cursor equal to the spectra launch's) timed by CUDA
+   events; `find_key` at full width (bench_all config 6's
    traffic: the bank stream enciphered by `crypt`, cipher 56, 200,000
    seeded candidates with the true key at index 100,000, 8 frames), the
    scores' sha256 equal to the JAX package's and the true key first, B1, B2
@@ -129,6 +134,12 @@ AHX_FIXTURES = os.path.join(FIXTURES, "ahx")
 BANK = "bank_q2_stereo_48k_10s"
 BANK_STREAMS = 256
 RANDOM_FRAMES = 4096
+# B2's and hca_pack's extra checks: a frame size that is not a multiple of
+# 16 (nor of 4), and a frame count past whole CTAs
+ODD_FRAME_SIZE = 515
+RAGGED = 13
+# B2's cursor-only launch is timed at the key search's phase-1 shape
+KEY_ROWS = 400_000
 ADX_RANDOM_LANES = 64
 ADX_RANDOM_BLOCKS = 24
 ADX_PREFIX_BLOCKS = 300
@@ -983,6 +994,22 @@ def hca_encode_phases(dev, card: str, worst: dict, launches: dict) -> dict:
             f"hca_pack {name}", pairs))
         log(f"hca_pack {name} config: 16 x 48 noise frames and 512 random "
             f"frames byte-equal to the twin")
+    # a frame size off 16 bytes (byte stores, a partial last word) and a
+    # frame count that leaves the last CTA ragged
+    info = cfgs["q4_stereo_48k_1s"][0].info
+    kw = dict(channels=info.channels,
+              coded_counts=tuple(int(x) for x in info.coded_count),
+              channel_types=tuple(int(x) for x in info.channel_type),
+              hfr_group_count=int(info.hfr_group_count))
+    for fs_odd in (ODD_FRAME_SIZE, int(info.frame_size)):
+        t = random_pack_tensors(rng, info, 512 + RAGGED, dev)
+        worst["hca_pack"] = max(worst["hca_pack"], require_equal(
+            f"hca_pack frame size {fs_odd}",
+            [("random frames", cuda_kernels.hca_pack(*t, **kw,
+                                                     frame_size=fs_odd),
+              PP.pack_frames_plain(*t, **kw, frame_size=fs_odd))]))
+        log(f"hca_pack q4 stereo config at frame size {fs_odd}: "
+            f"{512 + RAGGED} random frames byte-equal to the twin")
     q0 = cfgs["q0_stereo_48k_1s"][0].info
     t, lead = crc_slot_tensors(q0, dev)
     kw = dict(channels=q0.channels,
@@ -1405,6 +1432,24 @@ def wave_equal(what: str, a: torch.Tensor, b: torch.Tensor) -> float:
     return 0.0
 
 
+def key_search_rows(up, enc: bytes, keys, dev):
+    """The key search's (key, frame) rows of the first two frames of `enc`
+    under each key, deciphered and through B1: (dec u8 [2K, fs], res, cur),
+    as `find_key`'s phase 1 makes them."""
+    from pycricodecs_tpu_torch.ops import hca_frame
+    from pycricodecs_tpu_torch.parallel import pipeline as P
+    hs = int.from_bytes(enc[6:8], "big")
+    fs = up.fs
+    tables, tix = P._key_tables(hca_frame.parse_header(enc[:hs]), keys, 0,
+                                dev)
+    first = torch.from_numpy(np.frombuffer(enc, np.uint8, count=2 * fs,
+                                           offset=hs).reshape(2, fs).copy())
+    rows = first.to(dev).unsqueeze(0).expand(len(keys), 2, fs).reshape(-1, fs)
+    dec = up.decipher(rows, tables, tix.repeat_interleave(2))
+    _, res, _, cur, _ = up.side_info(dec)
+    return dec, res, cur
+
+
 def keysearch_phase(dev, card: str, worst: dict, launches: dict) -> dict:
     """Phase 14; returns name -> (ms, plain_ms, bound dict[, library_ms])."""
     import pycricodecs_tpu_torch as port
@@ -1492,6 +1537,20 @@ def keysearch_phase(dev, card: str, worst: dict, launches: dict) -> dict:
     log(f"B2 end cursor: bank chunk and {dec.shape[0]} key-search rows "
         f"({past} past the frame end) equal to the twin's, cursor-only too")
     del rows, dec, side, qk, qt
+
+    # B2's cursor-only launch at phase 1's shape: KEY_ROWS (key, frame)
+    # rows, the first KEY_ROWS / 2 candidates on the first two frames
+    dec, res, cur = key_search_rows(up, enc, keys[:KEY_ROWS // 2], dev)
+    full_end = up.spectra(dec, res, cur)[1]
+    pairs = [("key-search rows, cursor-only end",
+              up.spectra(dec, res, cur, False)[1], full_end)]
+    worst["hca_coefficients"] = max(worst["hca_coefficients"],
+                                    require_equal("B2 cursor-only", pairs))
+    cursor_ms = cuda_ms(lambda: up.spectra(dec, res, cur, False), 10)
+    log(f"hca_coefficients cursor-only [{card}] at {dec.shape[0]} "
+        f"key-search rows: kernel {cursor_ms:.4f} ms (its end cursor equal "
+        f"to the spectra launch's)")
+    del dec, res, cur, full_end, pairs
 
     # the key search at full width: bench_all config 6's traffic
     cands = keys
@@ -1666,9 +1725,15 @@ def main() -> None:
         blobs["q4_stereo_48k_1s"][:infos["q4_stereo_48k_1s"].header_size])
     v3.version = 0x0300
     v3.init_derived()
+    # a frame size off 16 bytes: B2 stages such frames byte by byte
+    odd = hca_frame.parse_header(
+        blobs["q4_stereo_48k_1s"][:infos["q4_stereo_48k_1s"].header_size])
+    odd.frame_size = ODD_FRAME_SIZE
     rng = np.random.default_rng(0)
-    for name, info in [*infos.items(), ("v3_relabel_q4_stereo", v3)]:
-        fr = rng.integers(0, 256, (RANDOM_FRAMES, info.frame_size),
+    for name, info in [*infos.items(), ("v3_relabel_q4_stereo", v3),
+                       (f"fs{ODD_FRAME_SIZE}_relabel_q4_stereo", odd)]:
+        # RAGGED frames more than whole CTAs of 32: a ragged last CTA
+        fr = rng.integers(0, 256, (RANDOM_FRAMES + RAGGED, info.frame_size),
                           dtype=np.uint8)
         fr[:, :2] = 0xFF
         fr[:16] = 0                      # zero padding frames decode cleanly
@@ -1691,7 +1756,7 @@ def main() -> None:
         worst["hca_coefficients"] = max(
             worst["hca_coefficients"],
             require_equal(f"B2 random {name}", [("qc", qk[ok], qt[ok])]))
-        log(f"B1+B2 random {name}: {RANDOM_FRAMES} frames, "
+        log(f"B1+B2 random {name}: {RANDOM_FRAMES + RAGGED} frames, "
             f"{int(ok.sum())} without error: byte-equal to the twins")
 
     for name, info in infos.items():

@@ -54,8 +54,8 @@ SIGNATURES = {
     "adx_decode_plan": [_I, _I, _I, _I, _P],
     "adx_encode_plan": [_I, _I, _I, _I, _P],
     "hca_mdct": [_P, _L, _I, _P, _P],
-    "hca_pack": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P, _P,
-                 _P, _P],
+    "hca_pack": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P,
+                 _P, _P, _P],
     "mp2_unpack": [_P, _I, _I, _I, _P, _P, _P, _P, _P],
     "mp2_synth": [_P, _P, _P, _I, _I, _I, _P, _P],
     "hca_imdct_ola": [_P, _I, _I, _P, _P],
@@ -96,15 +96,12 @@ def tables_header() -> str:
     from .ops import mp2_unpack_device as M
     from .utils.crc import CRC16_TABLE
 
-    val, adv = U.vlc_tables()
     out = ["// generated by pycricodecs_tpu_torch/_build.py; do not edit\n",
            "#pragma once\n", "#include <cstdint>\n"]
     out.append(_c_array("kInvertTable", "uint8_t",
                         [str(int(x)) for x in T.INVERT_TABLE]))
-    out.append(_c_array("kVlcValue", "int8_t",
-                        [str(int(x)) for x in val.reshape(-1)]))
-    out.append(_c_array("kVlcAdvance", "uint8_t",
-                        [str(int(x)) for x in adv.reshape(-1)]))
+    out.append(_c_array("kVlcPacked", "uint32_t",
+                        [f"{int(x)}u" for x in U.vlc_packed().reshape(-1)]))
     for name, arr in (("kShuffle", T.SHUFFLE_TABLE),
                       ("kQsBits", T.QUANTIZE_SPECTRUM_BITS),
                       ("kQsValue", T.QUANTIZE_SPECTRUM_VALUE),

@@ -318,15 +318,36 @@ def hca_pack(level, boundary, sf, res, intensity, hfr_scales, delta_bits,
     ctype = np.ascontiguousarray(channel_types, dtype=np.int32)
     if coded.shape != (C,) or ctype.shape != (C,):
         raise ValueError("coded_counts/channel_types: one per channel")
+    # the kernel reads these as u32 / 8-byte vectors
+    sf, res, intensity, quant = (t if t.data_ptr() % 16 == 0 else t.clone()
+                                 for t in (sf, res, intensity, quant))
+    # frame sizes under 8 have no mask table: the launch refuses them
+    masks = (ptr(_crc_masks(int(frame_size), level.device))
+             if frame_size >= 8 else None)
     rc = _build.load().hca_pack(
         ptr(level), ptr(boundary), ptr(sf), ptr(res), ptr(intensity),
-        ptr(hfr_scales), ptr(delta_bits), ptr(quant), B * F, C, Gp,
+        ptr(hfr_scales), ptr(delta_bits), ptr(quant), masks, B * F, C, Gp,
         int(hfr_group_count), int(frame_size), host_ptr(coded),
         host_ptr(ctype), ptr(out), stream_ptr(level))
     if rc:
         raise launch_failed("hca_pack", rc)
     PACK_LAUNCHES += 1
     return out
+
+
+#: (frame size, device) -> the packer's CRC masks on it
+_CRC_MASKS: dict = {}
+
+
+def _crc_masks(fs: int, device: torch.device) -> torch.Tensor:
+    """`hca_pack`'s CRC16 masks for frame size fs, transposed to i32
+    [16, ceil(fs / 4)] on the device, built once per (fs, device)."""
+    key = (fs, device)
+    if key not in _CRC_MASKS:
+        from .hca_pack_device import crc_mask_table
+        m = np.ascontiguousarray(crc_mask_table(fs).T).view(np.int32)
+        _CRC_MASKS[key] = torch.from_numpy(m).to(device)
+    return _CRC_MASKS[key]
 
 
 def hca_imdct_ola(spec_t) -> torch.Tensor:

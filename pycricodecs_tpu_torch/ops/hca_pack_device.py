@@ -4,8 +4,8 @@ Counterpart of pycricodecs_tpu/ops/hca_pack_device.py (`pack_frames_device`,
 which holds kernel B9, `_scatter_segments_pallas`) and of the host packer
 `hca_frame.pack_frame` (reference PackFrame, hca.cpp:2894-2963, with the
 MSB-first BitWriter of IO.cpp). `pack_frames` launches kernel `hca_pack`
-(csrc/hca_pack.cu) on CUDA tensors and runs `pack_frames_plain` on CPU
-tensors.
+(csrc/hca_pack.cu, one warp per frame) on CUDA tensors and runs
+`pack_frames_plain` on CPU tensors.
 
 A frame is the same symbol sequence for every frame of a config: sync
 0xFFFF, level (9 bits) and boundary (7), per channel the 3-bit delta width,
@@ -134,6 +134,41 @@ def _crc16_rows(data: torch.Tensor) -> torch.Tensor:
         state = ((state << 8) ^ table[((state >> 8) ^ rows[:, j]) & 0xFF]) \
             & 0xFFFF
     return state
+
+
+def crc_word_table(fs: int, nwords: int) -> np.ndarray:
+    """K[w, t] u32: CRC16 contribution of bit t (LSB order) of big-endian
+    frame word w (copy of the JAX package's _crc_word_table). CRC16 is
+    GF(2)-linear, so the CRC of frame bytes [0, fs - 2) is the XOR of the
+    unit contributions of its set bits; a bit's contribution depends only
+    on its distance from the message end: D[d, k] is the CRC of byte
+    1 << k followed by d zero bytes. Bytes from fs - 2 on contribute 0."""
+    L = fs - 2
+    table = CRC16_TABLE.astype(np.uint32)
+    D = np.zeros((L, 8), dtype=np.uint32)
+    state = table[1 << np.arange(8)]
+    D[0] = state
+    for d in range(1, L):
+        state = ((state << 8) ^ table[(state >> 8) & 0xFF]) & 0xFFFF
+        D[d] = state
+    K = np.zeros((nwords, 32), dtype=np.uint32)
+    for i in range(4):               # big-endian byte i of word w
+        j = 4 * np.arange(nwords) + i
+        ok = j < L
+        K[ok, 24 - 8 * i:32 - 8 * i] = D[L - 1 - j[ok]]
+    return K
+
+
+def crc_mask_table(fs: int) -> np.ndarray:
+    """M[w, j] u32, w < ceil(fs / 4): the bits of frame word w whose CRC
+    contribution sets CRC bit j (copy of the JAX package's
+    _crc_mask_table). CRC bit j is the parity of sum_w popcount(word_w &
+    M[w, j]); kernel `hca_pack` reads it transposed, [16, W]."""
+    W = -(-fs // 4)
+    K = crc_word_table(fs, W)                           # [W, 32]
+    bit = (K[:, :, None] >> np.arange(16, dtype=np.uint32)) & 1
+    return (bit << np.arange(32, dtype=np.uint32)[None, :, None]).sum(
+        axis=1).astype(np.uint32)                       # [W, 16]
 
 
 def _pack_rows(value, bits, frame_size: int) -> torch.Tensor:

@@ -107,6 +107,34 @@ def vlc_tables():
     return val, adv
 
 
+def vlc_packed() -> np.ndarray:
+    """Kernel B2's folded prefix-code table, u32 [16, 4], one row per
+    resolution r: [0] the code width max_bit(r) | (r >= 8) << 8 |
+    base << 12 | thr << 16, [1] and [2] the value + 8 in 4 bits per code
+    for codes 0..7 and 8..15 (the _VAL_LO/_VAL_HI words; 0 for r >= 8),
+    [3] 0. At every code a resolution can read (below 1 << max_bit(r)) the
+    advance is a step, base + (code >= thr): `vlc_tables()` for r <= 7,
+    max_bit(r) - (code < 2) for r >= 8, 0 for r = 0 (thr 1, code 0)."""
+    _, adv = vlc_tables()
+    out = np.zeros((16, 4), np.uint32)
+    for r in range(16):
+        count = int(max_bit(torch.tensor(r)))
+        if r >= 8:
+            base, thr = count - 1, 2
+        elif r == 0:
+            base, thr = 0, 1
+        else:
+            a = [int(adv[r, code]) for code in range(1 << count)]
+            base = a[0]
+            thr = next((i for i, x in enumerate(a) if x != base), 1 << count)
+            if a != [base + (i >= thr) for i in range(1 << count)]:
+                raise AssertionError(f"resolution {r}: advance is no step")
+        if r < 8:
+            out[r, 1:3] = (_VAL_LO[r], _VAL_HI[r])
+        out[r, 0] = count | (r >= 8) << 8 | base << 12 | thr << 16
+    return out
+
+
 def max_bit(r: torch.Tensor) -> torch.Tensor:
     """MAX_BIT_TABLE closed form: 0, 2,3,3,4,4,4,4, then r-3."""
     small = 2 + (r >= 2).long() + (r >= 4).long()
@@ -439,6 +467,8 @@ class DeviceUnpacker:
         ck.check_cuda(dec, "dec", torch.uint8, (N, self.fs))
         ck.check_cuda(res, "res", torch.uint8, (N, C, 128))
         ck.check_cuda(cur, "cur", torch.int32, (N,))
+        if res.data_ptr() % 16:
+            res = res.clone()       # the kernel stages it in 16-byte copies
         qc = torch.empty((N, C, 8, 128), dtype=torch.int16,
                          device=dec.device) if want_qc else None
         end = torch.empty((N,), dtype=torch.int32, device=dec.device)
