@@ -17,7 +17,9 @@ HCA:
    a relabel of it to frame size 515 (B2's byte staging), each 4096 + 13
    frames (a ragged last CTA), B3
    transform on random legal inputs for all five fixture configs at
-   64 streams x 469 frames;
+   64 streams x 469 frames, and at its tile edges (F = 1, B = 1, F * 8
+   below, at and off multiples of its 31-subframe tile, the 6-channel
+   config) without and with random PNS maps;
 4. decodes the 256-stream x 10 s stereo bank (BASELINE config 5) with
    `decode_batch(..., device="cuda")`, holds every WAV to the sha256 the
    JAX package's decode gives (tests/data/torch_port/expected.json), does
@@ -79,7 +81,10 @@ AHX (tests/data/torch_port/ahx/, hashes from the JAX package's host lane):
    valid headers for each unpacker configuration (LSF mono 16/22.05/24 kHz,
    MPEG-1 stereo and joint stereo with random bounds, CRC on), the
    varying-bound stream; `mp2_synth` against `synthesize_plain`, bit for
-   bit, at the bank shape and on random codes in their legal ranges;
+   bit, at the bank shape and on random codes in their legal ranges (C = 1
+   and 2, row counts off its 64-row tile and 9-tile segment); its library
+   yardstick (one f64 `torch.matmul`, one depthwise f64 `conv1d`, one add,
+   within 1 LSB of the kernel) timed;
    `ahx_decode_batch` of 256 copies of the 10 s bank stream and of the 1 s
    fixtures, every WAV equal to its recorded sha256; both kernels launched;
    the bank call timed (median of 3 after a warm-up); kernels and twins
@@ -110,7 +115,8 @@ from the JAX package):
 Prints a JSON line of per-kernel results (launches on the main paths, max
 |kernel - twin|, kernel/twin ms, the bound from the bytes and operations of
 the timed call, and for B7/B8 from their dependent chain at the card's
-maximum SM clock; the library calls of B4, B5 and B6), the card line, and last a JSON line
+maximum SM clock; the library calls of B4, B5, B6 and `mp2_synth`), the
+card line, and last a JSON line
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; there
 is no CPU path.
 
@@ -186,21 +192,25 @@ KERNELS = {
         replaces="pycricodecs_tpu/ops/pallas_kernels.py:130"),
 }
 
-# Published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, and the
-# scalar (non-tensor-core) 32-bit rate, which also bounds the integer work
-# from below (Hopper issues INT32 at most at the FP32 rate).
+# H100 SXM rates (NVIDIA data sheet and Hopper white paper: 132 SMs, 3.35
+# TB/s of HBM, 1,980 MHz boost). The port builds with -fmad=false, so every
+# f32 multiply or add is its own FMUL or FADD: 128 f32 lanes an SM give
+# 132 x 128 x 1.98e9 = 33.45e12 instructions/s (the 67 TFLOP/s of the data
+# sheet count an FMA as 2). INT32 issues on 64 lanes an SM: 16.7e12/s, the
+# rate of the integer kernels (B1, B2, the packer, B10, B7, B8). Float64
+# outside the tensor cores: 64 lanes an SM, each DMUL or DADD one op at
+# 17e12/s (the data sheet's 34 TFLOP/s count a DFMA as 2).
 HBM_BYTES_PER_S = 3.35e12
-SCALAR_OPS_PER_S = 67e12
-# Float64 outside the tensor cores: 34 TFLOP/s (same data sheet), an FMA
-# counted as 2; without FMA each DMUL or DADD issues at the DFMA rate, so
-# 17e12 f64 multiplies or adds per second.
+F32_OPS_PER_S = 33.45e12
+INT32_OPS_PER_S = 16.7e12
 FP64_OPS_PER_S = 17e12
 # Operations counted per unit of work, as lower bounds (each counts only the
 # arithmetic the function cannot skip):
 # - B1: one per side-info value written; B2: three per spectral code (peek,
 #   table lookup, cursor advance);
-# - B3: dequantise 2, IMDCT 14 stages (7 of add/sub, 7 of 2 mul + 1 add per
-#   value) 35, window + overlap-add 3, PCM conversion 2, per output value;
+# - B3: dequantise 2, DCT-IV 28 (7 add/sub stages of 1 and 7 twiddle stages
+#   of 2 mul + 1 add per value: 3,584 a 128-value row), window + overlap-add
+#   3, PCM conversion 2, per output value: 35;
 # - B7: code extraction 4 (shift, mask, sign test, subtract) + recurrence 9
 #   (3 mul, 2 shift, 2 add, 2 clamp) per sample;
 # - B8: pass 1 residual 6 + pass 2 14 (3 mul, 2 shift, 3 add, rounding add,
@@ -211,20 +221,22 @@ FP64_OPS_PER_S = 17e12
 # - hca_pack: three per spectrum code written, i.e. per coded band and
 #   subframe whose resolution is 1-15 (table lookup, shift-or into the bit
 #   accumulator, cursor add);
-# - B3 with PNS: B3's 42 plus the noise term's multiply and add;
+# - B3 with PNS: B3's 35 plus the noise term's multiply and add;
 # - B10 (mp2_unpack): three per sample code written (field extract, cursor
 #   add, store), i.e. per allocated (frame, channel, subband) x 36;
 # - mp2_synth, f64 operations per output sample: dequantise 5 (mul, add,
 #   sub, div, mul), matrixing 126 (64 outputs x 32 mul + 31 add per 32
-#   samples), window 31 (16 mul + 15 add), PCM 2 (mul, add); counted
-#   against FP64_OPS_PER_S;
-# - B4 (hca_imdct_ola): B3's IMDCT 35 and window + overlap-add 3 per output
-#   value; B5 (hca_imdct): the IMDCT's 35.
-OPS = {"hca_side_info": 1, "hca_coefficients": 3, "hca_transform": 42,
+#   samples), window 31 (16 mul + 15 add), PCM 2 (mul, add);
+# - B4 (hca_imdct_ola): the DCT-IV's 28 and window + overlap-add 3 per
+#   output value; B5 (hca_imdct): the DCT-IV's 28.
+OPS = {"hca_side_info": 1, "hca_coefficients": 3, "hca_transform": 35,
        "adx_decode": 13, "adx_encode": 20, "hca_mdct": 23, "hca_pack": 3,
-       "hca_transform_pns": 44, "mp2_unpack": 3, "mp2_synth": 164,
-       "hca_imdct_ola": 38, "hca_imdct": 35}
-OPS_PER_S = {"mp2_synth": FP64_OPS_PER_S}
+       "hca_transform_pns": 37, "mp2_unpack": 3, "mp2_synth": 164,
+       "hca_imdct_ola": 31, "hca_imdct": 28}
+OPS_PER_S = {"mp2_synth": FP64_OPS_PER_S,
+             **dict.fromkeys(("hca_side_info", "hca_coefficients",
+                              "hca_pack", "mp2_unpack", "adx_decode",
+                              "adx_encode"), INT32_OPS_PER_S)}
 # Dependent operations on the critical path of one step of a serial
 # recurrence (the third bound term, `chain`: steps per lane x these ops x
 # CHAIN_CYCLES_PER_OP / the card's maximum SM clock). Assumption: every
@@ -311,12 +323,12 @@ def nbytes(*tensors) -> int:
 def bound(name: str, moved_bytes: int, units: int,
           chain_steps: int = 0) -> dict:
     """The least time of a kernel's work: moved bytes over HBM bandwidth,
-    its counted operations over the scalar peak, or, for a serial
+    its counted operations over their type's issue rate, or, for a serial
     recurrence (CHAIN_OPS), its steps per lane times the critical path's
     latency, whichever is largest."""
     terms = {"bytes": moved_bytes / HBM_BYTES_PER_S * 1e3,
              "operations": (OPS[name] * units
-                            / OPS_PER_S.get(name, SCALAR_OPS_PER_S) * 1e3)}
+                            / OPS_PER_S.get(name, F32_OPS_PER_S) * 1e3)}
     if name in CHAIN_OPS:
         terms["chain"] = (chain_steps * CHAIN_OPS[name] * CHAIN_CYCLES_PER_OP
                           / (max_sm_clock_mhz() * 1e6) * 1e3)
@@ -1178,7 +1190,7 @@ def pns_phase(dev, card: str, worst: dict, launches: dict) -> dict:
     w = max(w, require_equal("B3 PNS real maps", [(
         "pcm", K.hca_decode_transform_batched(*real, hfr, noise=noise, **cfg),
         K.decode_transform_plain(*real, hfr, noise=noise, **cfg))]))
-    worst["hca_transform_pns"] = w
+    worst["hca_transform_pns"] = max(worst["hca_transform_pns"], w)
     log(f"B3 with the fixture's real maps ({n} frames, {masked} noise "
         f"values): byte-equal to the twin; noise_maps equal on card and CPU")
 
@@ -1335,7 +1347,8 @@ def ahx_phase(dev, card: str, worst: dict, launches: dict) -> dict:
     del pcm_t
     classes = np.unique(np.concatenate(
         [np.concatenate(t) for t in mp2_tables.ALLOC_TABLES.values()]))
-    for Bs, Fs, C in ((4, 40, 2), (3, 17, 1)):
+    # T = F * 36 off the kernel's 64-row tile and 9-tile segment, C = 2
+    for Bs, Fs, C in ((4, 40, 2), (3, 17, 1), (2, 19, 2), (1, 1, 2)):
         lv = rng.choice(classes, (Bs, Fs, C, 32)).astype(np.int32)
         cd = (rng.random((Bs, Fs, C, 36, 32))
               * np.maximum(lv, 1)[..., None, :]).astype(np.uint16)
@@ -1382,6 +1395,7 @@ def ahx_phase(dev, card: str, worst: dict, launches: dict) -> dict:
     _, unpack_plain_ms = cuda_ms_once(
         lambda: MU.mp2_unpack_plain(bank_frames, 1))
     synth_ms = cuda_ms(lambda: cuda_kernels.mp2_synth(*bank_in), 20)
+    synth_library_ms = synth_library(bank_in, pcm_k, MK, card)
     SB = P._parse_mp2(bank[0])[0].sblimit
     unpack_bd = bound("mp2_unpack", nbytes(bank_frames, codes, levels,
                                            sfidx, err),
@@ -1394,7 +1408,49 @@ def ahx_phase(dev, card: str, worst: dict, launches: dict) -> dict:
             f"sblimit {SB}): kernel {ms:.4f} ms, twin {plain_ms:.4f} ms "
             f"(one run), bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}")
     return {"mp2_unpack": (unpack_ms, unpack_plain_ms, unpack_bd),
-            "mp2_synth": (synth_ms, synth_plain_ms, synth_bd)}
+            "mp2_synth": (synth_ms, synth_plain_ms, synth_bd,
+                          synth_library_ms)}
+
+
+def synth_library(bank_in, pcm_k, MK, card: str) -> float:
+    """mp2_synth's yardstick, timed from the dequantised samples s: one
+    f64 torch.matmul of s by nt, then the window as one depthwise f64
+    conv1d (64 channels, 16 taps, zero at the other parity's lags) and one
+    add. Another summation order than the kernel's, so its PCM is checked
+    to lie within 1 LSB of the kernel's. Never called by the port."""
+    codes, levels, sfidx = bank_in
+    B, F, C = codes.shape[:3]
+    sf_t, nt, dwin = MK._tables(codes.device)
+    n = levels.double()[:, :, :, None, :]
+    part = torch.arange(36, device=codes.device) // 12
+    sf = sf_t[sfidx.long()][:, :, :, part, :]
+    c = codes.to(torch.int32).double()
+    s = torch.where(n > 0, ((2.0 * c + 1.0 - n) / n) * sf, 0.0)
+    s = s.permute(0, 2, 1, 3, 4).reshape(B * C, F * 36, 32).contiguous()
+    # conv1d correlates: out[t] = sum_i w[i] * V[t + i - 15], lag 15 - i
+    w = torch.zeros((64, 1, 16), dtype=torch.float64, device=codes.device)
+    for m in range(8):
+        w[:32, 0, 15 - 2 * m] = dwin[64 * m:64 * m + 32]
+        w[32:, 0, 14 - 2 * m] = dwin[64 * m + 32:64 * m + 64]
+
+    def library():
+        v = torch.matmul(s, nt).transpose(1, 2)             # [BC, 64, T]
+        y = torch.nn.functional.conv1d(
+            torch.nn.functional.pad(v, (15, 0)), w, groups=64)
+        return y[:, :32] + y[:, 32:]
+
+    o = library()
+    pcm = torch.floor(o * 32768.0 + 0.5).clamp(-32768.0, 32767.0)
+    pcm = pcm.transpose(1, 2).reshape(B, C, -1).to(torch.int16)
+    d = max_abs_diff(pcm, pcm_k)
+    if d > 1:
+        raise AssertionError(f"mp2_synth's library yardstick is {d} LSB "
+                             f"from the kernel")
+    ms = cuda_ms(library, 20)
+    log(f"mp2_synth library yardstick [{card}]: torch.matmul, depthwise "
+        f"conv1d and an add, f64, {ms:.4f} ms, within {d} LSB of the "
+        f"kernel")
+    return ms
 
 
 # ---------------------------------------------------------------------------
@@ -1779,6 +1835,26 @@ def main() -> None:
         del qc, sf, res, inten, pk, pt
         log(f"B3 random {name} ({CHUNK}x{F} frames, {C} ch): byte-equal "
             f"to the twin")
+    # B3's tile edges: F = 1 and B = 1, T = F * 8 below, at and off
+    # multiples of its 31-subframe tile, the 6-channel config's two pairs
+    # and two unpaired channels, without and with PNS maps
+    g = torch.Generator().manual_seed(2)
+    for name, Bs, Fs in (("q2_6ch_48k_1s", 1, 1), (BANK, 1, 1),
+                         ("q4_stereo_48k_1s", 3, 5),
+                         ("q2_6ch_48k_1s", 2, 33),
+                         ("q0_stereo_48k_1s", 1, 31),
+                         ("q2_mono_48k_1s", 5, 4)):
+        info = infos[name]
+        hfr, cfg = K.transform_config(info)
+        args, noise = random_transform_inputs(g, Bs, Fs, info.channels, dev)
+        for key, nz in (("hca_transform", None),
+                        ("hca_transform_pns", noise)):
+            pk = K.hca_decode_transform_batched(*args, hfr, noise=nz, **cfg)
+            pt = K.decode_transform_plain(*args, hfr, noise=nz, **cfg)
+            worst[key] = max(worst[key], require_equal(
+                f"B3 tile edge {name} {Bs}x{Fs}", [("pcm", pk, pt)]))
+        log(f"B3 random {name} at {Bs} x {Fs} frames (T = {Fs * 8}), "
+            f"without and with PNS maps: byte-equal to the twin")
     torch.cuda.synchronize()
 
     # -- phase 4: the slice, through the public entry point -----------------

@@ -9,13 +9,15 @@ checkout builds its own kernels and a rebuild happens only when one of them
 changes. The constant tables the kernels read are generated from
 `ops/hca_tables.py` and `ops/mp2_tables.py` into that directory
 (`hca_tables.inc`), so the kernels and the plain PyTorch twins read the
-same fp32 and fp64 bit patterns. The DCT-IV of B4 and B5 is generated there
-too (`hca_dct4.inc`), as straight-line code from `dct4_schedule()`, the slot
-schedule the CPU tests run.
+same fp32 and fp64 bit patterns. The DCT-IV of B3, B4 and B5 is generated
+there too (`hca_dct4.inc`), as straight-line code from `dct4_schedule()`,
+the slot schedule the CPU tests run.
 
 Floating-point contract: `-fmad=false` and no fast-math flag, so every
 multiply and add rounds once, as in the JAX reference; `-ftz`, `-prec-div`
-and `-prec-sqrt` stay at their IEEE defaults.
+and `-prec-sqrt` stay at their IEEE defaults. The one explicit fused
+multiply-add is mp2_synth's division: an exact remainder and its correction
+give the correctly rounded quotient, the value a division gives.
 """
 from __future__ import annotations
 
@@ -61,6 +63,10 @@ SIGNATURES = {
     "hca_imdct_ola": [_P, _I, _I, _P, _P],
     "hca_imdct": [_P, _L, _P, _P],
 }
+
+#: the Layer II quantisation classes n whose correctly rounded 1 / n the
+#: synthesis kernel keeps (kMp2Recip), at index 0 (5), 1 (9) or k (2^k - 1)
+MP2_RECIP_N = (5, 9) + tuple(2 ** k - 1 for k in range(2, 17))
 
 _lib = None
 #: wall seconds the last nvcc build took (None: loaded from an earlier build)
@@ -114,8 +120,6 @@ def tables_header() -> str:
                       ("kRangeTable", T.RANGE_TABLE),
                       ("kScaleConversionTable", T.SCALE_CONVERSION_TABLE),
                       ("kIntensityRatioTable", T.INTENSITY_RATIO_TABLE),
-                      ("kImdctSin", T.IMDCT_SIN),
-                      ("kImdctCos", T.IMDCT_COS),
                       ("kImdctWindow", T.IMDCT_WINDOW),
                       ("kDct4Sin", T.DCT4_SIN_FLAT),
                       ("kDct4Cos", T.DCT4_COS_FLAT)):
@@ -132,7 +136,9 @@ def tables_header() -> str:
         out.append(_c_array(name, ctype, _int_literals(arr)))
     for name, arr in (("kMp2Sf", mp2_tables.scalefactors()),
                       ("kMp2Nt", mp2_tables.synthesis_matrixing().T),
-                      ("kMp2Dwin", mp2_tables.synth_window())):
+                      ("kMp2Dwin", mp2_tables.synth_window()),
+                      ("kMp2Recip", 1.0 / np.asarray(MP2_RECIP_N,
+                                                     np.float64))):
         out.append(_c_array(name, "double", _f64_literals(arr)))
     return "".join(out)
 
@@ -181,7 +187,7 @@ def dct4_source() -> str:
     """C++ of `dct4_schedule()`: `dct4_slots(v)` runs the 14 stages on the
     128 slots in place (twiddles as f32 literals), `dct4_order(v, y)` names
     the results in logical order (register renaming, no instructions once
-    inlined)."""
+    inlined), `dct4_row(row, y)` loads a thread's row and runs both."""
     from .ops import hca_tables as T
 
     sin = _f32_literals(T.IMDCT_SIN)
@@ -210,6 +216,23 @@ def dct4_source() -> str:
                "const float (&v)[128], float (&y)[128]) {\n")
     out += [f"  y[{l}] = v[{s}];\n" for l, s in enumerate(slot_of)]
     out.append("}\n")
+    # a thread's 16-byte aligned row of 128 floats -> slots, DCT-IV, results
+    # in logical order
+    out.append(
+        "__device__ __forceinline__ void dct4_row(const float* row, "
+        "float (&y)[128]) {\n"
+        "  float v[128];\n"
+        "#pragma unroll\n"
+        "  for (int q = 0; q < 32; ++q) {\n"
+        "    const float4 t = reinterpret_cast<const float4*>(row)[q];\n"
+        "    v[4 * q] = t.x;\n"
+        "    v[4 * q + 1] = t.y;\n"
+        "    v[4 * q + 2] = t.z;\n"
+        "    v[4 * q + 3] = t.w;\n"
+        "  }\n"
+        "  dct4_slots(v);\n"
+        "  dct4_order(v, y);\n"
+        "}\n")
     return "".join(out)
 
 

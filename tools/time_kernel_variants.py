@@ -1,0 +1,173 @@
+#!/usr/bin/env python3
+"""Ablations of kernels B3 (`hca_transform`) and `mp2_synth`, on one CUDA
+GPU: where a kernel's time goes, phase by phase.
+
+Each variant is the kernel's source with one phase switched off by a text
+substitution (the phase runs only when a runtime condition that never
+holds is true, so the compiler keeps the rest as it is), built alone with
+the port's nvcc flags into its own library and swapped in for the port's
+library; the baseline is the port's own build. Variants:
+- B3: `no_dct` (the DCT-IV replaced by a copy of the row), `no_stage` (no
+  spectra staged), `no_copy` (no cp.async of qc, maps and frame rows),
+  `no_store` (no PCM store);
+- mp2_synth: `no_dequant`, `no_quotient` (the quotient's reciprocal path
+  replaced by one multiply), `no_matrix`, `no_window`.
+A variant's output is wrong by design; only its time is read. Shapes: B3 at
+the HCA bank chunk (the bank's real spectra, and random PNS maps), the
+synthesis at the AHX bank, as tools/time_transform_synth.py. Each variant
+is timed in --rounds rounds (median of --reps CUDA-event runs each), the
+baseline first in every round. Prints one line per variant and round with
+the card's name and power limit, and last one JSON line. No CPU path.
+
+Run from the repository root:
+    python3 tools/time_kernel_variants.py [--rounds N] [--reps N]
+"""
+import argparse
+import ctypes
+import json
+import os
+import subprocess
+import sys
+import tempfile
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+NEVER = "cfg.F < 0"          # B3: a condition that never holds
+NEVER_SYNTH = "F < 0"        # mp2_synth: the same
+VARIANTS = {
+    "no_dct": ("hca_transform.cu", [(
+        "    dct4_row(myrow, y);",
+        "#pragma unroll\n"
+        "    for (int q = 0; q < 128; ++q) y[q] = myrow[q];")]),
+    "no_stage": ("hca_transform.cu", [(
+        "  for (int r = w * 32 / nw; r < (w + 1) * 32 / nw; ++r) {",
+        f"  for (int r = w * 32 / nw; r < ({NEVER} ? 32 : 0); ++r) {{")]),
+    "no_copy": ("hca_transform.cu", [(
+        "  for (int ch = 0; ch < nch; ++ch) {\n"
+        "    const int c = ch ? c1 : c0;",
+        f"  for (int ch = 0; ch < ({NEVER} ? nch : 0); ++ch) {{\n"
+        "    const int c = ch ? c1 : c0;")]),
+    "no_store": ("hca_transform.cu", [(
+        "  for (int r = 1 + w; r < 32; r += nw) {",
+        f"  for (int r = 1 + w; r < ({NEVER} ? 32 : 0); r += nw) {{")]),
+    "no_dequant": ("mp2_synth.cu", [(
+        "    dequantise(levels, sfidx, b, c, F, C, T, t0, 0, cq, S);",
+        f"    if ({NEVER_SYNTH})\n"
+        "      dequantise(levels, sfidx, b, c, F, C, T, t0, 0, cq, S);")]),
+    "no_quotient": ("mp2_synth.cu", [(
+        "  if (idx < 0) return __ddiv_rn(a, (double)n);",
+        "  if (idx < 0 || n > 0) return __dmul_rn(a, (double)n);")]),
+    "no_matrix": ("mp2_synth.cu", [(
+        "    matrixing(S, V, 0);",
+        f"    if ({NEVER_SYNTH}) matrixing(S, V, 0);")]),
+    "no_window": ("mp2_synth.cu", [(
+        "    window(V, t0, T, o_bc);",
+        f"    if ({NEVER_SYNTH}) window(V, t0, T, o_bc);")]),
+}
+
+
+def build_variants(build, gen_dir: str, out_dir: str) -> dict:
+    """name -> ctypes library of each variant (all nvcc runs at once)."""
+    jobs = {}
+    for name, (src, subs) in VARIANTS.items():
+        with open(os.path.join(build.CSRC_DIR, src)) as f:
+            text = f.read()
+        for old, new in subs:
+            if old not in text:
+                raise SystemExit(f"{name}: anchor not in {src}: {old!r}")
+            text = text.replace(old, new)
+        cu = os.path.join(out_dir, name + ".cu")
+        with open(cu, "w") as f:
+            f.write(text)
+        so = os.path.join(out_dir, name + ".so")
+        cmd = [build._nvcc(), *build.NVCC_FLAGS, f"-I{gen_dir}", "-shared",
+               "-o", so, cu]
+        jobs[name] = (so, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    libs = {}
+    for name, (so, proc) in jobs.items():
+        log, _ = proc.communicate(timeout=900)
+        if proc.returncode:
+            raise SystemExit(f"nvcc failed for {name}:\n{log}")
+        lib = ctypes.CDLL(so)
+        fn = "hca_transform" if "hca_transform" in VARIANTS[name][0] \
+            else "mp2_synth"
+        getattr(lib, fn).argtypes = build.SIGNATURES[fn]
+        getattr(lib, fn).restype = ctypes.c_int
+        libs[name] = lib
+    return libs
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--reps", type=int, default=20)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("time_kernel_variants: no CUDA GPU")
+    sys.path.insert(0, REPO)
+    import chip_smoke as S
+    from pycricodecs_tpu_torch import _build
+    from pycricodecs_tpu_torch.ops import cuda_kernels
+    from pycricodecs_tpu_torch.ops import hca_frame
+    from pycricodecs_tpu_torch.ops import hca_kernels as K
+    from pycricodecs_tpu_torch.ops import hca_unpack_device as U
+    from pycricodecs_tpu_torch.parallel import pipeline as P
+    from pycricodecs_tpu_torch.utils import signals
+    dev = torch.device("cuda", 0)
+    card = S.card_line()
+    base = _build.load()
+    tmp = tempfile.mkdtemp(prefix="variants", dir=str(_build.BUILD_DIR))
+    libs = build_variants(_build, os.path.dirname(str(_build.build())), tmp)
+
+    with open(os.path.join(S.FIXTURES, S.BANK + ".hca"), "rb") as f:
+        blob = f.read()
+    hs = int.from_bytes(blob[6:8], "big")
+    info = hca_frame.parse_header(blob[:hs])
+    F, C, B = info.frame_count, info.channels, P.CHUNK_STREAMS
+    frames = np.frombuffer(blob, np.uint8, count=F * info.frame_size,
+                           offset=hs).reshape(F, -1)
+    qc, sf, res, inten, _ = U.DeviceUnpacker(info, dev)(
+        torch.from_numpy(np.tile(frames, (B, 1))).to(dev))
+    spec = (qc.view(B, F, C, 8, 128), sf.view(B, F, C, 128),
+            res.view(B, F, C, 128), inten.view(B, F, C, 8))
+    hfr, cfg = K.transform_config(info)
+    rnd, noise = S.random_transform_inputs(
+        torch.Generator().manual_seed(12), B, F, C, dev)
+    _, blobs = S.load_ahx_fixtures()
+    stack = P._stack_mp2_frames(
+        [P._parse_mp2(blobs[signals.AHX_BANK])[1]] * S.BANK_STREAMS)
+    Bs, Fs, fs_max = stack.shape
+    codes, levels, sfidx, _ = cuda_kernels.mp2_unpack(
+        torch.from_numpy(stack.reshape(Bs * Fs, fs_max)).to(dev), 1)
+    bank = (codes.view(Bs, Fs, 1, 36, 32), levels.view(Bs, Fs, 1, 32),
+            sfidx.view(Bs, Fs, 1, 3, 32))
+    timed = {
+        "b3_ms": lambda: K.hca_decode_transform_batched(*spec, hfr, **cfg),
+        "b3_pns_ms": lambda: K.hca_decode_transform_batched(
+            *rnd, hfr, noise=noise, **cfg),
+        "synth_ms": lambda: cuda_kernels.mp2_synth(*bank),
+    }
+    out = {"card": card, "runs": []}
+    try:
+        for rnd_i in range(args.rounds):
+            for name, lib in [("baseline", base), *libs.items()]:
+                _build._lib = lib
+                src = VARIANTS[name][0] if name in VARIANTS else ""
+                keys = [k for k in timed if name == "baseline"
+                        or (k.startswith("b3") == (src == "hca_transform.cu"))]
+                r = {k: S.cuda_ms(timed[k], args.reps) for k in keys}
+                out["runs"].append({"round": rnd_i, "variant": name, **r})
+                print(f"[{card}] round {rnd_i} {name}: "
+                      + ", ".join(f"{k} {v:.4f}" for k, v in r.items()),
+                      flush=True)
+    finally:
+        _build._lib = base
+    print(json.dumps(out), flush=True)
+
+
+if __name__ == "__main__":
+    main()
