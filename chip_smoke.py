@@ -51,7 +51,9 @@ ADX (tests/data/torch_port/adx/, hashes from the JAX package):
 HCA encode (tests/data/torch_port/, input WAVs rebuilt by signals.hca_wav
 and held to their recorded hashes):
 9. B6 `hca_mdct` against `mdct_plain`, bit for bit (f32 as i32): random
-   PCM16 with both rails, and the bank's PCM (256 x 2 x 3,752 blocks);
+   PCM16 with both rails and silent blocks (T = 1, a ragged last warp,
+   T = 33 tiles that cross a stream channel among them), and the bank's
+   PCM (256 x 2 x 3,752 blocks);
    B6's library yardstick timed (the cast, a pad and one `torch.matmul` by
    the folded 256 x 128 matrix over an unfold view, TF32 off);
 10. the packer `hca_pack` (B9's work) against `pack_frames_plain`, byte for
@@ -79,8 +81,11 @@ AHX (tests/data/torch_port/ahx/, hashes from the JAX package's host lane):
 13. B10 `mp2_unpack` against `mp2_unpack_plain`, byte for byte with the error
    flags: the bank's frames (256 x 192), 4,096 random-byte frames behind
    valid headers for each unpacker configuration (LSF mono 16/22.05/24 kHz,
-   MPEG-1 stereo and joint stereo with random bounds, CRC on), the
-   varying-bound stream; `mp2_synth` against `synthesize_plain`, bit for
+   MPEG-1 stereo and joint stereo with random bounds, CRC on), 4,096 +
+   13 frames (a ragged last CTA) in rows of 515 bytes, frames whose size
+   ends inside their scalefactors or their samples, rows shorter than
+   their frame, the varying-bound stream; `mp2_synth` against
+   `synthesize_plain`, bit for
    bit, at the bank shape and on random codes in their legal ranges (C = 1
    and 2, row counts off its 64-row tile and 9-tile segment); its library
    yardstick (one f64 `torch.matmul`, one depthwise f64 `conv1d`, one add,
@@ -903,6 +908,33 @@ def crc_slot_tensors(info, dev):
     return [torch.from_numpy(a).to(dev) for a in t], limit - (total - 12)
 
 
+# (B, C, T) of B6's random checks; rows = B * C * T, one-warp tiles of 32
+MDCT_CASES = (
+    (3, 2, 37), (1, 1, 8), (4, 6, 24),
+    (5, 2, 1),      # T = 1: every row folds with zeros (10 rows: ragged)
+    (1, 1, 45),     # a ragged last warp of 13 rows
+    (2, 3, 33),     # T = 33: tiles that cross into a new stream channel
+)
+
+
+def mdct_checks(dev, rng) -> None:
+    """Phase 9's random checks: B6 against mdct_plain, f32 as i32 bits, on
+    random PCM16 with both rails and all-zero blocks (MDCT_CASES; the first
+    three drawn from rng, the edge cases from their own generator)."""
+    from pycricodecs_tpu_torch.ops import cuda_kernels
+    from pycricodecs_tpu_torch.ops import hca_encode_device as D
+    edge = np.random.default_rng(109)
+    for i, (B, C, Tn) in enumerate(MDCT_CASES):
+        g = rng if i < 3 else edge
+        pcm = g.integers(-32768, 32768, (B, C, Tn * 128), dtype=np.int16)
+        pcm[0, 0, :4] = (-32768, 32767, -32768, 32767)
+        pcm[-1, -1, 128:384] = 0
+        p = torch.from_numpy(pcm).to(dev)
+        f32_equal(f"B6 random {B}x{C}x{Tn}", cuda_kernels.hca_mdct(p),
+                  D.mdct_plain(p))
+        log(f"B6 random {B} x {C} x {Tn} blocks: bit-equal to the twin")
+
+
 def hca_encode_phases(dev, card: str, worst: dict, launches: dict) -> dict:
     """Phases 9-11; returns name -> (ms, plain_ms, bound dict)."""
     import pycricodecs_tpu_torch as port
@@ -936,14 +968,7 @@ def hca_encode_phases(dev, card: str, worst: dict, launches: dict) -> dict:
 
     # -- phase 9: B6 against mdct_plain -------------------------------------
     rng = np.random.default_rng(9)
-    for B, C, Tn in ((3, 2, 37), (1, 1, 8), (4, 6, 24)):
-        pcm = rng.integers(-32768, 32768, (B, C, Tn * 128), dtype=np.int16)
-        pcm[0, 0, :4] = (-32768, 32767, -32768, 32767)
-        pcm[-1, -1, 128:384] = 0
-        p = torch.from_numpy(pcm).to(dev)
-        f32_equal(f"B6 random {B}x{C}x{Tn}", cuda_kernels.hca_mdct(p),
-                  D.mdct_plain(p))
-        log(f"B6 random {B} x {C} x {Tn} blocks: bit-equal to the twin")
+    mdct_checks(dev, rng)
     bank_cfg, bank_w = cfgs[BANK]
     bank_pcm = torch.from_numpy(D.stack_timelines(
         [bank_cfg] * BANK_STREAMS, [bank_w] * BANK_STREAMS)).to(dev)
@@ -1250,23 +1275,118 @@ MP2_RANDOM_CONFIGS = (
 )
 
 
-def random_mp2_frames(rng, version, bri, sri, mode, crc=False):
-    """RANDOM_FRAMES random-byte frames behind valid headers (random padding
-    bit, and mode_ext for joint stereo), u8 [n, fs_max]; the first 8 rows
-    are all zero (no header: all zero out, err set). Returns (frames,
-    channels)."""
+def random_mp2_frames(rng, version, bri, sri, mode, crc=False,
+                      n=RANDOM_FRAMES, fs_max=None):
+    """n random-byte frames behind valid headers (random padding bit, and
+    mode_ext for joint stereo), u8 [n, fs_max] (default: the largest frame
+    size); the first 8 rows are all zero (no header: all zero out, err set).
+    Returns (frames, channels)."""
     from pycricodecs_tpu_torch.ops import mp2_frame
     w0 = ((0x7FF << 21) | (version << 19) | (2 << 17)
           | ((0 if crc else 1) << 16) | (bri << 12) | (sri << 10)
           | (mode << 6))
     hdr = mp2_frame.parse_header(w0.to_bytes(4, "big"))
-    fs_max = hdr.frame_size + 1
-    fr = rng.integers(0, 256, (RANDOM_FRAMES, fs_max), dtype=np.uint8)
-    words = (w0 | (rng.integers(0, 2, RANDOM_FRAMES) << 9)
-             | (rng.integers(0, 4, RANDOM_FRAMES) << 4)).astype(">u4")
+    fs_max = fs_max or hdr.frame_size + 1
+    fr = rng.integers(0, 256, (n, fs_max), dtype=np.uint8)
+    words = (w0 | (rng.integers(0, 2, n) << 9)
+             | (rng.integers(0, 4, n) << 4)).astype(">u4")
     fr[:, :4] = words.view(np.uint8).reshape(-1, 4)
     fr[:8] = 0
     return fr, hdr.nch
+
+
+# headers whose frame size ends inside the scalefactors (the smallest LSF
+# stereo frames) or inside the samples, on random bytes; a legal frame
+# cannot end inside its allocation or scfsi (the smallest frame, 48 bytes,
+# is longer than both together: tests/test_torch_mp2_unpack_warp.py)
+MP2_CUT_CONFIGS = (
+    ("LSF stereo 22.05 kHz 8 kbps, cut in the scalefactors",
+     dict(version=2, bri=1, sri=0, mode=0)),
+    ("LSF joint 24 kHz 16 kbps, cut in the scalefactors",
+     dict(version=2, bri=2, sri=1, mode=1)),
+    ("LSF mono 24 kHz 32 kbps, cut in the samples",
+     dict(version=2, bri=4, sri=1, mode=3)),
+    ("MPEG-1 stereo 48 kHz 32 kbps, cut in the samples",
+     dict(version=3, bri=1, sri=1, mode=0)),
+)
+
+
+def mp2_unpack_pair(worst: dict, label: str, frames, C):
+    """B10 against mp2_unpack_plain on the same frames, byte for byte with
+    the error flags; returns the kernel's outputs."""
+    from pycricodecs_tpu_torch.ops import cuda_kernels
+    from pycricodecs_tpu_torch.ops import mp2_unpack_device as MU
+    got = cuda_kernels.mp2_unpack(frames, C)
+    want = MU.mp2_unpack_plain(frames, C)
+    worst["mp2_unpack"] = max(worst["mp2_unpack"], require_equal(
+        f"B10 {label}", [(n, a.view(torch.int16) if a.dtype ==
+                          torch.uint16 else a,
+                          b.view(torch.int16) if b.dtype == torch.uint16
+                          else b)
+                         for n, a, b in zip(("codes", "levels", "sfidx",
+                                             "err"), got, want)]))
+    return got
+
+
+def mp2_unpack_checks(dev, worst: dict, blobs: dict, rng) -> None:
+    """Phase 13's B10 checks besides the bank: random frames behind valid
+    headers per configuration (drawn from rng), then, from their own
+    generator, RANDOM_FRAMES + RAGGED of them (a ragged last CTA) at rows
+    of ODD_FRAME_SIZE bytes, frames cut inside their scalefactors and their
+    samples, rows shorter than their frame (all zero, err set); the
+    varying-bound stream."""
+    from pycricodecs_tpu_torch.parallel import pipeline as P
+    for label, kw in MP2_RANDOM_CONFIGS:
+        fr, C = random_mp2_frames(rng, **kw)
+        got = mp2_unpack_pair(worst, f"random {label}",
+                              torch.from_numpy(fr).to(dev), C)
+        bad = int(got[3].sum())
+        if not bool(got[3][:8].all()):
+            raise AssertionError(f"B10 random {label}: a frame without "
+                                 f"header was not flagged")
+        log(f"B10 random {label}: {RANDOM_FRAMES} frames, {bad} flagged "
+            f"(8 without header): byte-equal to the twin, err included")
+    rng = np.random.default_rng(113)
+    # 480- and 481-byte frames in rows of 515 bytes (no row start on a
+    # 16-byte boundary but every 16th), a count 13 past whole CTAs
+    for label, kw in (("LSF mono 24 kHz 80 kbps", dict(version=2, bri=10,
+                                                       sri=1, mode=3)),
+                      ("MPEG-1 joint 48 kHz 160 kbps",
+                       dict(version=3, bri=10, sri=1, mode=1))):
+        fr, C = random_mp2_frames(rng, **kw, n=RANDOM_FRAMES + RAGGED,
+                                  fs_max=ODD_FRAME_SIZE)
+        mp2_unpack_pair(worst, f"rows of {ODD_FRAME_SIZE} {label}",
+                        torch.from_numpy(fr).to(dev), C)
+        log(f"B10 {label}: {RANDOM_FRAMES + RAGGED} frames in rows of "
+            f"{ODD_FRAME_SIZE} bytes: byte-equal to the twin")
+    for label, kw in MP2_CUT_CONFIGS:
+        fr, C = random_mp2_frames(rng, **kw, n=RANDOM_FRAMES + RAGGED)
+        got = mp2_unpack_pair(worst, label, torch.from_numpy(fr).to(dev), C)
+        bad = int(got[3].sum())
+        if bad < RANDOM_FRAMES // 2:
+            raise AssertionError(f"B10 {label}: only {bad} frames cut")
+        log(f"B10 {label}: {RANDOM_FRAMES + RAGGED} frames, {bad} flagged: "
+            f"byte-equal to the twin, err included")
+    # rows of 626-627-byte joint frames cut from inside the header (1, 3
+    # bytes) and the allocation (5, 12) to the scalefactors (40) and the
+    # samples (200, 625)
+    fr, C = random_mp2_frames(rng, **MP2_RANDOM_CONFIGS[4][1], n=64)
+    cuts = (1, 3, 5, 12, 40, 200, fr.shape[1] - 2)
+    for W in cuts:
+        got = mp2_unpack_pair(worst, f"rows cut to {W} bytes",
+                              torch.from_numpy(
+                                  np.ascontiguousarray(fr[:, :W])).to(dev), C)
+        if not bool(got[3].all()) or bool(got[1].any()):
+            raise AssertionError(f"B10 rows cut to {W} bytes: a frame "
+                                 f"longer than its row was decoded")
+    log(f"B10 rows cut to {cuts} bytes: all zero with err set, byte-equal "
+        f"to the twin")
+    hdr, walk, _, _ = P._parse_mp2(blobs["mp2_joint_varying_bound"])
+    jf = P._stack_mp2_frames([walk])
+    mp2_unpack_pair(worst, "varying-bound stream", torch.from_numpy(
+        jf.reshape(-1, jf.shape[-1])).to(dev), 2)
+    log(f"B10 varying-bound joint stream ({len(walk)} frames): byte-equal "
+        f"to the twin")
 
 
 def load_ahx_fixtures():
@@ -1296,44 +1416,19 @@ def ahx_phase(dev, card: str, worst: dict, launches: dict) -> dict:
     bank_name = signals.AHX_BANK
     bank = [blobs[bank_name]] * BANK_STREAMS
 
-    def unpack_pair(label, frames, C):
-        got = cuda_kernels.mp2_unpack(frames, C)
-        want = MU.mp2_unpack_plain(frames, C)
-        worst["mp2_unpack"] = max(worst["mp2_unpack"], require_equal(
-            f"B10 {label}", [(n, a.view(torch.int16) if a.dtype ==
-                              torch.uint16 else a,
-                              b.view(torch.int16) if b.dtype == torch.uint16
-                              else b)
-                             for n, a, b in zip(("codes", "levels", "sfidx",
-                                                 "err"), got, want)]))
-        return got
-
     # -- B10 against its twin ---------------------------------------------
     walks = [P._parse_mp2(b)[1] for b in bank]
     stack = P._stack_mp2_frames(walks)
     B, Fb, fs_max = stack.shape
     bank_frames = torch.from_numpy(stack.reshape(B * Fb, fs_max)).to(dev)
-    codes, levels, sfidx, err = unpack_pair("bank", bank_frames, 1)
+    codes, levels, sfidx, err = mp2_unpack_pair(worst, "bank", bank_frames,
+                                                1)
     if bool(err.any()):
         raise AssertionError("B10 flagged an error in the bank stream")
     log(f"B10 bank {B} x {Fb} frames of <= {fs_max} bytes: byte-equal to "
         f"the twin")
     rng = np.random.default_rng(13)
-    for label, kw in MP2_RANDOM_CONFIGS:
-        fr, C = random_mp2_frames(rng, **kw)
-        got = unpack_pair(f"random {label}", torch.from_numpy(fr).to(dev), C)
-        bad = int(got[3].sum())
-        if not bool(got[3][:8].all()):
-            raise AssertionError(f"B10 random {label}: a frame without "
-                                 f"header was not flagged")
-        log(f"B10 random {label}: {RANDOM_FRAMES} frames, {bad} flagged "
-            f"(8 without header): byte-equal to the twin, err included")
-    hdr, walk, _, _ = P._parse_mp2(blobs["mp2_joint_varying_bound"])
-    jf = P._stack_mp2_frames([walk])
-    unpack_pair("varying-bound stream", torch.from_numpy(
-        jf.reshape(-1, jf.shape[-1])).to(dev), 2)
-    log(f"B10 varying-bound joint stream ({len(walk)} frames): byte-equal "
-        f"to the twin")
+    mp2_unpack_checks(dev, worst, blobs, rng)
 
     # -- mp2_synth against its twin ---------------------------------------
     bank_in = (codes.view(B, Fb, 1, 36, 32), levels.view(B, Fb, 1, 32),

@@ -4,14 +4,15 @@
 per source, all started together, links the objects into one shared library
 with a plain C interface, at first use, and opens it with ctypes. The build
 lands in `build/<hash>/` inside this package (ignored by git), keyed by a
-hash of the sources, the generated table header and the flags, so a
+hash of the sources, the generated headers and the flags, so a
 checkout builds its own kernels and a rebuild happens only when one of them
 changes. The constant tables the kernels read are generated from
 `ops/hca_tables.py` and `ops/mp2_tables.py` into that directory
 (`hca_tables.inc`), so the kernels and the plain PyTorch twins read the
 same fp32 and fp64 bit patterns. The DCT-IV of B3, B4 and B5 is generated
 there too (`hca_dct4.inc`), as straight-line code from `dct4_schedule()`,
-the slot schedule the CPU tests run.
+the slot schedule the CPU tests run, and so are B6's window fold and
+encoder DCT-IV (`hca_mdct.inc`, from `mdct_schedule()`).
 
 Floating-point contract: `-fmad=false` and no fast-math flag, so every
 multiply and add rounds once, as in the JAX reference; `-ftz`, `-prec-div`
@@ -108,8 +109,7 @@ def tables_header() -> str:
                         [str(int(x)) for x in T.INVERT_TABLE]))
     out.append(_c_array("kVlcPacked", "uint32_t",
                         [f"{int(x)}u" for x in U.vlc_packed().reshape(-1)]))
-    for name, arr in (("kShuffle", T.SHUFFLE_TABLE),
-                      ("kQsBits", T.QUANTIZE_SPECTRUM_BITS),
+    for name, arr in (("kQsBits", T.QUANTIZE_SPECTRUM_BITS),
                       ("kQsValue", T.QUANTIZE_SPECTRUM_VALUE),
                       ("kQsMaxBits", T.QUANTIZED_SPECTRUM_MAX_BITS)):
         out.append(_c_array(name, "uint8_t",
@@ -120,15 +120,15 @@ def tables_header() -> str:
                       ("kRangeTable", T.RANGE_TABLE),
                       ("kScaleConversionTable", T.SCALE_CONVERSION_TABLE),
                       ("kIntensityRatioTable", T.INTENSITY_RATIO_TABLE),
-                      ("kImdctWindow", T.IMDCT_WINDOW),
-                      ("kDct4Sin", T.DCT4_SIN_FLAT),
-                      ("kDct4Cos", T.DCT4_COS_FLAT)):
+                      ("kImdctWindow", T.IMDCT_WINDOW)):
         out.append(_c_array(name, "float", _f32_literals(arr)))
     # MPEG Layer II: B10's header and allocation tables, the synthesis's
     # scalefactors, transposed matrixing nt[k][q] = N[q][k] and window
     mt = M.tables()
     for name, ctype, arr in (("kMp2Nbal", "uint8_t", mt["nbal"]),
                              ("kMp2Classes", "uint16_t", mt["classes"]),
+                             ("kMp2Gbits", "uint8_t", mt["gbits"]),
+                             ("kMp2Ubits", "uint8_t", mt["ubits"]),
                              ("kMp2Sblimit", "int", mt["sblimit"]),
                              ("kMp2TableSelect", "uint8_t", mt["select"]),
                              ("kMp2Bitrate", "int", mt["bitrate"]),
@@ -236,6 +236,111 @@ def dct4_source() -> str:
     return "".join(out)
 
 
+def mdct_schedule():
+    """The slot schedule of kernel B6's DCT-IV, the encoder's network
+    (hca.cpp:2481-2527; `mdct_plain`'s `dct4`), in place on a row's 128
+    slots, slot j holding fold output j at the start. Returns
+    (pre, stages, out_slot):
+    - pre lists (a, b, tw) per pre-rotation butterfly k: the slots of
+      x[2k] and x[127-2k] and the flat index 127 + k into DCT4_SIN_FLAT /
+      DCT4_COS_FLAT; (a, b) <- (a * cos + b * sin, a * sin - b * cos), which
+      are logical values 2k and 2k+1;
+    - stages[s] lists (fe, fo, be, bo, tw) per 4-value butterfly of stage s
+      (half block size bhs = 32 >> s): the slots of the front pair and the
+      back pair, and the flat twiddle index bhs - 1 + i; with
+      a2 = fe - be, b2 = fo - bo: fe <- fe + be, fo <- fo + bo,
+      be <- a2 * cos + b2 * sin, bo <- a2 * sin - b2 * cos;
+    - out_slot[j] is the slot of temp[SHUFFLE_TABLE[j]], output j before
+      its final * 0.125.
+    The pre-rotation's landing (logical 2k+1 in the slot of x[127-2k]) and
+    the SHUFFLE_TABLE gather are relabellings of the slots, fixed here."""
+    from .ops import hca_tables as T
+
+    pre = [(2 * k, 127 - 2 * k, 127 + k) for k in range(64)]
+    slot_of = [0] * 128                 # logical index -> slot
+    for k in range(64):
+        slot_of[2 * k], slot_of[2 * k + 1] = 2 * k, 127 - 2 * k
+    stages = []
+    for s in range(6):
+        bhs = 32 >> s
+        ops = []
+        for blk in range(1 << s):
+            for i in range(bhs):
+                f = blk * 4 * bhs + 2 * i
+                b = f + 2 * bhs
+                ops.append((slot_of[f], slot_of[f + 1], slot_of[b],
+                            slot_of[b + 1], bhs - 1 + i))
+        stages.append(ops)
+    out_slot = [slot_of[int(j)] for j in T.SHUFFLE_TABLE]
+    return pre, stages, out_slot
+
+
+def mdct_source() -> str:
+    """C++ of kernel B6's window fold and `mdct_schedule()`:
+    `mdct_fold(v, cur, prev)` writes the 128 fold outputs into v, reading
+    the block (cur) and the one before it (prev) 8 values at a time as
+    `cur(chunk, f)` (values 8 * chunk .. 8 * chunk + 7 into f[8]), window
+    values as f32 literals with their sign folded in (w * -x and -w * x
+    round alike);
+    `mdct_slots(v)` runs the pre-rotation and the six stages in place
+    (twiddles as f32 literals); `mdct_order(v, y)` names the results in
+    output order (register renaming, no instructions once inlined)."""
+    from .ops import hca_tables as T
+
+    w = np.asarray(T.IMDCT_WINDOW, np.float32)
+    lit = _f32_literals
+    wl, nwl = lit(w), lit(-w)
+    sin = lit(T.DCT4_SIN_FLAT)
+    cos = lit(T.DCT4_COS_FLAT)
+    pre, stages, out_slot = mdct_schedule()
+    out = ["// generated by pycricodecs_tpu_torch/_build.py (mdct_source); "
+           "do not edit\n", "#pragma once\n",
+           "template <class Cur, class Prev>\n",
+           "__device__ __forceinline__ void mdct_fold(float (&v)[128], "
+           "Cur cur, Prev prev) {\n", "  float h[8], l[8];\n"]
+    # first[j] = w[63-j] * -x[64+j] - (-w[64+j]) * x[63-j]     (j < 64)
+    # second[j] = w[j] * p[j] - (-w[127-j]) * p[127-j]
+    for half, load, (ha, la) in ((0, "cur", (8, 7)), (1, "prev", (0, 15))):
+        for m in range(8):
+            out.append(f"  {load}({ha + m}, h); {load}({la - m}, l);\n")
+            for e in range(8):
+                j = 8 * m + e
+                if half == 0:
+                    a, b = nwl[63 - j], nwl[64 + j]
+                else:
+                    a, b = wl[j], nwl[127 - j]
+                out.append(f"  v[{64 * half + j}] = __fsub_rn(__fmul_rn("
+                           f"h[{e}], {a}), __fmul_rn(l[{7 - e}], {b}));\n")
+    out.append("}\n")
+    out += ["__device__ __forceinline__ void mdct_slots(float (&v)[128]) {\n",
+            "  float a, b, c, d, e, f;\n", "  // pre-rotation\n"]
+    for a, b, tw in pre:
+        sn, cs = sin[tw], cos[tw]
+        out.append(f"  a = v[{a}]; b = v[{b}]; "
+                   f"v[{a}] = __fadd_rn(__fmul_rn(a, {cs}), "
+                   f"__fmul_rn(b, {sn})); "
+                   f"v[{b}] = __fsub_rn(__fmul_rn(a, {sn}), "
+                   f"__fmul_rn(b, {cs}));\n")
+    for s, ops in enumerate(stages):
+        out.append(f"  // stage {s}\n")
+        for fe, fo, be, bo, tw in ops:
+            sn, cs = sin[tw], cos[tw]
+            out.append(f"  a = v[{fe}]; b = v[{fo}]; c = v[{be}]; "
+                       f"d = v[{bo}]; e = __fsub_rn(a, c); "
+                       f"f = __fsub_rn(b, d); v[{fe}] = __fadd_rn(a, c); "
+                       f"v[{fo}] = __fadd_rn(b, d); "
+                       f"v[{be}] = __fadd_rn(__fmul_rn(e, {cs}), "
+                       f"__fmul_rn(f, {sn})); "
+                       f"v[{bo}] = __fsub_rn(__fmul_rn(e, {sn}), "
+                       f"__fmul_rn(f, {cs}));\n")
+    out.append("}\n")
+    out.append("__device__ __forceinline__ void mdct_order("
+               "const float (&v)[128], float (&y)[128]) {\n")
+    out += [f"  y[{j}] = v[{s}];\n" for j, s in enumerate(out_slot)]
+    out.append("}\n")
+    return "".join(out)
+
+
 def _nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):
@@ -249,13 +354,15 @@ def build() -> Path:
     global BUILD_SECONDS, BUILD_LOG
     sources = sorted(CSRC_DIR.glob("*.cu"))
     header = tables_header()
-    dct4 = dct4_source()
+    generated = {"hca_tables.inc": header, "hca_dct4.inc": dct4_source(),
+                 "hca_mdct.inc": mdct_source()}
     h = hashlib.sha256()
     for src in sources:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    h.update(header.encode())
-    h.update(dct4.encode())
+    for name, text in generated.items():
+        h.update(name.encode())
+        h.update(text.encode())
     h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     out_dir = BUILD_DIR / h.hexdigest()[:16]
     lib = out_dir / LIB_NAME
@@ -263,7 +370,7 @@ def build() -> Path:
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
     # write-then-rename: a concurrent build never sees a partial file
-    for name, text in (("hca_tables.inc", header), ("hca_dct4.inc", dct4)):
+    for name, text in generated.items():
         inc_tmp = out_dir / f"{name}.{os.getpid()}.tmp"
         inc_tmp.write_text(text)
         os.replace(inc_tmp, out_dir / name)

@@ -67,11 +67,11 @@ def check_cuda(t: torch.Tensor, name: str, dtype: torch.dtype,
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
-def check_aligned(t: torch.Tensor, name: str) -> None:
-    """Raise unless the tensor's data starts on a 16-byte boundary (the
-    kernels read and write it as float4)."""
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name}: data is not 16-byte aligned")
+def check_aligned(t: torch.Tensor, name: str, align: int = 16) -> None:
+    """Raise unless the tensor's data starts on an `align`-byte boundary
+    (the kernels read it as vectors of that many bytes)."""
+    if t.data_ptr() % align:
+        raise ValueError(f"{name}: data is not {align}-byte aligned")
 
 
 def launch_failed(kernel: str, rc: int) -> RuntimeError:
@@ -228,6 +228,7 @@ def hca_mdct(pcm) -> torch.Tensor:
     if total % 128:
         raise ValueError(f"pcm: length {total} is not a multiple of 128")
     Tn = total // 128
+    check_aligned(pcm, "pcm")
     check_cuda(pcm, "pcm", torch.int16, (B, C, total))
     out = torch.empty((B, C, Tn, 128), dtype=torch.float32,
                       device=pcm.device)
@@ -244,20 +245,29 @@ def hca_mdct(pcm) -> torch.Tensor:
 def mp2_unpack(frames, channels: int):
     """Kernel B10: Layer II frames u8 [N, fs_max] (CUDA), each zero-padded
     -> (codes u16 [N, C, 36, 32], levels i32 [N, C, 32], sfidx u8
-    [N, C, 3, 32], err bool [N])."""
+    [N, C, 3, 32], err bool [N]). The kernel writes every output byte."""
     global MP2_UNPACK_LAUNCHES
     N, W = frames.shape
     C = int(channels)
+    check_aligned(frames, "frames")
     check_cuda(frames, "frames", torch.uint8, (N, W))
     if C not in (1, 2):
         raise ValueError(f"channels {C} not in (1, 2)")
     dev = frames.device
-    codes = torch.zeros((N, C, 36, 32), dtype=torch.uint16, device=dev)
-    levels = torch.zeros((N, C, 32), dtype=torch.int32, device=dev)
-    sfidx = torch.zeros((N, C, 3, 32), dtype=torch.uint8, device=dev)
-    err = torch.zeros((N,), dtype=torch.bool, device=dev)
-    if N * W == 0:
-        return codes, levels, sfidx, err
+    if N * W == 0:   # no frame, or frames without a header: zeros, err set
+        return (torch.zeros((N, C, 36, 32), dtype=torch.uint16, device=dev),
+                torch.zeros((N, C, 32), dtype=torch.int32, device=dev),
+                torch.zeros((N, C, 3, 32), dtype=torch.uint8, device=dev),
+                torch.ones((N,), dtype=torch.bool, device=dev))
+    # one allocation for the four outputs (each part starts on a 16-byte
+    # boundary: 2,304, 128 and 96 bytes a frame and channel)
+    buf = torch.empty(N * (C * (2304 + 128 + 96) + 1), dtype=torch.uint8,
+                      device=dev)
+    parts = torch.split(buf, [N * C * 2304, N * C * 128, N * C * 96, N])
+    codes = parts[0].view(torch.uint16).view(N, C, 36, 32)
+    levels = parts[1].view(torch.int32).view(N, C, 32)
+    sfidx = parts[2].view(N, C, 3, 32)
+    err = parts[3].view(torch.bool)
     rc = _build.load().mp2_unpack(ptr(frames), N, W, C, ptr(codes),
                                   ptr(levels), ptr(sfidx), ptr(err),
                                   stream_ptr(frames))
@@ -273,6 +283,10 @@ def mp2_synth(codes, levels, sfidx) -> torch.Tensor:
     [B, C, F * 1152]."""
     global MP2_SYNTH_LAUNCHES
     B, F, C = codes.shape[:3]
+    # the kernel reads codes as 32-bit pairs, levels as int2 and sfidx as
+    # 16-bit pairs: 8-byte alignment covers all three
+    for name, t in (("codes", codes), ("levels", levels), ("sfidx", sfidx)):
+        check_aligned(t, name, 8)
     check_cuda(codes, "codes", torch.uint16, (B, F, C, 36, 32))
     check_cuda(levels, "levels", torch.int32, (B, F, C, 32))
     check_cuda(sfidx, "sfidx", torch.uint8, (B, F, C, 3, 32))

@@ -58,8 +58,9 @@ def load_smoke():
     return mod
 
 
-def sass_counts(lib: str) -> dict:
-    """kernel -> {"total": n, opcode class: n} from cuobjdump -sass."""
+def sass_counts(lib: str, names=KERNEL_NAMES) -> dict:
+    """kernel -> {"total": n, opcode class: n} from cuobjdump -sass, for
+    the kernels whose (mangled) name holds one of `names`."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     text = subprocess.run([tool, "-sass", lib], capture_output=True,
                           text=True, check=True, timeout=300).stdout
@@ -68,7 +69,7 @@ def sass_counts(lib: str) -> dict:
                      r"([A-Z][A-Z0-9_]*)")
     for line in text.splitlines():
         if "Function :" in line:
-            cur = next((k for k in KERNEL_NAMES if k in line), None)
+            cur = next((k for k in names if k in line), None)
             if cur:
                 counts[cur] = collections.Counter()
             continue
