@@ -149,7 +149,10 @@ RANDOM_FRAMES = 4096
 # 16 (nor of 4), and a frame count past whole CTAs
 ODD_FRAME_SIZE = 515
 RAGGED = 13
-# B2's cursor-only launch is timed at the key search's phase-1 shape
+# B1's frames shorter than the bits their side info can take, (frame size,
+# version) of a q4 stereo relabel
+SMALL_FRAME_SIZES = ((128, 0x0200), (131, 0x0300))
+# B1 and B2's cursor-only launch are timed at the key search's phase-1 shape
 KEY_ROWS = 400_000
 ADX_RANDOM_LANES = 64
 ADX_RANDOM_BLOCKS = 24
@@ -304,6 +307,17 @@ def require_equal(what: str, pairs) -> int:
     return worst
 
 
+def side_info_equal(what: str, up, dec) -> int:
+    """B1 against its twin: err on every row, sf, res, inten and cur on the
+    rows without err; returns max |diff|."""
+    k, t = up.side_info(dec), up.side_info_plain(dec)
+    worst = require_equal(what, [("err", k[4], t[4])])
+    ok = ~t[4]
+    return max(worst, require_equal(what, [
+        (n, a[ok], b[ok]) for n, a, b in zip(("sf", "res", "inten", "cur"),
+                                             k[:4], t[:4])]))
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Median milliseconds of fn() on the card (CUDA events), after a
     warm-up call."""
@@ -323,6 +337,12 @@ def cuda_ms(fn, reps: int) -> float:
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def side_info_bytes(up, side) -> int:
+    """The bytes B1 must move: the part of each row of dec its side info
+    can reach (`side_info_reach`), and its five outputs."""
+    return side[3].shape[0] * up.side_info_reach + nbytes(*side)
 
 
 def bound(name: str, moved_bytes: int, units: int,
@@ -1677,6 +1697,8 @@ def keysearch_phase(dev, card: str, worst: dict, launches: dict) -> dict:
         np.frombuffer(enc, np.uint8, count=2 * info.frame_size, offset=hs),
         len(probe)).reshape(-1, info.frame_size))).to(dev)
     dec = up.decipher(rows, tables, tix.repeat_interleave(2))
+    worst["hca_side_info"] = max(worst["hca_side_info"], side_info_equal(
+        f"B1 key rows of {len(probe)} keys", up, dec))
     side = up.side_info(dec)
     qk, ek = up.spectra(dec, side[1], side[3])
     qt, et = up.spectra_plain(dec, side[1], side[3])
@@ -1701,7 +1723,17 @@ def keysearch_phase(dev, card: str, worst: dict, launches: dict) -> dict:
     log(f"hca_coefficients cursor-only [{card}] at {dec.shape[0]} "
         f"key-search rows: kernel {cursor_ms:.4f} ms (its end cursor equal "
         f"to the spectra launch's)")
-    del dec, res, cur, full_end, pairs
+    # B1 at the same rows: equal to its twin, then timed
+    worst["hca_side_info"] = max(worst["hca_side_info"], side_info_equal(
+        f"B1 at {dec.shape[0]} key-search rows", up, dec))
+    side = up.side_info(dec)
+    b1_ms = cuda_ms(lambda: up.side_info(dec), 10)
+    b1_bd = bound("hca_side_info", side_info_bytes(up, side),
+                  nbytes(*side[:3]))
+    log(f"hca_side_info [{card}] at {dec.shape[0]} key-search rows: kernel "
+        f"{b1_ms:.4f} ms, bound {b1_bd['bound_ms']:.4f} ms by "
+        f"{b1_bd['bound_by']} (equal to the twin)")
+    del dec, res, cur, full_end, pairs, side
 
     # the key search at full width: bench_all config 6's traffic
     cands = keys
@@ -1880,9 +1912,20 @@ def main() -> None:
     odd = hca_frame.parse_header(
         blobs["q4_stereo_48k_1s"][:infos["q4_stereo_48k_1s"].header_size])
     odd.frame_size = ODD_FRAME_SIZE
+    # frames shorter than their side info can run: B1 tests every read
+    # against the frame end only there (SMALL_FRAME_SIZES)
+    small = []
+    for fs, version in SMALL_FRAME_SIZES:
+        info = hca_frame.parse_header(
+            blobs["q4_stereo_48k_1s"][:infos["q4_stereo_48k_1s"].header_size])
+        info.version = version
+        info.init_derived()
+        info.frame_size = fs
+        small.append((f"fs{fs}_v{version >> 8}_relabel_q4_stereo", info))
     rng = np.random.default_rng(0)
     for name, info in [*infos.items(), ("v3_relabel_q4_stereo", v3),
-                       (f"fs{ODD_FRAME_SIZE}_relabel_q4_stereo", odd)]:
+                       (f"fs{ODD_FRAME_SIZE}_relabel_q4_stereo", odd),
+                       *small]:
         # RAGGED frames more than whole CTAs of 32: a ragged last CTA
         fr = rng.integers(0, 256, (RANDOM_FRAMES + RAGGED, info.frame_size),
                           dtype=np.uint8)
@@ -1909,6 +1952,12 @@ def main() -> None:
             require_equal(f"B2 random {name}", [("qc", qk[ok], qt[ok])]))
         log(f"B1+B2 random {name}: {RANDOM_FRAMES + RAGGED} frames, "
             f"{int(ok.sum())} without error: byte-equal to the twins")
+        # B1 on the same frames as a view 3 bytes past a 16-byte boundary
+        buf = torch.zeros(d.numel() + 16, dtype=torch.uint8, device=dev)
+        buf[3:3 + d.numel()] = d.reshape(-1)
+        worst["hca_side_info"] = max(worst["hca_side_info"], side_info_equal(
+            f"B1 random {name}, dec 3 bytes past 16", u,
+            buf[3:3 + d.numel()].view(d.shape)))
 
     for name, info in infos.items():
         C = info.channels
@@ -2014,7 +2063,8 @@ def main() -> None:
     n_frames = CHUNK * F
     C = bank_info.channels
     bounds = {
-        "hca_side_info": bound("hca_side_info", nbytes(dec, *side_k),
+        "hca_side_info": bound("hca_side_info",
+                               side_info_bytes(up, side_k),
                                nbytes(*side_k[:3])),
         "hca_coefficients": bound("hca_coefficients",
                                   nbytes(dec, side_k[1], side_k[3], qc_k),

@@ -46,8 +46,7 @@ _L = ctypes.c_longlong
 # C entry points: each launches one kernel on the given stream and returns
 # cudaGetLastError()
 SIGNATURES = {
-    "hca_side_info": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
-                      _P, _P, _P, _P, _P, _P],
+    "hca_side_info": [_P, _I, _P, _P, _P, _P, _P, _P, _P],
     "hca_coefficients": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     "hca_transform": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                       _I, _I, _P, _P, _P, _P, _P, _P],

@@ -3,13 +3,18 @@ spectra, scalefactors, resolutions and intensities.
 
 Counterpart of pycricodecs_tpu/ops/hca_unpack_device.py. Frames are serial
 inside (each prefix code moves the bit cursor of the next) and independent
-of each other, so both phases run one frame per GPU thread:
+of each other, so both kernels run one frame per lane of a warp:
 
 - `side_info` (kernel B1, csrc/hca_unpack.cu): per channel the scalefactor
   delta codes with escapes, the v3 HFR extension copy, the v2 HFR scales or
   the intensity values (v2 4-bit, v3 delta-coded with escapes), then the
   resolutions from scalefactors, ATH curve and noise level. Also the bit
-  cursor where the spectra start and a per-frame error flag.
+  cursor where the spectra start and a per-frame error flag. A lane decodes
+  its frame's symbols from a shared-memory copy, branch-free across the
+  lanes' modes; the warp then computes the resolutions of its 32 frames
+  together, four bands a lane, and stores whole 128-byte rows. The five
+  outputs are views of one allocation (`side_info_layout`), made while the
+  kernel runs.
 - `coefficients` / `spectra` (kernel B2): 8 subframes x channels x
   coded_count prefix symbols from that cursor, and the unclamped cursor
   after the last one (the key search's end-of-frame rules); `spectra` can
@@ -211,10 +216,33 @@ class DeviceUnpacker:
                 raise HcaError("cs_count == 128 with HFR extension")
             self.cs_counts.append(cs)
             self.extras.append(extra)
-        self._chan = np.ascontiguousarray(
-            self.coded + self.cs_counts + self.extras + self.ctype,
-            dtype=np.int32)
         self._coded = np.ascontiguousarray(self.coded, dtype=np.int32)
+        # the bytes of a frame B1 reads at most (it stages only those)
+        max_bits = self.side_info_max_bits()
+        self.side_info_reach = min(self.fs, (max_bits + 7) >> 3)
+        # B1's config (hca_side_info in csrc/hca_unpack.cu): fs, C,
+        # version, hfr, min_res, max_res, max_bits, per channel coded, cs,
+        # extra and type, then the ATH curve as 32 words of 4 bands
+        self._side_info_cfg = np.concatenate([
+            np.array([self.fs, C, self.version, self.hfr, self.min_res,
+                      self.max_res, max_bits, *self.coded,
+                      *self.cs_counts, *self.extras, *self.ctype], np.int32),
+            self.ath.view("<i4")])
+        self._side_info_cfg_ptr = ck.host_ptr(self._side_info_cfg)
+
+    def side_info_max_bits(self) -> int:
+        """The most bits a frame's side info can take: 32 header bits, per
+        channel 3 + 6 + 11 (a delta code and its escape) per further
+        scalefactor, then 32 v2 or 55 v3 intensity bits, or 6 per v2 HFR
+        scale."""
+        bits = 32
+        for c in range(self.C):
+            bits += 9 + 11 * max(self.cs_counts[c] - 1, 0)
+            if self.ctype[c] == T.STEREO_SECONDARY:
+                bits += 32 if self.version <= VERSION_V200 else 55
+            elif self.version <= VERSION_V200:
+                bits += 6 * max(self.hfr, 0)
+        return bits
 
     # -- decipher -----------------------------------------------------------
 
@@ -241,25 +269,41 @@ class DeviceUnpacker:
 
     def _side_info_cuda(self, dec):
         global SIDE_INFO_LAUNCHES
-        N, C = dec.shape[0], self.C
+        N = dec.shape[0]
         ck.check_cuda(dec, "dec", torch.uint8, (N, self.fs))
-        dev = dec.device
-        sf = torch.empty((N, C, 128), dtype=torch.uint8, device=dev)
-        res = torch.empty((N, C, 128), dtype=torch.uint8, device=dev)
-        inten = torch.empty((N, C, 8), dtype=torch.uint8, device=dev)
-        cur = torch.empty((N,), dtype=torch.int32, device=dev)
-        err = torch.empty((N,), dtype=torch.bool, device=dev)
-        if N == 0:
-            return sf, res, inten, cur, err
-        rc = _build.load().hca_side_info(
-            ck.ptr(dec), N, self.fs, C, self.version, self.hfr,
-            self.min_res, self.max_res, ck.host_ptr(self._chan),
-            ck.host_ptr(self.ath), ck.ptr(sf), ck.ptr(res), ck.ptr(inten),
-            ck.ptr(cur), ck.ptr(err), ck.stream_ptr(dec))
-        if rc:
-            raise ck.launch_failed("hca_side_info", rc)
-        SIDE_INFO_LAUNCHES += 1
-        return sf, res, inten, cur, err
+        offsets = self.side_info_layout(N)
+        buf = torch.empty(offsets[-1], dtype=torch.uint8, device=dec.device)
+        if N:
+            p = buf.data_ptr()
+            rc = _build.load().hca_side_info(
+                dec.data_ptr(), N, self._side_info_cfg_ptr, p,
+                p + offsets[1], p + offsets[2], p + offsets[3],
+                p + offsets[4], ck.stream_ptr(dec))
+            if rc:
+                raise ck.launch_failed("hca_side_info", rc)
+            SIDE_INFO_LAUNCHES += 1
+        # the views are made while the kernel runs
+        return self.side_info_views(buf, N, offsets)
+
+    def side_info_layout(self, N: int) -> tuple:
+        """Byte offsets of B1's five outputs in their one allocation (sf,
+        res, inten, cur, err, and the end), each part on a 16-byte
+        boundary (as `hca_side_info` in csrc/hca_unpack.cu requires)."""
+        n_sf, n_in = N * self.C * 128, N * self.C * 8
+        o_cur = 2 * n_sf + ((n_in + 15) & ~15)
+        o_err = o_cur + ((4 * N + 15) & ~15)
+        return 0, n_sf, 2 * n_sf, o_cur, o_err, o_err + N
+
+    def side_info_views(self, buf, N: int, offsets):
+        """(sf u8 [N, C, 128], res u8 [N, C, 128], inten u8 [N, C, 8],
+        cur i32 [N], err bool [N]) on `buf` at `offsets`."""
+        C = self.C
+        _, o_res, o_in, o_cur, o_err, _ = offsets
+        return (buf.as_strided((N, C, 128), (C * 128, 128, 1)),
+                buf.as_strided((N, C, 128), (C * 128, 128, 1), o_res),
+                buf.as_strided((N, C, 8), (C * 8, 8, 1), o_in),
+                buf[o_cur:o_cur + 4 * N].view(torch.int32),
+                buf[o_err:].view(torch.bool))
 
     def side_info_plain(self, dec: torch.Tensor):
         """Plain PyTorch twin of kernel B1 (mirrors the JAX unpacker's

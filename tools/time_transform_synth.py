@@ -45,8 +45,8 @@ KERNEL_NAMES = ("hca_transform_kernel", "mp2_synth_kernel")
 # opcode classes counted (the first token of a SASS instruction, before
 # its first '.')
 CLASSES = ("FMUL", "FADD", "DMUL", "DADD", "DFMA", "LDS", "STS", "LDG",
-           "STG", "LDC", "LDGSTS", "BAR", "WARPSYNC", "SHFL", "BRA", "MUFU",
-           "F2I", "I2F", "PRMT")
+           "STG", "LDL", "STL", "LDC", "LDGSTS", "BAR", "WARPSYNC", "SHFL",
+           "BRA", "MUFU", "F2I", "I2F", "PRMT")
 
 
 def load_smoke():
