@@ -3,7 +3,8 @@
 
 Drives the port's main paths on one CUDA GPU: the batched HCA bank decode,
 the batched ADX bank decode and encode, the batched HCA bank encode, the v3
-PNS decode, the AHX decode and the HCA key search.
+PNS decode, the AHX decode, the HCA key search, the AWB/ACB bank decode,
+the single-file surfaces and the CLI.
 
 HCA:
 
@@ -37,16 +38,22 @@ ADX (tests/data/torch_port/adx/, hashes from the JAX package):
    modes 2/3/4, bit depths 2/4/5/8/11/12 (odd spb 25, spb 1 and 1,012
    among them), scale_fix off and on; loud rails at bit depth 2 (the u16 wrap, the 0x1000 cap); lane
    counts that leave B8's last CTA ragged; one block, and one chunk plus 3;
+   B7's host instance (the JAX host decoders' int64 arithmetic, wrap=False)
+   against its twin: random mode 4 blocks at bit depths 2/4/8/11/15 with a
+   quarter of the scale words 13 mod 32 (scale 2^31), modes 2/3 at bit
+   depth 15, the ragged lane counts, one block and one chunk plus 3, and a
+   block on which the two instances give the two answers;
 7. `adx_decode_batch` of 256 copies of the 10 s stereo bank stream (4-bit,
-   block 0x12, mode 3, version 4) and of the 1 s fixtures, and
+   block 0x12, mode 3, version 4; B7's host instance, the default) and of
+   the 1 s fixtures (also with wrap=True, the wrap instance), and
    `adx_encode_batch` of 256 copies of the bank's 10 s WAV (rebuilt by
    pycricodecs_tpu_torch/utils/signals.py, the fixtures' recipe, and held
    to its recorded hash) and of each 1 s case: every output's sha256 equal to the JAX
    package's; each path launched its kernel;
-8. at the bank shape (512 lanes x 15,000 blocks), B7 and B8 against their
-   twins on the first 300 blocks of every lane (the twins timed once there,
-   CUDA events), the kernels timed at the full shape by CUDA events, and
-   each bank call timed (median of 3).
+8. at the bank shape (512 lanes x 15,000 blocks), B7 (both instances) and
+   B8 against their twins on the first 300 blocks of every lane (the twins
+   timed once there, CUDA events), the kernels timed at the full shape by
+   CUDA events, and each bank call timed (median of 3).
 
 HCA encode (tests/data/torch_port/, input WAVs rebuilt by signals.hca_wav
 and held to their recorded hashes):
@@ -117,11 +124,29 @@ from the JAX package):
    path (the JAX
    package runs it only in its tests), so its launch count is 0.
 
+Banks, single-file surfaces, CLI (tests/data/torch_port/bank/, hashes from
+the JAX package):
+15. `decode_acb` of bank.acb with its sibling bank.awb, written to a
+   temporary directory by the port's `build_afs2` from 256 copies of the
+   10 s bank stream (BASELINE config 5 at its defined size; the AWB held to
+   the JAX `build_afs2`'s hash): every WAV equal to the bank hash, B1-B3
+   launched, timed (median of 3 after a warm-up) with the ACB + AWB parse
+   and member read timed alone as the host layer; `decode_acb` of
+   mixed.acb (HCA, ADX that only the non-strict check accepts, a mode 4
+   ADX with scale words 13 mod 32, a truncated ADX, AHX, a corrupt AHX, a
+   bad ADX header, a non-audio member; with and without the non-HCA
+   decode) and `decode_awb` of subkey.awb (cipher 56 under a bank subkey),
+   every output equal to its recorded hash, B1-B3, B7's host instance, B10
+   and `mp2_synth` launched; `models.adx.decode` / `encode`, `HCA.decode`
+   / `encode` and `AHX.decode` on the 1 s fixtures; the CLI in-process
+   (`bank-decode` of mixed.acb, `decode` of an HCA fixture), the files'
+   sha256 held to the JAX package's.
+
 Prints a JSON line of per-kernel results (launches on the main paths, max
 |kernel - twin|, kernel/twin ms, the bound from the bytes and operations of
-the timed call, and for B7/B8 from their dependent chain at the card's
-maximum SM clock; the library calls of B4, B5, B6 and `mp2_synth`), the
-card line, and last a JSON line
+the timed call, and for B7 (each instance) and B8 from their dependent
+chain at the card's maximum SM clock; the library calls of B4, B5, B6 and
+`mp2_synth`), the card line, and last a JSON line
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; there
 is no CPU path.
 
@@ -169,6 +194,11 @@ KERNELS = {
         source="pycricodecs_tpu_torch/csrc/hca_transform.cu",
         replaces="pycricodecs_tpu/ops/pallas_kernels.py:448"),
     "adx_decode": dict(
+        source="pycricodecs_tpu_torch/csrc/adx_codec.cu",
+        replaces="pycricodecs_tpu/ops/adx_kernels.py:194"),
+    # B7's second instance: the JAX host decoders' arithmetic (the default
+    # of adx_decode_batch, the single-file decode and the bank decode)
+    "adx_decode_host": dict(
         source="pycricodecs_tpu_torch/csrc/adx_codec.cu",
         replaces="pycricodecs_tpu/ops/adx_kernels.py:194"),
     "adx_encode": dict(
@@ -238,13 +268,14 @@ FP64_OPS_PER_S = 17e12
 # - B4 (hca_imdct_ola): the DCT-IV's 28 and window + overlap-add 3 per
 #   output value; B5 (hca_imdct): the DCT-IV's 28.
 OPS = {"hca_side_info": 1, "hca_coefficients": 3, "hca_transform": 35,
-       "adx_decode": 13, "adx_encode": 20, "hca_mdct": 23, "hca_pack": 3,
+       "adx_decode": 13, "adx_decode_host": 13, "adx_encode": 20, "hca_mdct": 23, "hca_pack": 3,
        "hca_transform_pns": 37, "mp2_unpack": 3, "mp2_synth": 164,
        "hca_imdct_ola": 31, "hca_imdct": 28}
 OPS_PER_S = {"mp2_synth": FP64_OPS_PER_S,
              **dict.fromkeys(("hca_side_info", "hca_coefficients",
                               "hca_pack", "mp2_unpack", "adx_decode",
-                              "adx_encode"), INT32_OPS_PER_S)}
+                              "adx_decode_host", "adx_encode"),
+                            INT32_OPS_PER_S)}
 # Dependent operations on the critical path of one step of a serial
 # recurrence (the third bound term, `chain`: steps per lane x these ops x
 # CHAIN_CYCLES_PER_OP / the card's maximum SM clock). Assumption: every
@@ -256,7 +287,7 @@ OPS_PER_S = {"mp2_synth": FP64_OPS_PER_S,
 #   side), the rounding add, the select, the division's mask (r & add),
 #   multiply-high, shift and sign fix, the simulated decoder's multiply-add,
 #   shift and two clamps = 13 (14 in adx_encode_plain's order).
-CHAIN_OPS = {"adx_decode": 5, "adx_encode": 13}
+CHAIN_OPS = {"adx_decode": 5, "adx_decode_host": 5, "adx_encode": 13}
 CHAIN_CYCLES_PER_OP = 4
 
 
@@ -397,12 +428,21 @@ DECODE_GEOMETRIES = [(2, 0x12), (4, 0x12), (5, 0x12), (8, 0x12), (8, 3),
                      (11, 13), (12, 0x12), (15, 0x12), (2, 255), (5, 12)]
 
 
-def decode_pair(dev, rng, what, L, nb, bd, bs, mode) -> int:
-    """B7 against its twin on random block bytes; mode 2 draws predictors
-    4-7 and mode 4 scale words 13 mod 32 (1 << 31, which wraps)."""
+def decode_pair(dev, rng, what, L, nb, bd, bs, mode, wrap=True,
+                words13=False) -> int:
+    """B7 (its wrap or its host instance) against its twin on random block
+    bytes; mode 2 draws predictors 4-7 and mode 4 scale words 13 mod 32
+    (1 << 31, which wraps); words13: about a quarter of the scale words are
+    13 mod 32 and the rest are drawn from 0..63 (scales 2^12 down to 2^13
+    and 2^31 ... 2^13 again, the products that leave int32)."""
     from pycricodecs_tpu_torch.ops import adx_kernels as A
     from pycricodecs_tpu_torch.ops import cuda_kernels
     raw = rng.integers(0, 256, (L, nb, bs), dtype=np.uint8)
+    if words13:
+        w = np.where(rng.random((L, nb)) < 0.25,
+                     13 + 32 * rng.integers(0, 2048, (L, nb)),
+                     rng.integers(0, 64, (L, nb)))
+        raw[..., 0], raw[..., 1] = w >> 8, w & 0xFF
     raw[0, 0, :2] = (0x00, 0x0D)    # mode 4: 1 << 31 (wraps)
     raw[-1, -1, :2] = (0xE0, 0x10)  # mode 2: predictor 7
     words = (raw[..., 0].astype(np.int32) << 8) | raw[..., 1]
@@ -412,7 +452,7 @@ def decode_pair(dev, rng, what, L, nb, bd, bs, mode) -> int:
         raise AssertionError("no mode 4 1 << 31 scale drawn")
     h1, h2, c0, c1 = random_lanes(rng, L, dev)
     payload = torch.from_numpy(raw).to(dev)
-    kw = dict(bit_depth=bd, encoding_mode=mode)
+    kw = dict(bit_depth=bd, encoding_mode=mode, wrap=wrap)
     got = cuda_kernels.adx_decode(payload, h1, h2, c0, c1, **kw)
     want = A.adx_decode_plain(payload, h1, h2, c0, c1, **kw)
     return require_equal(what, [("pcm", got, want)])
@@ -469,6 +509,70 @@ def adx_random_decode_checks(dev) -> int:
                     bd, bs, mode))
             log(f"B7 bd {bd} block {bs} (K {K}): {L} lanes x {nb} blocks, "
                 f"modes 2/3/4 byte-equal to the twin")
+    return worst
+
+
+# (bit depth, block size) of B7's host-instance checks in mode 4: bit depths
+# 2, 4, 8, 11 and 15 (spb 64, 32, 16, 8 and 8)
+HOST_GEOMETRIES = [(2, 0x12), (4, 0x12), (8, 0x12), (11, 13), (15, 0x12)]
+
+
+def adx_host_decode_checks(dev) -> int:
+    """B7's host instance against its twin (wrap=False) on random blocks
+    in mode 4, a quarter of the scale words 13 mod 32 (scale 2^31), at bit
+    depths 2/4/8/11/15; modes 2 and 3 at bit depth 15; the lane counts of
+    the wrap instance's checks (ragged last CTAs), one block and one chunk
+    plus 3. Fails unless the host and wrap instances differ somewhere."""
+    from pycricodecs_tpu_torch.models.adx import samples_per_block
+    from pycricodecs_tpu_torch.ops import adx_kernels as A
+    from pycricodecs_tpu_torch.ops import cuda_kernels
+    rng = np.random.default_rng(13)
+    worst = 0
+    L = ADX_RANDOM_LANES
+    for bd, bs in HOST_GEOMETRIES:
+        spb = samples_per_block(bs, bd)
+        nb = max(4, min(ADX_RANDOM_BLOCKS, 4096 // spb))
+        worst = max(worst, decode_pair(
+            dev, rng, f"B7 host bd {bd} bs {bs}", L, nb, bd, bs, 4,
+            wrap=False, words13=True))
+        log(f"B7 host instance, mode 4 bd {bd} block {bs} (spb {spb}): {L} "
+            f"lanes x {nb} blocks, a quarter of the scale words 13 mod 32: "
+            f"byte-equal to the twin")
+    for mode in (2, 3):
+        worst = max(worst, decode_pair(
+            dev, rng, f"B7 host mode {mode} bd 15", L, ADX_RANDOM_BLOCKS, 15,
+            0x12, mode, wrap=False))
+    log(f"B7 host instance, modes 2/3 bd 15: byte-equal to the twin")
+    nb = ADX_RANDOM_BLOCKS
+    for lanes in ENCODE_LANE_COUNTS:
+        worst = max(worst, decode_pair(
+            dev, rng, f"B7 host {lanes} lanes", lanes, nb, 15, 0x12, 4,
+            wrap=False, words13=True))
+    log(f"B7 host instance at {ENCODE_LANE_COUNTS} lanes x {nb} blocks "
+        f"(bd 15, mode 4): byte-equal to the twin")
+    K = cuda_kernels.adx_decode_plan(L, 4096, block_size=0x12,
+                                     bit_depth=4)[1]
+    for nb in (1, K + 3):
+        worst = max(worst, decode_pair(
+            dev, rng, f"B7 host {nb} blocks", L, nb, 4, 0x12, 4, wrap=False,
+            words13=True))
+    log(f"B7 host instance at 1 and K + 3 = {K + 3} blocks: byte-equal to "
+        f"the twin")
+    # the two instances differ on such blocks (the checks reach the case)
+    raw = np.zeros((1, 2, 0x12), np.uint8)
+    raw[0, :, 1] = 13
+    raw[0, :, 2:] = 0x17
+    lane = torch.zeros(1, dtype=torch.int32, device=dev)
+    payload = torch.from_numpy(raw).to(dev)
+    outs = [cuda_kernels.adx_decode(payload, lane, lane, lane, lane,
+                                    bit_depth=4, encoding_mode=4, wrap=w)
+            for w in (True, False)]
+    want = A.adx_decode_plain(payload, lane, lane, lane, lane, bit_depth=4,
+                              encoding_mode=4, wrap=False)
+    if not torch.equal(outs[1], want) or int(outs[1].max()) != 32767 \
+            or int(outs[0].min()) != -32768:
+        raise AssertionError("B7's host and wrap instances do not give the "
+                             "host and wrap answers on scale word 13")
     return worst
 
 
@@ -612,6 +716,7 @@ def reset_launches() -> None:
     U.COEFF_LAUNCHES = 0
     cuda_kernels.TRANSFORM_LAUNCHES = 0
     cuda_kernels.ADX_DECODE_LAUNCHES = 0
+    cuda_kernels.ADX_DECODE_HOST_LAUNCHES = 0
     cuda_kernels.ADX_ENCODE_LAUNCHES = 0
     cuda_kernels.MDCT_LAUNCHES = 0
     cuda_kernels.PACK_LAUNCHES = 0
@@ -628,6 +733,7 @@ def read_launches() -> dict:
             "hca_coefficients": U.COEFF_LAUNCHES,
             "hca_transform": cuda_kernels.TRANSFORM_LAUNCHES,
             "adx_decode": cuda_kernels.ADX_DECODE_LAUNCHES,
+            "adx_decode_host": cuda_kernels.ADX_DECODE_HOST_LAUNCHES,
             "adx_encode": cuda_kernels.ADX_ENCODE_LAUNCHES,
             "hca_mdct": cuda_kernels.MDCT_LAUNCHES,
             "hca_pack": cuda_kernels.PACK_LAUNCHES,
@@ -691,13 +797,17 @@ def adx_phases(dev, card: str, worst: dict, launches: dict) -> dict:
     if not fixture_geometries <= set(DECODE_GEOMETRIES):
         raise AssertionError("a fixture's geometry is not a phase-6 case")
     worst["adx_decode"] = adx_random_decode_checks(dev)
+    worst["adx_decode_host"] = adx_host_decode_checks(dev)
     worst["adx_encode"] = adx_random_encode_checks(dev)
 
     # -- phase 7: the ADX bank decode and encode, held to the JAX hashes ----
+    # (adx_decode_batch's default is B7's host instance; its wrap=True, the
+    # JAX device path's arithmetic, runs the wrap instance on the 1 s
+    # fixtures below)
     bank = [blobs[bank_name]] * BANK_STREAMS
-    wavs, counts = drive("adx_decode_batch", ["adx_decode"],
+    wavs, counts = drive("adx_decode_batch", ["adx_decode_host"],
                          lambda: port.adx_decode_batch(bank, device=dev))
-    launches["adx_decode"] = counts["adx_decode"]
+    launches["adx_decode_host"] = counts["adx_decode_host"]
     want = expected[bank_name]["wav_sha256"]
     bad = [i for i, w in enumerate(wavs) if sha(w) != want]
     if bad:
@@ -709,13 +819,18 @@ def adx_phases(dev, card: str, worst: dict, launches: dict) -> dict:
         f"({dec_bytes} WAV bytes)")
     del wavs
     small = [n for n in expected if n != bank_name]
-    for name, w in zip(small, port.adx_decode_batch(
-            [blobs[n] for n in small], device=dev)):
-        if sha(w) != expected[name]["wav_sha256"]:
+    wrapped, counts = drive(
+        "adx_decode_batch(wrap=True)", ["adx_decode"],
+        lambda: port.adx_decode_batch([blobs[n] for n in small], device=dev,
+                                      wrap=True))
+    launches["adx_decode"] = counts["adx_decode"]
+    for name, w, ww in zip(small, port.adx_decode_batch(
+            [blobs[n] for n in small], device=dev), wrapped):
+        if sha(w) != expected[name]["wav_sha256"] or ww != w:
             raise AssertionError(f"{name}: WAV differs from the JAX "
                                  f"package's decode")
-        log(f"ADX fixture {name}: decoded WAV sha256 equal to the JAX "
-            f"package's")
+        log(f"ADX fixture {name}: decoded WAV sha256 (host and wrap "
+            f"instances) equal to the JAX package's")
 
     wav_in = {}
     for name in expected:
@@ -745,7 +860,7 @@ def adx_phases(dev, card: str, worst: dict, launches: dict) -> dict:
             f"JAX package's")
 
     # -- phase 8: the kernels and twins at the bank shape; bank timings -----
-    parsed = [(adx_model.parse_adx_header(b), b) for b in bank]
+    parsed = [P._parse_adx(b) for b in bank]
     lanes, h1, h2, c0, c1, _ = P._stack_adx_group(parsed,
                                                   list(range(len(bank))))
     dargs = [torch.from_numpy(lanes).to(dev),
@@ -771,7 +886,22 @@ def adx_phases(dev, card: str, worst: dict, launches: dict) -> dict:
     d_ms = cuda_ms(lambda: cuda_kernels.adx_decode(*dargs, **dkw), 5)
     d_bound = bound("adx_decode", nbytes(*dargs, pcm_k), L * nb * spb,
                     chain_steps=nb * spb)
-    del pcm_t, pre_d
+    # B7's host instance at the same shape: the same bytes and chain
+    hkw = dict(dkw, wrap=False)
+    pcm_h = cuda_kernels.adx_decode(*dargs, **hkw)
+    pcm_t, h_plain = cuda_ms_once(lambda: A.adx_decode_plain(*pre_d, **hkw))
+    worst["adx_decode_host"] = max(worst["adx_decode_host"], require_equal(
+        "B7 host bank prefix", [("pcm", pcm_h[:, :pre], pcm_t)]))
+    if not torch.equal(pcm_h, pcm_k):
+        raise AssertionError("B7's instances differ on the bank, which has "
+                             "no scale word past int32")
+    h_ms = cuda_ms(lambda: cuda_kernels.adx_decode(*dargs, **hkw), 5)
+    h_bound = bound("adx_decode_host", nbytes(*dargs, pcm_h), L * nb * spb,
+                    chain_steps=nb * spb)
+    log(f"B7 host instance at the bank shape: its first {pre} blocks "
+        f"byte-equal to the twin on them, the whole bank equal to the wrap "
+        f"instance's")
+    del pcm_t, pre_d, pcm_h
 
     preps = [adx_model._encode_prep(
         wav_in[bank_name], bit_depth=4, block_size=0x12, encoding_mode=3,
@@ -809,6 +939,7 @@ def adx_phases(dev, card: str, worst: dict, launches: dict) -> dict:
             f"{audio_s:.0f} audio-s -> {audio_s / wall:.1f} audio-s/s; runs "
             f"{[round(r, 4) for r in runs]}")
     for name, ms, plain, bd in (("adx_decode", d_ms, d_plain, d_bound),
+                                ("adx_decode_host", h_ms, h_plain, h_bound),
                                 ("adx_encode", e_ms, e_plain, e_bound)):
         log(f"{name} chain bound inputs: {nb * spb} steps per lane x "
             f"{CHAIN_OPS[name]} critical-path ops x {CHAIN_CYCLES_PER_OP} "
@@ -817,6 +948,7 @@ def adx_phases(dev, card: str, worst: dict, launches: dict) -> dict:
             f"{ms:.4f} ms, twin {plain:.4f} ms at {L} lanes x {pre} blocks "
             f"(one run), bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}")
     return {"adx_decode": (d_ms, d_plain, d_bound),
+            "adx_decode_host": (h_ms, h_plain, h_bound),
             "adx_encode": (e_ms, e_plain, e_bound)}
 
 
@@ -1825,6 +1957,178 @@ def keysearch_phase(dev, card: str, worst: dict, launches: dict) -> dict:
             "hca_imdct": (dct_ms, dct_plain_ms, dct_bd, lib_ms)}
 
 
+# ---------------------------------------------------------------------------
+# Banks, the single-file surfaces and the CLI (phase 15)
+# ---------------------------------------------------------------------------
+
+BANK_FIXTURES = os.path.join(FIXTURES, "bank")
+HCA_KERNELS = ("hca_side_info", "hca_coefficients", "hca_transform")
+
+
+def write_bank_awb(tmp: str, bank_expected: dict) -> str:
+    """bank.acb and its sibling bank.awb (the port's build_afs2 of 256
+    copies of the bank stream, held to the JAX build_afs2's hash) in tmp;
+    returns the ACB's path."""
+    from pycricodecs_tpu_torch.containers.awb import build_afs2
+    e = bank_expected
+    with open(os.path.join(BANK_FIXTURES, e["file"]), "rb") as f:
+        acb = f.read()
+    with open(os.path.join(FIXTURES, e["member"]), "rb") as f:
+        track = f.read()
+    awb = build_afs2([track] * e["tracks"])
+    if sha(acb) != e["acb_sha256"] or sha(awb) != e["awb_sha256"]:
+        raise AssertionError("bank.acb or the rebuilt bank.awb differs "
+                             "from its recorded hash")
+    with open(os.path.join(tmp, "bank.acb"), "wb") as f:
+        f.write(acb)
+    with open(os.path.join(tmp, e["name"] + ".awb"), "wb") as f:
+        f.write(awb)
+    log(f"bank.awb: {len(awb)} bytes ({e['tracks']} x {e['member']}), "
+        f"sha256 equal to the JAX package's build_afs2")
+    return os.path.join(tmp, "bank.acb")
+
+
+def require_hashes(what: str, outs, want) -> None:
+    got = [sha(o) for o in outs]
+    bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+    if len(got) != len(want) or bad:
+        raise AssertionError(f"{what}: outputs {bad[:8]} differ from the JAX "
+                             f"package's ({len(got)} of {len(want)})")
+
+
+def bank_phase(dev, card: str, hca_expected: dict) -> None:
+    """Phase 15: decode_acb of the 256 x 10 s bank (BASELINE config 5)
+    and of mixed.acb, decode_awb of subkey.awb, the single-file surfaces
+    and the CLI in-process, each output held to the JAX package's hash."""
+    import tempfile
+
+    import pycricodecs_tpu_torch as port
+    from pycricodecs_tpu_torch import __main__ as cli
+    from pycricodecs_tpu_torch.containers.acb import ACB
+    from pycricodecs_tpu_torch.models import adx as adx_model
+    from pycricodecs_tpu_torch.models import hca as hca_model
+    from pycricodecs_tpu_torch.utils import signals
+    from pycricodecs_tpu_torch.utils.wav import write_wav
+
+    with open(os.path.join(BANK_FIXTURES, "expected.json")) as f:
+        expected = json.load(f)
+    blobs = {}
+    for name, e in expected.items():
+        with open(os.path.join(BANK_FIXTURES, e["file"]), "rb") as f:
+            blobs[name] = f.read()
+    with tempfile.TemporaryDirectory() as tmp:
+        # -- the 256 x 10 s bank through decode_acb ---------------------------
+        acb_path = write_bank_awb(tmp, expected["bank"])
+        want = [hca_expected[BANK]["wav_sha256"]] * expected["bank"]["tracks"]
+        wavs, _ = drive("decode_acb (bank)", HCA_KERNELS,
+                             lambda: port.decode_acb(acb_path, device=dev))
+        require_hashes("decode_acb bank", wavs, want)
+        del wavs
+        log(f"decode_acb bank: {len(want)} x {hca_expected[BANK]['seconds']}"
+            f" s WAVs, all sha256 equal to the JAX package's decode")
+
+        def parse():
+            acb = ACB(acb_path)
+            return [len(m) for m in acb.awb.getfiles()]
+
+        parse_s, parse_runs = median_wall(parse)
+        port.decode_acb(acb_path, device=dev)                  # warm-up
+        wall, runs = median_wall(
+            lambda: port.decode_acb(acb_path, device=dev))
+        audio_s = len(want) * hca_expected[BANK]["seconds"]
+        log(f"decode_acb bank [{card}]: median of 3 = {wall:.4f} s for "
+            f"{audio_s:.0f} audio-s -> {audio_s / wall:.1f} audio-s/s; runs "
+            f"{[round(r, 4) for r in runs]}; host layer, ACB + AWB parse and "
+            f"member read: median {parse_s:.4f} s "
+            f"({100 * parse_s / wall:.2f} % of the call), runs "
+            f"{[round(r, 4) for r in parse_runs]}")
+
+        # -- mixed.acb and subkey.awb -----------------------------------------
+        mixed_path = os.path.join(tmp, "mixed.acb")
+        with open(mixed_path, "wb") as f:
+            f.write(blobs["mixed"])
+        own = (*HCA_KERNELS, "adx_decode_host", "mp2_unpack", "mp2_synth")
+        outs, _ = drive("decode_acb (mixed.acb)", own,
+                             lambda: port.decode_acb(blobs["mixed"],
+                                                     device=dev))
+        require_hashes("decode_acb mixed.acb", outs,
+                       expected["mixed"]["wav_sha256"])
+        raw = port.decode_awb(ACB(blobs["mixed"]).awb, decode_non_hca=False,
+                              device=dev)
+        require_hashes("decode_awb mixed (decode_non_hca=False)", raw,
+                       expected["mixed"]["no_non_hca_sha256"])
+        log(f"decode_acb mixed.acb: {len(outs)} members "
+            f"{expected['mixed']['members']}, all sha256 equal to the JAX "
+            f"package's (and without the non-HCA decode)")
+        e = expected["subkey"]
+        outs, _ = drive("decode_awb (subkey.awb)", HCA_KERNELS,
+                             lambda: port.decode_awb(blobs["subkey"],
+                                                     key=e["key"],
+                                                     device=dev))
+        require_hashes("decode_awb subkey.awb", outs, e["wav_sha256"])
+        log(f"decode_awb subkey.awb (subkey 0x{e['subkey']:04X}): all sha256 "
+            f"equal to the JAX package's")
+
+        # -- the single-file surfaces -------------------------------------------
+        with open(os.path.join(ADX_FIXTURES, "expected.json")) as f:
+            adx_expected = json.load(f)
+        with open(os.path.join(AHX_FIXTURES, "expected.json")) as f:
+            ahx_expected = json.load(f)
+        adx_name, hca_name, enc_name = ("adx_m4_stereo_1s",
+                                        "q4_stereo_48k_1s", "q2_mono_48k_1s")
+        ahx_name = "ahx11_lsf_mono_22k_1s"
+
+        def read(*parts):
+            with open(os.path.join(*parts), "rb") as f:
+                return f.read()
+
+        adx_blob = read(ADX_FIXTURES, adx_name + ".adx")
+        hca_blob = read(FIXTURES, hca_name + ".hca")
+        ahx_blob = read(AHX_FIXTURES, ahx_expected[ahx_name]["file"])
+        adx_wav = signals.adx_wav(adx_name, write_wav)
+        hca_wav = signals.hca_wav(enc_name, write_wav)
+        quality = hca_expected[enc_name]["quality"]
+
+        def single():
+            return [adx_model.decode(adx_blob, device=dev),
+                    adx_model.encode(adx_wav, device=dev,
+                                     **adx_expected[adx_name]["encode"]),
+                    port.HCA(hca_blob, device=dev).decode(),
+                    port.HCA(hca_wav, device=dev).encode(
+                        quality_level=hca_model.CriHcaQuality(quality)),
+                    port.AHX.decode(ahx_blob, device=dev)]
+
+        outs, _ = drive("single-file surfaces",
+                             (*HCA_KERNELS, "adx_decode_host", "adx_encode",
+                              "hca_mdct", "hca_pack", "mp2_unpack",
+                              "mp2_synth"), single)
+        require_hashes("single-file surfaces", outs, [
+            adx_expected[adx_name]["wav_sha256"],
+            adx_expected[adx_name]["adx_sha256"],
+            hca_expected[hca_name]["wav_sha256"],
+            hca_expected[enc_name]["hca_sha256"],
+            ahx_expected[ahx_name]["wav_sha256"]])
+        log(f"single-file surfaces: models.adx.decode/encode ({adx_name}), "
+            f"HCA.decode ({hca_name}), HCA.encode ({enc_name}, quality "
+            f"{quality}), AHX.decode ({ahx_name}): sha256 equal to the JAX "
+            f"package's")
+
+        # -- the CLI, in-process --------------------------------------------
+        out_dir = os.path.join(tmp, "cli_bank")
+        cli.main(["bank-decode", mixed_path, "-o", out_dir])
+        files = [read(out_dir, f"{i}.wav")
+                 for i in range(len(expected["mixed"]["members"]))]
+        require_hashes("CLI bank-decode mixed.acb", files,
+                       expected["mixed"]["wav_sha256"])
+        wav_path = os.path.join(tmp, "cli_q4.wav")
+        cli.main(["decode", os.path.join(FIXTURES, hca_name + ".hca"), "-o",
+                  wav_path])
+        require_hashes("CLI decode", [read(wav_path)],
+                       [hca_expected[hca_name]["wav_sha256"]])
+        log("CLI in-process (bank-decode mixed.acb, decode "
+            f"{hca_name}.hca): the files' sha256 equal to the JAX package's")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -2097,6 +2401,9 @@ def main() -> None:
 
     # -- phase 14: B4/B5, the key search, the zero-coded_count decode --------
     results.update(keysearch_phase(dev, card, worst, launches))
+
+    # -- phase 15: the AWB/ACB banks, the single-file surfaces, the CLI -------
+    bank_phase(dev, card, expected)
 
     report = []
     for name, (ms, plain_ms, bd, *library) in results.items():

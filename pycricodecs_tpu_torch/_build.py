@@ -50,7 +50,8 @@ SIGNATURES = {
     "hca_coefficients": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     "hca_transform": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                       _I, _I, _P, _P, _P, _P, _P, _P],
-    "adx_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+    "adx_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
+                   _P],
     "adx_encode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
                    _P],
     "adx_decode_plan": [_I, _I, _I, _I, _P],

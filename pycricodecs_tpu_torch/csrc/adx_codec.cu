@@ -68,6 +68,16 @@
 // Integer semantics are XLA's int32: products and sums that can wrap (mode
 // 4's 1 << 31 scale) are done in uint32 and cast back, shifts are
 // arithmetic, division truncates toward zero.
+//
+// B7 has a second instance, the JAX host decoders' arithmetic (int64,
+// native/cricore.cpp cri_adx_decode_blocks): mode 4's scale is 2^k exactly,
+// 2^31 included, and q * scale does not wrap. The stagers form that
+// product in int64 and hold it to +-2^24 (kQsLimit) before it enters the
+// q * s tile. A prediction is under 2^17 in magnitude (|a0|, |a1| <= 8192
+// from the highpass or the mode 2 table, |p| <= 32768, each term >> 12),
+// so a product past the limit clamps to the same int16 rail as the exact
+// sum, and the chain's int32 adds cannot wrap. The chain is the same code
+// in both instances; only the staging differs (template kWrap).
 #include <algorithm>
 #include <cstdint>
 #include <cuda_pipeline.h>
@@ -81,6 +91,8 @@ constexpr int kStagers = kCtaThreads - 32;
 constexpr int kMaxLanesPerCta = 32;
 constexpr int kMaxChunk = 64;
 constexpr int kSmemBudget = 100 * 1024;
+// B7's host instance: the bound on a staged q * s (see the header)
+constexpr int64_t kQsLimit = 1 << 24;
 
 struct StaticCoef {
   int32_t a0[8];  // mode 2 predictor -> coefficients; 4..7 are 0
@@ -196,10 +208,12 @@ __device__ __forceinline__ void stage_bytes(const uint8_t* __restrict__ src0,
 
 // Staging warps: per block of the raw tile, (a0, a1) by mode into `coef`
 // and the codes (MSB first, bd bits, sign-extended, read afresh at every
-// block: a block's leftover bits are skipped) times the scale, int32 with
-// wrap, into the block's row of the q * s tile. A code spans at most 3
-// bytes (7 + 15 bits); the bytes past the block's last code are the next
-// block's or the tile's padding, and their bits are masked off.
+// block: a block's leftover bits are skipped) times the scale into the
+// block's row of the q * s tile: int32 with wrap (kWrap), or the exact
+// product held to +-kQsLimit. A code spans at most 3 bytes (7 + 15 bits);
+// the bytes past the block's last code are the next block's or the tile's
+// padding, and their bits are masked off.
+template <bool kWrap>
 __device__ __forceinline__ void unpack_blocks(
     const int32_t* __restrict__ c0v, const int32_t* __restrict__ c1v,
     const StaticCoef& sc, int lane0, int nl, int spb, int bs, int bd,
@@ -214,13 +228,17 @@ __device__ __forceinline__ void unpack_blocks(
     const uint8_t* blk = raw + (size_t)g * raw_stride + k * bs;
     const int32_t scale_raw = ((int32_t)blk[0] << 8) | (int32_t)blk[1];
     int32_t s, a0, a1;
+    int64_t s64;  // the host instance's scale: mode 4's 2^31 stays positive
     if (mode == 2) {
       const int pred = scale_raw >> 13;  // 0..7
       s = (scale_raw & 0x1FFF) + 1;
+      s64 = s;
       a0 = sc.a0[pred];
       a1 = sc.a1[pred];
     } else {
-      s = mode == 4 ? (int32_t)(1u << ((12 - scale_raw) & 31)) : scale_raw + 1;
+      const int k = (12 - scale_raw) & 31;
+      s = mode == 4 ? (int32_t)(1u << k) : scale_raw + 1;
+      s64 = mode == 4 ? (int64_t)1 << k : (int64_t)s;
       a0 = __ldg(c0v + lane0 + g);
       a1 = __ldg(c1v + lane0 + g);
     }
@@ -233,7 +251,14 @@ __device__ __forceinline__ void unpack_blocks(
       const uint8_t* c = codes + (o >> 3);
       const uint32_t w = ((uint32_t)c[0] << 16) | ((uint32_t)c[1] << 8) | c[2];
       const int32_t v = (int32_t)((w >> (24 - (o & 7) - bd)) & mask);
-      q[t] = wmul((v & signbit) ? v - full : v, s);
+      const int32_t code = (v & signbit) ? v - full : v;
+      if (kWrap) {
+        q[t] = wmul(code, s);
+      } else {
+        const int64_t p = (int64_t)code * s64;
+        q[t] = (int32_t)(p < -kQsLimit ? -kQsLimit
+                                       : p > kQsLimit ? kQsLimit : p);
+      }
     }
   }
 }
@@ -307,6 +332,7 @@ __device__ __forceinline__ void decode_chunk(const int32_t* qs0,
   }
 }
 
+template <bool kWrap>
 __global__ void __launch_bounds__(kCtaThreads)
 adx_decode_kernel(const uint8_t* __restrict__ payload,
                   const int32_t* __restrict__ h1v,
@@ -350,8 +376,9 @@ adx_decode_kernel(const uint8_t* __restrict__ payload,
         const int kc = min(K, nb - k0);
         stage_bytes(payload, lane0, nl, nb, bs, k0, kc, smem, raw_stride, st);
         asm volatile("bar.sync 1, %0;" ::"n"(kStagers) : "memory");
-        unpack_blocks(c0v, c1v, sc, lane0, nl, spb, bs, bd, mode, K, kc, smem,
-                      raw_stride, qs_tile(b), qs_stride, coef_tile(b), st);
+        unpack_blocks<kWrap>(c0v, c1v, sc, lane0, nl, spb, bs, bd, mode, K,
+                             kc, smem, raw_stride, qs_tile(b), qs_stride,
+                             coef_tile(b), st);
       }
       if (c >= 1) {
         const int b = (c - 1) & 1, k0 = (c - 1) * K;
@@ -687,11 +714,13 @@ int export_plan(int L, int nb, int bs, int bd, Plan plan_of, int* plan) {
 
 // Each entry point launches one kernel on the given stream and returns
 // cudaGetLastError(). Pointers are device pointers except static_coef
-// (host, 8 int32: the (a0, a1) pairs of mode 2 predictors 0..3).
+// (host, 8 int32: the (a0, a1) pairs of mode 2 predictors 0..3). wrap != 0
+// launches B7's XLA-wrap instance, wrap == 0 its host instance.
 extern "C" int adx_decode(const void* payload, const void* h1, const void* h2,
                           const void* c0, const void* c1, int L, int nb,
-                          int bs, int bd, int mode, const int32_t* static_coef,
-                          void* out, void* stream) {
+                          int bs, int bd, int mode, int wrap,
+                          const int32_t* static_coef, void* out,
+                          void* stream) {
   if (!geometry_ok(L, nb, bs, bd, mode)) return (int)cudaErrorInvalidValue;
   int sms = 0;
   int rc = sm_count(&sms);
@@ -702,14 +731,13 @@ extern "C" int adx_decode(const void* payload, const void* h1, const void* h2,
     sc.a1[k] = k < 4 ? static_coef[2 * k + 1] : 0;
   }
   const DecPlan p = dec_plan(L, nb, bs, (bs - 2) * 8 / bd, sms);
+  auto kernel = wrap ? &adx_decode_kernel<true> : &adx_decode_kernel<false>;
   if (p.smem > 48 * 1024) {
-    rc = (int)cudaFuncSetAttribute(adx_decode_kernel,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)p.smem);
+    rc = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
     if (rc) return rc;
   }
-  adx_decode_kernel<<<(L + p.G - 1) / p.G, kCtaThreads, p.smem,
-                      (cudaStream_t)stream>>>(
+  kernel<<<(L + p.G - 1) / p.G, kCtaThreads, p.smem, (cudaStream_t)stream>>>(
       (const uint8_t*)payload, (const int32_t*)h1, (const int32_t*)h2,
       (const int32_t*)c0, (const int32_t*)c1, L, nb, bs, bd, mode, sc, p.G,
       p.K, p.raw_stride, p.qs_stride, p.out_stride, (int16_t*)out);

@@ -2,9 +2,17 @@
 
 A copy of the decode-side header of pycricodecs_tpu/models/ahx.py
 (`AHX_TYPES`, `CRI_STRING`, `AHX.parse_header`) and of the AHX rule of
-pycricodecs_tpu/utils/sniff.py; tests hold them equal.
+pycricodecs_tpu/utils/sniff.py; tests hold them equal. The `AHX` class is
+the single-file surface (parse_header, decode, info; the encode is not
+ported): its decode runs the batch path of parallel/pipeline.py on `device`
+and, like the JAX package's AHX.decode, zero-fills a stream whose frames
+hold fewer samples than its header declares (ahx_decode_batch trims).
 """
 from __future__ import annotations
+
+import torch
+
+from ..ops import mp2_frame
 
 CRI_STRING = b"(c)CRI"
 AHX_TYPES = (0x10, 0x11)
@@ -33,3 +41,36 @@ def parse_header(data: bytes) -> dict:
     return dict(data_offset=data_offset, type=enc_type,
                 channels=channels, sample_rate=sample_rate,
                 total_samples=total_samples)
+
+
+def _read(data) -> bytes:
+    if isinstance(data, str):
+        with open(data, "rb") as fh:
+            return fh.read()
+    return bytes(data)
+
+
+class AHX:
+    """AHX (ADX-container MPEG-2 Layer II) decoder, the drop-in shape of the
+    JAX package's AHX without its encode."""
+
+    parse_header = staticmethod(parse_header)
+
+    @staticmethod
+    def decode(data, *, device="cuda") -> bytes:
+        """AHX -> WAV (PCM16) on `device`: pycricodecs_tpu.models.ahx.
+        AHX.decode's bytes (zero-filled to the declared sample count)."""
+        from ..parallel import pipeline
+        data = _read(data)
+        parse_header(data)
+        return pipeline._ahx_decode([data], torch.device(device), "raise",
+                                    zero_fill=True)[0]
+
+    @staticmethod
+    def info(data) -> dict:
+        data = _read(data)
+        info = parse_header(data)
+        hdr = mp2_frame.parse_header(data, info["data_offset"])
+        info.update(bitrate=hdr.bitrate, mpeg_version=hdr.version,
+                    frame_size=hdr.frame_size, mode=hdr.mode)
+        return info

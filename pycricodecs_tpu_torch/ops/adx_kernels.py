@@ -23,7 +23,12 @@ Counterpart of pycricodecs_tpu/ops/adx_kernels.py:
 All arithmetic is int32 with the wrap of the device kernels (no int64
 promotion): in mode 4, `1 << ((12 - scale) & 31)` can be 1 << 31 and
 `q * scale` wraps as XLA's int32 does. Shifts are arithmetic and division
-truncates toward zero (C `/`, torch rounding_mode="trunc").
+truncates toward zero (C `/`, torch rounding_mode="trunc"). The decode
+takes `wrap=False` for the JAX host decoders' arithmetic instead
+(native/cricore.cpp cri_adx_decode_blocks, int64): mode 4's scale is 2^k
+exactly, 2^31 included, and `q * scale` does not wrap; the product is held
+to +-QS_LIMIT, past which the clamp to int16 gives the exact sum's rail (a
+prediction is under 2^17 in magnitude), so the recurrence stays int32.
 
 adx_decode_device / adx_encode_device run the kernel on a CUDA tensor and
 the twin on a CPU tensor; nothing else picks between them.
@@ -38,14 +43,20 @@ from . import cuda_kernels
 
 MAX_S16 = 0x7FFF
 I32 = torch.int32
+#: B7's host arithmetic: the bound on q * scale (csrc/adx_codec.cu kQsLimit)
+QS_LIMIT = 1 << 24
 
 
 def _table(values, device) -> torch.Tensor:
     return torch.tensor(values, dtype=I32, device=device)
 
 
-def _pow2_table(device) -> torch.Tensor:
-    """int32 1 << k for k in 0..31 (k = 31 is INT32_MIN, as XLA wraps)."""
+def _pow2_table(device, wrap: bool = True) -> torch.Tensor:
+    """1 << k for k in 0..31: int32, k = 31 INT32_MIN as XLA wraps; or,
+    with wrap=False, int64 and exact."""
+    if not wrap:
+        return torch.tensor([1 << k for k in range(32)], dtype=torch.int64,
+                            device=device)
     return _table([(1 << k) - (1 << 32) * (k == 31) for k in range(32)],
                   device)
 
@@ -62,9 +73,10 @@ def _static_tables(device):
 # ---------------------------------------------------------------------------
 
 def adx_unpack(payload: torch.Tensor, c0: torch.Tensor, c1: torch.Tensor, *,
-               bit_depth: int, encoding_mode: int):
+               bit_depth: int, encoding_mode: int, wrap: bool = True):
     """Raw blocks u8 [L, nb, block_size] -> (q i32 [L, nb, spb], s, a0, a1
-    i32 [L, nb]); c0/c1 i32 [L] are the lanes' mode 3/4 coefficients.
+    i32 [L, nb]); c0/c1 i32 [L] are the lanes' mode 3/4 coefficients. With
+    wrap=False mode 4's s is int64 and exact (2^31 positive).
 
     Each block is a 2-byte big-endian scale word and `spb` codes of
     `bit_depth` bits, MSB first, sign-extended (adx.cpp:380-414)."""
@@ -84,7 +96,7 @@ def adx_unpack(payload: torch.Tensor, c0: torch.Tensor, c1: torch.Tensor, *,
     q = torch.where((q & signbit) != 0, q - (1 << bit_depth), q)
 
     if encoding_mode == 4:
-        s = _pow2_table(dev)[((12 - scale_raw) & 31).long()]
+        s = _pow2_table(dev, wrap)[((12 - scale_raw) & 31).long()]
         a0 = c0.to(I32)[:, None].expand(L, nb)
         a1 = c1.to(I32)[:, None].expand(L, nb)
     elif encoding_mode == 2:
@@ -101,14 +113,21 @@ def adx_unpack(payload: torch.Tensor, c0: torch.Tensor, c1: torch.Tensor, *,
 
 def adx_decode_plain(payload: torch.Tensor, h1: torch.Tensor,
                      h2: torch.Tensor, c0: torch.Tensor, c1: torch.Tensor, *,
-                     bit_depth: int, encoding_mode: int) -> torch.Tensor:
+                     bit_depth: int, encoding_mode: int,
+                     wrap: bool = True) -> torch.Tensor:
     """Plain PyTorch twin of kernel B7: raw blocks u8 [L, nb, block_size],
     history h1/h2 i32 [L], coefficients c0/c1 i32 [L] -> PCM i16
-    [L, nb, spb]. Same per-sample op order as adx_decode_scan."""
+    [L, nb, spb]. Same per-sample op order as adx_decode_scan. wrap=True
+    is the XLA device path's int32 arithmetic, wrap=False the JAX host
+    decoders' (the module docstring)."""
     q, s, a0, a1 = adx_unpack(payload, c0, c1, bit_depth=bit_depth,
-                              encoding_mode=encoding_mode)
+                              encoding_mode=encoding_mode, wrap=wrap)
     L, nb, spb = q.shape
-    qs = q * s[..., None]                       # int32, wraps like XLA
+    if wrap:
+        qs = q * s[..., None]                   # int32, wraps like XLA
+    else:
+        qs = (q.long() * s[..., None].long()).clamp(
+            -QS_LIMIT, QS_LIMIT).to(I32)
     out = torch.empty((L, nb, spb), dtype=torch.int16, device=q.device)
     p1, p2 = h1.to(I32), h2.to(I32)
     for b in range(nb):
@@ -126,12 +145,13 @@ def adx_decode_plain(payload: torch.Tensor, h1: torch.Tensor,
 
 def adx_decode_device(payload: torch.Tensor, h1: torch.Tensor,
                       h2: torch.Tensor, c0: torch.Tensor, c1: torch.Tensor,
-                      *, bit_depth: int, encoding_mode: int) -> torch.Tensor:
+                      *, bit_depth: int, encoding_mode: int,
+                      wrap: bool = True) -> torch.Tensor:
     """Raw blocks -> PCM i16 [L, nb, spb]: kernel B7 for CUDA tensors, its
     twin for CPU tensors (counterpart of adx_decode_device_pipeline)."""
     fn = cuda_kernels.adx_decode if payload.is_cuda else adx_decode_plain
     return fn(payload, h1, h2, c0, c1, bit_depth=bit_depth,
-              encoding_mode=encoding_mode)
+              encoding_mode=encoding_mode, wrap=wrap)
 
 
 # ---------------------------------------------------------------------------

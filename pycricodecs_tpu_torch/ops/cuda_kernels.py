@@ -29,6 +29,7 @@ from ..models.adx import STATIC_COEFFICIENTS, samples_per_block
 #: launches since import (or the last reset), per kernel
 TRANSFORM_LAUNCHES = 0
 ADX_DECODE_LAUNCHES = 0
+ADX_DECODE_HOST_LAUNCHES = 0
 ADX_ENCODE_LAUNCHES = 0
 MDCT_LAUNCHES = 0
 PACK_LAUNCHES = 0
@@ -137,11 +138,14 @@ def _check_adx(L, nb, block_size, bit_depth, encoding_mode, lanes) -> int:
     return spb
 
 
-def adx_decode(payload, h1, h2, c0, c1, *, bit_depth,
-               encoding_mode) -> torch.Tensor:
+def adx_decode(payload, h1, h2, c0, c1, *, bit_depth, encoding_mode,
+               wrap: bool = True) -> torch.Tensor:
     """Kernel B7: raw ADX blocks u8 [L, nb, block_size], history h1/h2 and
-    mode 3/4 coefficients c0/c1 i32 [L] (CUDA) -> PCM i16 [L, nb, spb]."""
-    global ADX_DECODE_LAUNCHES
+    mode 3/4 coefficients c0/c1 i32 [L] (CUDA) -> PCM i16 [L, nb, spb].
+    wrap=True launches its XLA-wrap instance (counted in
+    ADX_DECODE_LAUNCHES), wrap=False its host-arithmetic instance (counted
+    in ADX_DECODE_HOST_LAUNCHES); see adx_kernels.adx_decode_plain."""
+    global ADX_DECODE_LAUNCHES, ADX_DECODE_HOST_LAUNCHES
     L, nb, bs = payload.shape
     check_cuda(payload, "payload", torch.uint8, (L, nb, bs))
     spb = _check_adx(L, nb, bs, bit_depth, encoding_mode,
@@ -152,11 +156,14 @@ def adx_decode(payload, h1, h2, c0, c1, *, bit_depth,
     static = np.ascontiguousarray(STATIC_COEFFICIENTS, dtype=np.int32)
     rc = _build.load().adx_decode(
         ptr(payload), ptr(h1), ptr(h2), ptr(c0), ptr(c1), L, nb, bs,
-        int(bit_depth), int(encoding_mode), host_ptr(static), ptr(out),
-        stream_ptr(payload))
+        int(bit_depth), int(encoding_mode), int(bool(wrap)), host_ptr(static),
+        ptr(out), stream_ptr(payload))
     if rc:
         raise launch_failed("adx_decode", rc)
-    ADX_DECODE_LAUNCHES += 1
+    if wrap:
+        ADX_DECODE_LAUNCHES += 1
+    else:
+        ADX_DECODE_HOST_LAUNCHES += 1
     return out
 
 

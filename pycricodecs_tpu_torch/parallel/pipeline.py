@@ -52,6 +52,14 @@ unpacks them (each frame by its own header, so VBR streams mix in) and the
 synthesis kernel `mp2_synth` runs the host lane's f64 arithmetic in its
 order; the host trims to min(frames * 1152, total samples) and writes WAVs.
 
+Banks (`decode_awb`, `decode_acb`): counterparts of the JAX functions of the
+same names. The host reads the AFS2 bank (an ACB's embedded one, or the
+sibling `<Name>.awb` of an ACB opened by path) and routes its members by
+their first bytes: all HCA members through one decode_batch call, all AHX
+members through one ahx_decode_batch call, and all ADX members through one
+launch of B7 per geometry in the JAX host decoders' arithmetic; a member
+that does not parse comes back raw.
+
 On a CPU `device` every path runs the kernels' plain PyTorch twins.
 """
 from __future__ import annotations
@@ -503,14 +511,24 @@ def _lane_tensors(device, *arrays) -> List[torch.Tensor]:
             for a in arrays]
 
 
+def _parse_adx(blob: bytes, strict_cri_check: bool = True):
+    """(header, payload blocks u8 [nb, C, block_size], (c0, c1)) of one ADX
+    stream; raises where the JAX package's decode of it raises (header,
+    payload slicing, the mode 3/4 coefficients)."""
+    h = adx_model.parse_adx_header(blob, strict_cri_check=strict_cri_check)
+    payload = adx_model._payload_blocks(blob, h)
+    coef = (0, 0) if h.encoding_mode == 2 else \
+        adx_model.calculate_coefficients(h.highpass_frequency, h.sample_rate)
+    return h, payload, coef
+
+
 def _stack_adx_group(parsed, members):
-    """Raw blocks of a decode group as lanes u8 [L, nb, block_size] (zero
-    padded to the group's longest payload), their history and mode 3/4
-    coefficients i32 [L], and (idx, first lane, channels, blocks) per
-    stream."""
+    """Raw blocks of a decode group (entries of _parse_adx) as lanes u8
+    [L, nb, block_size] (zero padded to the group's longest payload), their
+    history and mode 3/4 coefficients i32 [L], and (idx, first lane,
+    channels, blocks) per stream."""
     h0 = parsed[members[0]][0]
-    payloads = [adx_model._payload_blocks(parsed[i][1], parsed[i][0])
-                for i in members]
+    payloads = [parsed[i][1] for i in members]
     nlanes = sum(parsed[i][0].channels for i in members)
     nb = max(pl.shape[0] for pl in payloads)
     lanes = np.zeros((nlanes, nb, h0.block_size), dtype=np.uint8)
@@ -525,10 +543,7 @@ def _stack_adx_group(parsed, members):
         ch = h.channels
         lanes[lane:lane + ch, :pl.shape[0]] = np.moveaxis(pl, 1, 0)
         h1[lane:lane + ch], h2[lane:lane + ch] = adx_model._history_init(h)
-        if h.encoding_mode != 2:
-            c0[lane:lane + ch], c1[lane:lane + ch] = \
-                adx_model.calculate_coefficients(h.highpass_frequency,
-                                                 h.sample_rate)
+        c0[lane:lane + ch], c1[lane:lane + ch] = parsed[idx][2]
         spans.append((idx, lane, ch, pl.shape[0]))
         lane += ch
     return lanes, h1, h2, c0, c1, spans
@@ -544,26 +559,36 @@ def _interleave(pcm: np.ndarray, lane0: int, h, n: int) -> np.ndarray:
     return out
 
 
-def adx_decode_batch(blobs: Sequence[bytes], *, device="cuda") -> List[bytes]:
-    """Decode many ADX streams on `device`; returns WAV bytes per stream,
-    byte-equal to pycricodecs_tpu.parallel.adx_decode_batch(blobs,
-    device=True).
+def adx_decode_batch(blobs: Sequence[bytes], *, device="cuda",
+                     strict_cri_check: bool = True,
+                     wrap: bool = False) -> List[bytes]:
+    """Decode many ADX streams on `device`; returns WAV bytes per stream.
+
+    Two arithmetics, which differ only on mode 4 blocks whose scale times
+    code leaves int32 (a scale word of 13 mod 32 is 2^31):
+    - wrap=False (default): the JAX host decoders' int64 arithmetic, byte-
+      equal to pycricodecs_tpu.parallel.adx_decode_batch(blobs) (its
+      default native engine) and to models.adx.decode;
+    - wrap=True: XLA's int32 wrap, byte-equal to pycricodecs_tpu.parallel.
+      adx_decode_batch(blobs, device=True).
+    strict_cri_check=False skips the reference's 7th-signature-byte check.
 
     Streams are grouped by (encoding_mode, bit_depth, block_size); each
     group is one launch of kernel B7 with per-lane history and
     coefficients, so sample rates, highpass values and versions mix freely.
     A bad header raises before anything is decoded."""
-    device = torch.device(device)
-    parsed = []
-    for blob in blobs:
-        blob = bytes(blob)
-        parsed.append((adx_model.parse_adx_header(blob), blob))
+    parsed = [_parse_adx(bytes(b), strict_cri_check) for b in blobs]
+    return _adx_decode_parsed(parsed, torch.device(device), wrap)
+
+
+def _adx_decode_parsed(parsed, device, wrap: bool) -> List[bytes]:
+    """WAV bytes of the streams parsed by _parse_adx (adx_decode_batch)."""
     groups: dict = {}
-    for idx, (h, _) in enumerate(parsed):
+    for idx, (h, *_) in enumerate(parsed):
         groups.setdefault((h.encoding_mode, h.bit_depth, h.block_size),
                           []).append(idx)
 
-    results: List = [None] * len(blobs)
+    results: List = [None] * len(parsed)
     for (mode, bit_depth, _), members in groups.items():
         lanes, h1, h2, c0, c1, spans = _stack_adx_group(parsed, members)
         L, nb, bs = lanes.shape
@@ -572,7 +597,7 @@ def adx_decode_batch(blobs: Sequence[bytes], *, device="cuda") -> List[bytes]:
             payload = torch.from_numpy(lanes).to(device)
             pcm_dev = adx_kernels.adx_decode_device(
                 payload, *_lane_tensors(device, h1, h2, c0, c1),
-                bit_depth=bit_depth, encoding_mode=mode)
+                bit_depth=bit_depth, encoding_mode=mode, wrap=wrap)
             pcm = pcm_dev.cpu().numpy().reshape(L, nb * spb)
         else:
             pcm = np.zeros((L, 0), dtype=np.int16)
@@ -743,9 +768,17 @@ def ahx_decode_batch(blobs: Sequence[bytes], *, device="cuda",
     on_error: "raise" aborts on the first stream that does not parse (before
     anything is decoded) or has a truncated frame; "isolate" returns None for
     such streams and decodes the rest."""
+    return _ahx_decode(blobs, torch.device(device), on_error,
+                       zero_fill=False)
+
+
+def _ahx_decode(blobs: Sequence[bytes], device, on_error: str,
+                zero_fill: bool) -> List:
+    """ahx_decode_batch; zero_fill=True pads a stream whose frames hold
+    fewer samples than its declared total with zeros up to that total (the
+    single-file AHX.decode's rule) where the batch trims."""
     if on_error not in ("raise", "isolate"):
         raise ValueError("on_error must be 'raise' or 'isolate'")
-    device = torch.device(device)
     parsed: List = [None] * len(blobs)
     for i, blob in enumerate(blobs):
         try:
@@ -780,7 +813,83 @@ def ahx_decode_batch(blobs: Sequence[bytes], *, device="cuda",
             n = len(walk) * mp2_frame.SAMPLES_PER_FRAME
             if total:
                 n = min(n, total)
-            chunk = pcm[row, :, :n]
-            results[idx] = wavmod.write_wav(
-                np.ascontiguousarray(chunk.T).reshape(-1), nch, rate)
+            out = np.zeros((max(n, total) if zero_fill else n, nch),
+                           dtype=np.int16)
+            out[:n] = pcm[row, :, :n].T
+            results[idx] = wavmod.write_wav(out.reshape(-1), nch, rate)
     return results
+
+
+# ---------------------------------------------------------------------------
+# AWB / ACB banks
+# ---------------------------------------------------------------------------
+
+def decode_awb(awb_or_bytes, key: int = 0, decode_non_hca: bool = True, *,
+               device="cuda") -> List[bytes]:
+    """Decode every member of an AWB (AFS2) bank on `device`; returns one
+    bytes object per member, byte-equal to pycricodecs_tpu.parallel.
+    decode_awb.
+
+    Members route by their first bytes, as in the JAX package:
+    - HCA (`HCA\\0`, or the masked `\\xC8\\xC3\\xC1\\0`): one decode_batch
+      call under (key, the bank's subkey), a WAV each;
+    - with decode_non_hca, `0x80 0x00` and type 0x10/0x11: one
+      ahx_decode_batch call (on_error="isolate"), a WAV each, the raw bytes
+      where it fails;
+    - with decode_non_hca, any other `0x80 0x00` member longer than 4
+      bytes: ADX, checked non-strictly, all of them through one
+      adx_decode_batch launch per geometry in the JAX host decoders'
+      arithmetic; a member whose header, payload or coefficients do not
+      parse comes back raw;
+    - anything else comes back raw."""
+    from ..containers.awb import AWB
+
+    device = torch.device(device)
+    awb = awb_or_bytes if isinstance(awb_or_bytes, AWB) else AWB(awb_or_bytes)
+    members = [bytes(m) for m in awb.getfiles()]
+    out: List = list(members)
+    hca_idx, ahx_idx, adx_idx, adx_parsed = [], [], [], []
+    for i, m in enumerate(members):
+        if m[:4] in (b"HCA\x00", b"\xC8\xC3\xC1\x00"):
+            hca_idx.append(i)
+        elif decode_non_hca and m[:2] == b"\x80\x00" and len(m) > 4:
+            if m[4] in ahx_model.AHX_TYPES:
+                ahx_idx.append(i)
+                continue
+            try:
+                adx_parsed.append(_parse_adx(m, strict_cri_check=False))
+            except Exception:     # malformed: the member stays raw
+                continue
+            adx_idx.append(i)
+    for i, wav in zip(hca_idx, decode_batch(
+            [members[i] for i in hca_idx], key=key, subkey=awb.subkey,
+            device=device)):
+        out[i] = wav
+    for i, wav in zip(ahx_idx, ahx_decode_batch(
+            [members[i] for i in ahx_idx], device=device,
+            on_error="isolate")):
+        if wav is not None:
+            out[i] = wav
+    for i, wav in zip(adx_idx, _adx_decode_parsed(adx_parsed, device,
+                                                  wrap=False)):
+        out[i] = wav
+    return out
+
+
+def decode_acb(acb_or_bytes_or_path, key: int = 0, *,
+               device="cuda") -> List[bytes]:
+    """Decode an ACB's waveform bank (embedded, or the sibling
+    `<Name>.awb` of an ACB opened by path) on `device`: decode_awb of it,
+    byte-equal to pycricodecs_tpu.parallel.decode_acb (BASELINE config 5)."""
+    from ..containers.acb import ACB
+
+    acb = acb_or_bytes_or_path if isinstance(acb_or_bytes_or_path, ACB) \
+        else ACB(acb_or_bytes_or_path)
+    return decode_awb(acb.awb, key=key, device=device)
+
+
+def encode_batch(wavs: Sequence[bytes], **adx_kwargs) -> List[bytes]:
+    """Encode WAVs to ADX: adx_encode_batch (one launch of kernel B8 for
+    all), the list form of pycricodecs_tpu.parallel.encode_batch; the
+    keywords are adx_encode_batch's, `device` among them."""
+    return adx_encode_batch(wavs, **adx_kwargs)

@@ -6,6 +6,7 @@ tests/data/torch_port/adx/ (ADX). The port runs on the CPU here, so every
 kernel call takes its plain PyTorch twin.
 """
 import dataclasses
+import hashlib
 import json
 import os
 
@@ -194,3 +195,36 @@ def load_adx_fixtures():
         with open(os.path.join(ADX_FIXTURE_DIR, name + ".adx"), "rb") as f:
             blobs[name] = f.read()
     return expected, blobs
+
+
+def load_fixture(name: str) -> bytes:
+    """One committed HCA fixture's bytes."""
+    with open(os.path.join(FIXTURE_DIR, name + ".hca"), "rb") as f:
+        return f.read()
+
+
+BANK_FIXTURE_DIR = os.path.join(FIXTURE_DIR, "bank")
+
+
+def load_bank_fixtures():
+    """(bank/expected.json dict, entry -> file bytes) of the bank fixtures
+    (mixed.acb, subkey.awb, bank.acb)."""
+    with open(os.path.join(BANK_FIXTURE_DIR, "expected.json")) as f:
+        expected = json.load(f)
+    blobs = {}
+    for name, e in expected.items():
+        with open(os.path.join(BANK_FIXTURE_DIR, e["file"]), "rb") as f:
+            blobs[name] = f.read()
+    return expected, blobs
+
+
+def outcome(fn, *args, **kw):
+    """fn's result, or (exception type name, message) if it raised."""
+    try:
+        return fn(*args, **kw)
+    except Exception as exc:      # compared, not swallowed
+        return type(exc).__name__, str(exc)
+
+
+def sha256(data: bytes) -> str:
+    return hashlib.sha256(data).hexdigest()

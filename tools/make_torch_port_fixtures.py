@@ -77,8 +77,33 @@ Key search (tests/data/torch_port/keysearch/, with its own expected.json):
   pycricodecs_tpu.parallel.decode_batch makes of it (host and device
   engines agree, which this script checks).
 
-Usage: python3 tools/make_torch_port_fixtures.py [--keysearch]
-(--keysearch writes only the key search directory.)
+Banks (tests/data/torch_port/bank/, with its own expected.json), built with
+the JAX package's builders (ACBBuilder, build_afs2, crypt):
+- "mixed": mixed.acb, its AWB embedded, whose members are, in this order,
+  (1) q4_stereo_48k_1s.hca; (2) an ADX that only the non-strict signature
+  check accepts: the bench signal (signals.signal, stereo, 0.25 s) encoded
+  without the ADX fixtures' 1,024 silent samples, so its first scale word
+  has a nonzero high byte and the strict 7-byte check refuses it; (3) a
+  mode 4 ADX (0.25 s stereo) with blocks patched to the scale words 13, 45
+  (both 13 mod 32: a scale of 2^31) and 14 (2^30) and codes odd, even,
+  zero and negative, which the JAX host decoders' int64 arithmetic and the
+  int32 wrap decode differently; (4) an ADX cut inside its payload; (5)
+  ahx11_lsf_mono_22k_1s.ahx; (6) that AHX with its first frame's sync word
+  cleared, which the AHX decode refuses; (7) a 0x80 0x00 member whose ADX
+  header fails (block size and bit depth 0); (8) a non-audio member.
+  expected.json records the sha256 of every output of
+  pycricodecs_tpu.parallel.decode_acb of it, and of decode_awb of its bank
+  with decode_non_hca=False;
+- "subkey": subkey.awb, build_afs2 with subkey 0x55AA of q4_stereo_48k_1s
+  and q2_mono_48k_1s enciphered with cipher 56 under the test suite's key
+  and that subkey, with the sha256 of every output of decode_awb(key=...);
+- "bank": bank.acb, ACBBuilder of 256 copies of bank_q2_stereo_48k_10s.hca
+  with embed_awb=False and Name "bank" (a few KB): chip_smoke.py writes the
+  sibling bank.awb with the port's build_afs2 and holds it to the sha256
+  that the JAX package's build_afs2 gives, recorded here.
+
+Usage: python3 tools/make_torch_port_fixtures.py [--keysearch | --bank]
+(--keysearch writes only the key search directory, --bank only the banks'.)
 """
 import hashlib
 import json
@@ -96,6 +121,9 @@ OUT_DIR = os.path.join(ROOT, "tests", "data", "torch_port")
 ADX_DIR = os.path.join(OUT_DIR, "adx")
 AHX_DIR = os.path.join(OUT_DIR, "ahx")
 KEYSEARCH_DIR = os.path.join(OUT_DIR, "keysearch")
+BANK_DIR = os.path.join(OUT_DIR, "bank")
+BANK_TRACKS = 256
+SUBKEY = 0x55AA
 ZERO_CODED = "zero_coded_v2_stereo_48k_1s"
 KEYSEARCH = dict(stream="bank_q2_stereo_48k_10s", cipher=56,
                  key=0xCF222F1FE0748978, seed=0, candidates=200000,
@@ -218,6 +246,9 @@ def main() -> None:
     if "--keysearch" in sys.argv[1:]:
         write_keysearch_fixtures()
         return
+    if "--bank" in sys.argv[1:]:
+        write_bank_fixtures()
+        return
     from pycricodecs_tpu import parallel
 
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -249,6 +280,7 @@ def main() -> None:
     write_adx_fixtures()
     write_ahx_fixtures()
     write_keysearch_fixtures()
+    write_bank_fixtures()
 
 
 def sha256(data: bytes) -> str:
@@ -364,6 +396,111 @@ def write_keysearch_fixtures() -> None:
     with open(os.path.join(KEYSEARCH_DIR, "expected.json"), "w") as f:
         json.dump({"find_key": spec, "zero_coded": zero}, f, indent=1,
                   sort_keys=True)
+        f.write("\n")
+
+
+
+def _patch(blob: bytes, off: int, data: bytes) -> bytes:
+    out = bytearray(blob)
+    out[off:off + len(data)] = data
+    return bytes(out)
+
+
+def mixed_members() -> list:
+    """(name, bytes) of mixed.acb's members, in bank order."""
+    from pycricodecs_tpu.models import adx
+    from pycricodecs_tpu.utils.wav import write_wav
+    from pycricodecs_tpu_torch.utils.signals import SAMPLE_RATE, signal
+
+    def read(*parts):
+        with open(os.path.join(OUT_DIR, *parts), "rb") as f:
+            return f.read()
+
+    wav = write_wav(signal(2, 0.25), 2, SAMPLE_RATE)
+    loose = adx.encode(wav)
+    try:
+        adx.parse_adx_header(loose)
+    except ValueError:
+        adx.parse_adx_header(loose, strict_cri_check=False)
+    else:
+        raise SystemExit("the non-strict ADX passes the strict check")
+    m4 = adx.encode(wav, encoding_mode=4)
+    h = adx.parse_adx_header(m4)
+    start = h.data_offset + 4
+    frame = h.block_size * h.channels
+    # codes 1, 2, 3, 0, -1, -8, 0, -2, then the encoder's own
+    for block, word in ((40, 13), (41, 45), (120, 14)):
+        m4 = _patch(m4, start + block * frame,
+                    word.to_bytes(2, "big") + bytes.fromhex("1230f80e"))
+    ahx = read("ahx", "ahx11_lsf_mono_22k_1s.ahx")
+    ahx_off = int.from_bytes(ahx[2:4], "big") + 4
+    return [
+        ("hca_q4_stereo_1s", read("q4_stereo_48k_1s.hca")),
+        ("adx_non_strict", loose),
+        ("adx_m4_scale13", m4),
+        ("adx_truncated", loose[:start + 300 * frame + 7]),
+        ("ahx11_1s", ahx),
+        ("ahx_corrupt", _patch(ahx, ahx_off, b"\x00\x00")),
+        ("adx_bad_header", b"\x80\x00\x00\x20" + bytes(36)),
+        ("not_audio", b"not an audio member\n" * 4),
+    ]
+
+
+def write_bank_fixtures() -> None:
+    from pycricodecs_tpu import parallel
+    from pycricodecs_tpu.containers.acb import ACB, ACBBuilder
+    from pycricodecs_tpu.containers.awb import AWB, build_afs2
+    from pycricodecs_tpu.models import hca as jax_hca
+
+    os.makedirs(BANK_DIR, exist_ok=True)
+    members = mixed_members()
+    acb = ACBBuilder([m for _, m in members], name="mixed").build()
+    outs = parallel.decode_acb(acb)
+    raw = parallel.decode_awb(ACB(acb).awb, decode_non_hca=False)
+    with open(os.path.join(BANK_DIR, "mixed.acb"), "wb") as f:
+        f.write(acb)
+    expected = {"mixed": {
+        "file": "mixed.acb", "members": [n for n, _ in members],
+        "wav_sha256": [sha256(o) for o in outs],
+        "raw": [o == m for o, m in zip(outs, ACB(acb).awb.getfiles())],
+        "no_non_hca_sha256": [sha256(o) for o in raw]}}
+    print("mixed", len(acb), expected["mixed"]["raw"])
+
+    key = KEYSEARCH["key"]
+    enc = []
+    for name in ("q4_stereo_48k_1s", "q2_mono_48k_1s"):
+        with open(os.path.join(OUT_DIR, name + ".hca"), "rb") as f:
+            plain = f.read()
+        hs = int.from_bytes(plain[6:8], "big")
+        enc.append(jax_hca.crypt(plain, True, hs, 56, key, SUBKEY))
+    awb = build_afs2(enc, subkey=SUBKEY)
+    outs = parallel.decode_awb(awb, key=key)
+    with open(os.path.join(BANK_DIR, "subkey.awb"), "wb") as f:
+        f.write(awb)
+    expected["subkey"] = {
+        "file": "subkey.awb", "key": key, "subkey": SUBKEY,
+        "members": ["q4_stereo_48k_1s", "q2_mono_48k_1s"],
+        "wav_sha256": [sha256(o) for o in outs]}
+    print("subkey", len(awb))
+
+    with open(os.path.join(OUT_DIR, "bank_q2_stereo_48k_10s.hca"), "rb") as f:
+        track = f.read()
+    builder = ACBBuilder([track] * BANK_TRACKS, name="bank", embed_awb=False)
+    acb = builder.build()
+    if builder.awb_blob != build_afs2([track] * BANK_TRACKS):
+        raise SystemExit("ACBBuilder's bank differs from build_afs2's")
+    if list(AWB(builder.awb_blob).getfiles()) != [track] * BANK_TRACKS:
+        raise SystemExit("the bank's members differ from the track")
+    with open(os.path.join(BANK_DIR, "bank.acb"), "wb") as f:
+        f.write(acb)
+    expected["bank"] = {"file": "bank.acb", "name": "bank",
+                        "tracks": BANK_TRACKS,
+                        "member": "bank_q2_stereo_48k_10s.hca",
+                        "acb_sha256": sha256(acb),
+                        "awb_sha256": sha256(builder.awb_blob)}
+    print("bank", len(acb), len(builder.awb_blob))
+    with open(os.path.join(BANK_DIR, "expected.json"), "w") as f:
+        json.dump(expected, f, indent=1, sort_keys=True)
         f.write("\n")
 
 

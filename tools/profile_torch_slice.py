@@ -70,9 +70,9 @@ HOST_PIECES = [
 ]
 ADX_HOST_PIECES = [
     ("adx_decode_batch (whole call)", "pipeline.py", "adx_decode_batch"),
-    ("parse_adx_header", "adx.py", "parse_adx_header"),
-    ("_stack_adx_group (payload slicing + lane stacking)", "pipeline.py",
-     "_stack_adx_group"),
+    ("_parse_adx (header, payload slicing, coefficients)", "pipeline.py",
+     "_parse_adx"),
+    ("_stack_adx_group (lane stacking)", "pipeline.py", "_stack_adx_group"),
     ("Tensor.to (H2D, pageable)", "~", "'to' of 'torch._C."),
     ("adx_decode_device (enqueue)", "adx_kernels.py", "adx_decode_device"),
     ("Tensor.cpu (wait + D2H)", "~", "'cpu' of 'torch._C."),
