@@ -4,7 +4,7 @@
 Drives the port's main paths on one CUDA GPU: the batched HCA bank decode,
 the batched ADX bank decode and encode, the batched HCA bank encode, the v3
 PNS decode, the AHX decode, the HCA key search, the AWB/ACB bank decode,
-the single-file surfaces and the CLI.
+the single-file surfaces and the CLI, and the AHX encode.
 
 HCA:
 
@@ -142,11 +142,31 @@ the JAX package):
    (`bank-decode` of mixed.acb, `decode` of an HCA fixture), the files'
    sha256 held to the JAX package's.
 
+AHX / MPEG Layer II encode (tests/data/torch_port/ahx/, hashes from the JAX
+package's f64 host lane, the input PCM rebuilt by utils/signals.py):
+16. K1 `mp2_analysis` against `analyze_plain` (f64 bit for bit), K2
+   `mp2_allocate`'s two passes against `frame_peaks_plain` and
+   `allocate_plain`, K3 `mp2_pack` against `pack_plain`, byte for byte:
+   random tones, noise and level jumps (a silent tail, a full-scale square
+   wave) for 12 configurations (every allocation table, mono, stereo,
+   joint bounds 4-16, frame counts off K1's 64-row tile, one frame) and
+   the bank's PCM (256 x 192 frames); how many of the bank's peaks and of
+   1,000,000 log-uniform values torch.log10 on the card gives otherwise
+   than np.log10 on the host (need_db is numpy's on the host);
+   `ahx_encode_batch` of 256 copies of the bank's 10 s WAV at 96 kbps
+   (bench_all config 15), every AHX equal to the bank fixture's hash, K1-K3
+   launched; each 1 s fixture through `encode_mp2` / `AHX.encode`, and the
+   CLI's `encode --format ahx` in a subprocess, held to their hashes; the
+   bank call timed (median of 3 after a warm-up) with its stage split; the
+   kernels timed at the bank shape (CUDA events), the twins once, K1's
+   library yardstick (the fold in torch and one f64 `torch.matmul`, within
+   1e-12 of the kernel).
+
 Prints a JSON line of per-kernel results (launches on the main paths, max
 |kernel - twin|, kernel/twin ms, the bound from the bytes and operations of
 the timed call, and for B7 (each instance) and B8 from their dependent
-chain at the card's maximum SM clock; the library calls of B4, B5, B6 and
-`mp2_synth`), the card line, and last a JSON line
+chain at the card's maximum SM clock; the library calls of B4, B5, B6,
+`mp2_synth` and K1), the card line, and last a JSON line
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; there
 is no CPU path.
 
@@ -228,6 +248,16 @@ KERNELS = {
     "hca_imdct": dict(
         source="pycricodecs_tpu_torch/csrc/hca_imdct.cu",
         replaces="pycricodecs_tpu/ops/pallas_kernels.py:130"),
+    # the AHX encode: no Pallas kernel; the JAX package's f64 numpy host lane
+    "mp2_analysis": dict(
+        source="pycricodecs_tpu_torch/csrc/mp2_analysis.cu",
+        replaces="pycricodecs_tpu/ops/mp2_kernels.py:102"),
+    "mp2_allocate": dict(
+        source="pycricodecs_tpu_torch/csrc/mp2_encode.cu",
+        replaces="pycricodecs_tpu/models/ahx.py:170"),
+    "mp2_pack": dict(
+        source="pycricodecs_tpu_torch/csrc/mp2_encode.cu",
+        replaces="pycricodecs_tpu/ops/mp2_frame.py:367"),
 }
 
 # H100 SXM rates (NVIDIA data sheet and Hopper white paper: 132 SMs, 3.35
@@ -266,12 +296,22 @@ FP64_OPS_PER_S = 17e12
 #   sub, div, mul), matrixing 126 (64 outputs x 32 mul + 31 add per 32
 #   samples), window 31 (16 mul + 15 add), PCM 2 (mul, add);
 # - B4 (hca_imdct_ola): the DCT-IV's 28 and window + overlap-add 3 per
-#   output value; B5 (hca_imdct): the DCT-IV's 28.
+#   output value; B5 (hca_imdct): the DCT-IV's 28;
+# - K1 (mp2_analysis), f64 operations per input sample: window fold 32
+#   (64 outputs x 8 mul + 8 add per 32 samples) and matrixing 127 (32
+#   outputs x 64 mul + 63 add per 32 samples): 159;
+# - K2 (mp2_allocate), f64 operations per quantised code (a code of an
+#   allocated (frame, channel, subband), x 36): divide, multiply, add,
+#   subtract, divide, add, floor = 7 (the greedy steps' compares uncounted);
+# - K3 (mp2_pack): three per quantised code written (field value, shift,
+#   shared-memory OR).
 OPS = {"hca_side_info": 1, "hca_coefficients": 3, "hca_transform": 35,
        "adx_decode": 13, "adx_decode_host": 13, "adx_encode": 20, "hca_mdct": 23, "hca_pack": 3,
        "hca_transform_pns": 37, "mp2_unpack": 3, "mp2_synth": 164,
-       "hca_imdct_ola": 31, "hca_imdct": 28}
-OPS_PER_S = {"mp2_synth": FP64_OPS_PER_S,
+       "hca_imdct_ola": 31, "hca_imdct": 28, "mp2_analysis": 159,
+       "mp2_allocate": 7, "mp2_pack": 3}
+OPS_PER_S = {"mp2_synth": FP64_OPS_PER_S, "mp2_analysis": FP64_OPS_PER_S,
+             "mp2_allocate": FP64_OPS_PER_S, "mp2_pack": INT32_OPS_PER_S,
              **dict.fromkeys(("hca_side_info", "hca_coefficients",
                               "hca_pack", "mp2_unpack", "adx_decode",
                               "adx_decode_host", "adx_encode"),
@@ -724,6 +764,9 @@ def reset_launches() -> None:
     cuda_kernels.MP2_SYNTH_LAUNCHES = 0
     cuda_kernels.IMDCT_OLA_LAUNCHES = 0
     cuda_kernels.IMDCT_LAUNCHES = 0
+    cuda_kernels.MP2_ANALYSIS_LAUNCHES = 0
+    cuda_kernels.MP2_ALLOCATE_LAUNCHES = 0
+    cuda_kernels.MP2_PACK_LAUNCHES = 0
 
 
 def read_launches() -> dict:
@@ -740,7 +783,10 @@ def read_launches() -> dict:
             "mp2_unpack": cuda_kernels.MP2_UNPACK_LAUNCHES,
             "mp2_synth": cuda_kernels.MP2_SYNTH_LAUNCHES,
             "hca_imdct_ola": cuda_kernels.IMDCT_OLA_LAUNCHES,
-            "hca_imdct": cuda_kernels.IMDCT_LAUNCHES}
+            "hca_imdct": cuda_kernels.IMDCT_LAUNCHES,
+            "mp2_analysis": cuda_kernels.MP2_ANALYSIS_LAUNCHES,
+            "mp2_allocate": cuda_kernels.MP2_ALLOCATE_LAUNCHES,
+            "mp2_pack": cuda_kernels.MP2_PACK_LAUNCHES}
 
 
 def drive(path: str, own, fn):
@@ -2129,6 +2175,359 @@ def bank_phase(dev, card: str, hca_expected: dict) -> None:
             f"{hca_name}.hca): the files' sha256 equal to the JAX package's")
 
 
+# ---------------------------------------------------------------------------
+# AHX / MPEG Layer II encode (phase 16)
+# ---------------------------------------------------------------------------
+
+ENCODE_KERNELS = ("mp2_analysis", "mp2_allocate", "mp2_pack")
+LOG10_VALUES = 1_000_000
+# (label, channels, sample rate, kbps, joint bound, streams, frames) of the
+# random-signal checks: every allocation table (LSF 4, MPEG-1 a/b/c/d),
+# mono, stereo and joint bounds 4-16, frame counts whose 36-row frames end
+# off K1's 64-row tile, one frame, one stream
+ENCODE_CASES = (
+    ("LSF mono 16 kHz 64 kbps (table 4)", 1, 16000, 64, None, 3, 7),
+    ("LSF mono 24 kHz 160 kbps (table 4)", 1, 24000, 160, None, 2, 5),
+    ("LSF stereo 22.05 kHz 128 kbps (table 4)", 2, 22050, 128, None, 2, 3),
+    ("MPEG-1 mono 48 kHz 32 kbps (table c)", 1, 48000, 32, None, 3, 5),
+    ("MPEG-1 stereo 32 kHz 48 kbps (table d)", 2, 32000, 48, None, 2, 9),
+    ("MPEG-1 stereo 48 kHz 384 kbps (table a)", 2, 48000, 384, None, 2, 3),
+    ("MPEG-1 mono 32 kHz 320 kbps (table b)", 1, 32000, 320, None, 1, 17),
+    ("MPEG-1 stereo 44.1 kHz 192 kbps (table b)", 2, 44100, 192, None, 3, 4),
+    ("MPEG-1 joint 4 44.1 kHz 192 kbps", 2, 44100, 192, 4, 2, 5),
+    ("MPEG-1 joint 8 48 kHz 256 kbps", 2, 48000, 256, 8, 2, 3),
+    ("MPEG-1 joint 12 32 kHz 128 kbps", 2, 32000, 128, 12, 3, 2),
+    ("MPEG-1 joint 16 44.1 kHz 320 kbps", 2, 44100, 320, 16, 1, 1),
+)
+
+
+def random_encode_pcm(rng, B, C, F) -> np.ndarray:
+    """PCM16 [B, C, F * 1152] of tones, noise and level jumps at random
+    loudness per stream and channel; stream 0 ends in silence and, where
+    B > 1, stream 1 is a full-scale square wave (both rails)."""
+    n = F * 1152
+    t = np.arange(n)
+    pcm = np.zeros((B, C, n))
+    for b in range(B):
+        for c in range(C):
+            f0 = rng.uniform(0.001, 0.45)
+            sig = rng.uniform(0, 0.8) * np.sin(2 * np.pi * f0 * t)
+            sig += rng.uniform(0, 0.3) * rng.standard_normal(n)
+            sig *= np.repeat(rng.uniform(0, 1.5, -(-n // 384)), 384)[:n]
+            pcm[b, c] = sig
+    pcm[0, :, n // 2:] = 0.0
+    if B > 1:
+        pcm[1] = np.where((t // 37) % 2, 1.0, -1.0)
+    return np.clip(np.round(pcm * 32767), -32768, 32767).astype(np.int16)
+
+
+def f64_equal(what: str, a: torch.Tensor, b: torch.Tensor) -> float:
+    """Two float64 tensors bit for bit; returns max |a - b| (0.0)."""
+    if a.shape != b.shape or not torch.equal(a.view(torch.int64),
+                                             b.view(torch.int64)):
+        d = float((a - b).abs().max()) if a.shape == b.shape else "shape"
+        raise AssertionError(f"{what}: differs from its twin (max |diff| "
+                             f"{d})")
+    return 0.0
+
+
+def encode_pairs(worst: dict, label: str, pcm, cfg):
+    """K1, both passes of K2 and K3 against their twins on `pcm`, each
+    twin fed the kernel's input; returns (S, peaks, need, K2 outputs,
+    K3 bytes)."""
+    from pycricodecs_tpu_torch.ops import cuda_kernels
+    from pycricodecs_tpu_torch.ops import mp2_encode_device as E
+    from pycricodecs_tpu_torch.ops import mp2_kernels as MK
+    S = cuda_kernels.mp2_analysis(pcm)
+    worst["mp2_analysis"] = max(worst["mp2_analysis"], f64_equal(
+        f"K1 {label}", S, MK.analyze_plain(pcm)))
+    peaks = cuda_kernels.mp2_allocate_peaks(S)
+    f64_equal(f"K2 peaks {label}", peaks, E.frame_peaks_plain(S))
+    need = E.need_db_host(peaks)
+    F = S.shape[2] // 36
+    pads, sizes, budgets = cfg.frame_plan(F)
+    bud = torch.from_numpy(budgets).to(pcm.device)
+    got = E.allocate(S, need, bud, cfg)
+    want = E.allocate_plain(S, need, bud, cfg)
+    worst["mp2_allocate"] = max(worst["mp2_allocate"], require_equal(
+        f"K2 {label}", [(n, a.view(torch.int16) if a.dtype == torch.uint16
+                         else a, b.view(torch.int16) if b.dtype ==
+                         torch.uint16 else b)
+                        for n, a, b in zip(("alloc", "scfsi", "sfidx",
+                                            "codes"), got, want)]))
+    frames = E.pack(*got, cfg, pads, sizes)
+    worst["mp2_pack"] = max(worst["mp2_pack"], require_equal(
+        f"K3 {label}", [("frames", frames, E.pack_plain(
+            *got, cfg, torch.from_numpy(pads).to(pcm.device), sizes))]))
+    return S, peaks, need, got, frames
+
+
+def log10_check(dev, peaks: torch.Tensor) -> int:
+    """How many values torch.log10 on the card and np.log10 on the host
+    give differently, over every peak of the bank and LOG10_VALUES
+    log-uniform values in [1e-9, 2]."""
+    rng = np.random.default_rng(16)
+    vals = np.exp(rng.uniform(np.log(1e-9), np.log(2.0), LOG10_VALUES))
+    p = np.maximum(peaks.cpu().numpy().reshape(-1), 1e-9)
+    counts = []
+    for label, v in (("bank peaks", p), ("log-uniform", vals)):
+        card = torch.log10(torch.from_numpy(v).to(dev)).cpu().numpy()
+        n = int((card != np.log10(v)).sum())
+        counts.append(n)
+        log(f"log10: torch.log10 on the card differs from np.log10 on the "
+            f"host on {n} of {v.size} {label}")
+    log("need_db design: numpy's log10 on the host from K2's first-pass "
+        "peaks (the reference's function; taken because CUDA's differs)"
+        if sum(counts) else "need_db: CUDA's log10 agreed everywhere")
+    return sum(counts)
+
+
+def analysis_library(pcm, S_k, card: str) -> float:
+    """K1's yardstick: the window fold in torch (analyze_plain's), then one
+    f64 torch.matmul of Y by M.T (another summation order: checked within
+    1e-12 of the kernel). Never called by the port."""
+    from pycricodecs_tpu_torch.ops import mp2_tables
+    B, C, N = pcm.shape
+    Tn = N // 32
+    win = torch.from_numpy(mp2_tables.analysis_window()).to(pcm.device)
+    MT = torch.from_numpy(np.ascontiguousarray(
+        mp2_tables.analysis_matrix().T)).to(pcm.device)
+
+    def library():
+        x32r = torch.nn.functional.pad(pcm.double() / 32768.0, (512, 0)) \
+            .reshape(B, C, Tn + 16, 32).flip(-1)
+        Y = torch.zeros((B, C, Tn, 64), dtype=torch.float64,
+                        device=pcm.device)
+        for h in range(2):
+            for r in range(8):
+                w = win[32 * h + 64 * r:32 * h + 64 * r + 32]
+                s0 = 16 - h - 2 * r
+                Y[..., 32 * h:32 * h + 32] += w * x32r[..., s0:s0 + Tn, :]
+        return torch.matmul(Y, MT)
+
+    d = float((library() - S_k).abs().max())
+    if d > 1e-12:
+        raise AssertionError(f"K1's library yardstick is {d} from the "
+                             f"kernel")
+    ms = cuda_ms(library, 5)
+    log(f"mp2_analysis library yardstick [{card}]: torch fold + one f64 "
+        f"torch.matmul, {ms:.4f} ms, within {d:.3g} of the kernel")
+    return ms
+
+
+def encode_stage_split(dev, wav: bytes, cfg, card: str) -> None:
+    """One bank encode in the steps of ahx_encode_batch, each ended by a
+    synchronise: where the time goes, on the host clock."""
+    from pycricodecs_tpu_torch.models import ahx as ahx_model
+    from pycricodecs_tpu_torch.ops import mp2_encode_device as E
+    from pycricodecs_tpu_torch.ops import mp2_kernels as MK
+    from pycricodecs_tpu_torch.utils import wav as wavmod
+    split = {}
+
+    def lap(name, t0):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        split[name] = t1 - t0
+        return t1
+
+    t = time.perf_counter()
+    parsed = [wavmod.parse_wav(wav) for _ in range(BANK_STREAMS)]
+    n = parsed[0].pcm16.size
+    F = -(-n // 1152)
+    pcm = np.zeros((BANK_STREAMS, 1, F * 1152), np.int16)
+    for i, w in enumerate(parsed):
+        pcm[i, 0, :n] = w.pcm16
+    t = lap("host: WAV parse and stacking", t)
+    pcm_d = torch.from_numpy(pcm).to(dev)
+    t = lap("H2D of the PCM", t)
+    S = MK.analyze(pcm_d)
+    t = lap("K1 mp2_analysis", t)
+    peaks = E.frame_peaks(S)
+    t = lap("K2 first pass (peaks)", t)
+    need = E.need_db_host(peaks)
+    t = lap("host: peaks D2H, numpy log10, need_db H2D", t)
+    pads, sizes, budgets = cfg.frame_plan(F)
+    out = E.allocate(S, need, torch.from_numpy(budgets).to(dev), cfg)
+    t = lap("K2 second pass (allocation, quantisation)", t)
+    frames = E.pack(*out, cfg, pads, sizes)
+    t = lap("K3 mp2_pack", t)
+    data = frames.cpu().numpy()
+    t = lap("D2H of the frames", t)
+    offs = E.frame_offsets(sizes)
+    [ahx_model.ahx_container(data[b, :offs[F]].tobytes(), 22050, n)
+     for b in range(BANK_STREAMS)]
+    lap("host: cut and AHX container", t)
+    total = sum(split.values())
+    log(f"AHX encode bank stage split [{card}] (one run, synchronised after "
+        f"each step, {total:.4f} s): " + "; ".join(
+            f"{k} {v:.4f} s ({100 * v / total:.1f} %)"
+            for k, v in split.items()))
+
+
+def ahx_encode_phase(dev, card: str, worst: dict, launches: dict) -> dict:
+    """Phase 16; returns name -> (ms, plain_ms, bound dict[, library])."""
+    import tempfile
+
+    import pycricodecs_tpu_torch as port
+    from pycricodecs_tpu_torch.models import ahx as ahx_model
+    from pycricodecs_tpu_torch.ops import cuda_kernels
+    from pycricodecs_tpu_torch.ops import mp2_encode_device as E
+    from pycricodecs_tpu_torch.ops import mp2_encode_host
+    from pycricodecs_tpu_torch.ops import mp2_kernels as MK
+    from pycricodecs_tpu_torch.utils import signals
+    from pycricodecs_tpu_torch.utils.wav import write_wav
+
+    expected, _ = load_ahx_fixtures()
+    # -- K1, K2, K3 against their twins on random signals -----------------
+    rng = np.random.default_rng(16)
+    for label, C, rate, kbps, jb, B, F in ENCODE_CASES:
+        cfg = mp2_encode_host.configure(C, rate, kbps, jb)
+        pcm = torch.from_numpy(random_encode_pcm(rng, B, C, F)).to(dev)
+        encode_pairs(worst, f"random {label}", pcm, cfg)
+        log(f"K1/K2/K3 random {label}, {B} x {F} frames (table "
+            f"{cfg.hdr.table_id}, sblimit {cfg.sblimit}, bound {cfg.bound}):"
+            f" bit- and byte-equal to the twins")
+
+    # -- the bank shape -----------------------------------------------------
+    bank_name = signals.AHX_BANK
+    bank_pcm = signals.ahx_bank_pcm()
+    n = bank_pcm.size
+    F = -(-n // 1152)
+    cfg = mp2_encode_host.configure(1, 22050, 96)
+    x = np.zeros((BANK_STREAMS, 1, F * 1152), np.int16)
+    x[:, 0, :n] = bank_pcm
+    pcm = torch.from_numpy(x).to(dev)
+    S, peaks, need, out, frames = encode_pairs(worst, "bank", pcm, cfg)
+    offs = E.frame_offsets(cfg.frame_plan(F)[1])
+    want = expected[bank_name]["stream_sha256"]
+    for b in (0, BANK_STREAMS - 1):
+        if sha(ahx_model.ahx_container(frames[b].cpu().numpy().tobytes(),
+                                       22050, n)) != want:
+            raise AssertionError("K3's bank frames differ from the JAX hash")
+    log(f"K1/K2/K3 bank {BANK_STREAMS} x {F} frames: bit- and byte-equal "
+        f"to the twins")
+    n_log10 = log10_check(dev, peaks)
+
+    # -- the main path: ahx_encode_batch of the bank -------------------------
+    wav = write_wav(bank_pcm, 1, 22050)
+    streams, counts = drive("ahx_encode_batch", ENCODE_KERNELS,
+                            lambda: port.ahx_encode_batch(
+                                [wav] * BANK_STREAMS, 96, device=dev))
+    for k in ENCODE_KERNELS:
+        launches[k] = counts[k]
+    require_hashes("ahx_encode_batch bank", streams, [want] * BANK_STREAMS)
+    log(f"AHX encode bank: {BANK_STREAMS} x 10 s encoded on the card, every "
+        f"AHX sha256 equal to the JAX package's AHX.encode "
+        f"({sum(len(s) for s in streams)} bytes)")
+    del streams
+
+    # -- the 1 s fixtures, AHX.encode and the CLI ------------------------------
+    tones = signals.tones
+    enc = lambda *a, **k: ahx_model.encode_mp2(*a, device=dev, **k)  # noqa
+    ahx = lambda pcm, rate, **k: port.AHX.encode(                    # noqa
+        write_wav(pcm.reshape(-1), 1, rate), device=dev, **k)
+    fixtures = {
+        "ahx10_lsf_mono_16k_1s": lambda: ahx(tones(1.0, 1, 16000, 11),
+                                             16000, AhxVersion=0x10),
+        "ahx11_lsf_mono_22k_1s": lambda: ahx(tones(1.0, 1, 22050, 12),
+                                             22050, bitrate_kbps=64),
+        "mp2_lsf_mono_24k_1s": lambda: enc(tones(1.0, 1, 24000, 13)[0],
+                                           24000),
+        "mp2_stereo_44k_192k_1s": lambda: enc(tones(1.0, 2, 44100, 14),
+                                              44100, bitrate_kbps=192),
+        "mp2_joint8_44k_192k_1s": lambda: enc(tones(1.0, 2, 44100, 15),
+                                              44100, bitrate_kbps=192,
+                                              joint_bound=8),
+        "mp2_vbr_lsf_mono_22k_1s": lambda: (
+            enc(tones(0.5, 1, 22050, 17)[0], 22050, bitrate_kbps=64)
+            + enc(tones(0.5, 1, 22050, 18)[0], 22050, bitrate_kbps=96)),
+    }
+    for name, fn in fixtures.items():
+        if sha(fn()) != expected[name]["stream_sha256"]:
+            raise AssertionError(f"{name}: the encode differs from the JAX "
+                                 f"package's")
+        log(f"AHX encode fixture {name}: sha256 equal to the JAX package's")
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "in.wav")
+        with open(src, "wb") as f:
+            f.write(write_wav(tones(1.0, 1, 22050, 12).reshape(-1), 1, 22050))
+        dst = os.path.join(tmp, "out.ahx")
+        proc = subprocess.run([sys.executable, "-m", "pycricodecs_tpu_torch",
+                               "encode", src, "-o", dst, "--format", "ahx",
+                               "--bitrate", "64"], cwd=ROOT, timeout=300,
+                              capture_output=True, text=True)
+        if proc.returncode:
+            raise AssertionError(f"CLI encode --format ahx exited "
+                                 f"{proc.returncode}: {proc.stderr[-2000:]}")
+        with open(dst, "rb") as f:
+            if sha(f.read()) != \
+                    expected["ahx11_lsf_mono_22k_1s"]["stream_sha256"]:
+                raise AssertionError("CLI encode --format ahx differs from "
+                                     "the JAX package's")
+    log("CLI `python -m pycricodecs_tpu_torch encode --format ahx` on the "
+        "card: sha256 equal to the JAX package's")
+
+    # -- timings --------------------------------------------------------------
+    batch = [wav] * BANK_STREAMS
+    port.ahx_encode_batch(batch, 96, device=dev)             # warm-up
+    wall, runs = median_wall(lambda: port.ahx_encode_batch(batch, 96,
+                                                           device=dev))
+    audio_s = BANK_STREAMS * 10.0
+    log(f"AHX encode bank [{card}]: median of 3 = {wall:.4f} s for "
+        f"{audio_s:.0f} audio-s -> {audio_s / wall:.1f} audio-s/s; runs "
+        f"{[round(r, 4) for r in runs]}")
+    encode_stage_split(dev, wav, cfg, card)
+    pads, sizes, budgets = cfg.frame_plan(F)
+    bud = torch.from_numpy(budgets).to(dev)
+    itab, snr = E.device_tables(cfg, dev)
+    ctab = E.pack_tables(cfg, dev)
+    offs_d = torch.from_numpy(offs).to(dev)
+    pads_d = torch.from_numpy(pads).to(dev)
+    k1_ms = cuda_ms(lambda: cuda_kernels.mp2_analysis(pcm), 10)
+    k2a_ms = cuda_ms(lambda: cuda_kernels.mp2_allocate_peaks(S), 10)
+    k2b_ms = cuda_ms(lambda: cuda_kernels.mp2_allocate(
+        S, need, bud, itab, snr, sblimit=cfg.sblimit, bound=cfg.bound,
+        joint=cfg.joint), 10)
+    k3_ms = cuda_ms(lambda: cuda_kernels.mp2_pack(
+        *out, pads_d, offs_d, ctab, sblimit=cfg.sblimit, bound=cfg.bound,
+        header_base=cfg.header_base, total=int(offs[-1]),
+        max_frame=int(sizes.max())), 10)
+    _, k1_plain = cuda_ms_once(lambda: MK.analyze_plain(pcm))
+    _, k2a_plain = cuda_ms_once(lambda: E.frame_peaks_plain(S))
+    _, k2b_plain = cuda_ms_once(lambda: E.allocate_plain(S, need, bud, cfg))
+    _, k3_plain = cuda_ms_once(lambda: E.pack_plain(*out, cfg, pads_d,
+                                                    sizes))
+    k1_library = analysis_library(pcm, S, card)
+    alloc, scfsi, sfidx, codes = out
+    levels = torch.from_numpy(cfg.levels_tbl).to(dev)
+    coded = int((levels[torch.arange(32, device=dev), alloc.long()] > 0)
+                .sum()) * 36
+    bd = {
+        "mp2_analysis": bound("mp2_analysis", nbytes(pcm, S), pcm.numel()),
+        "mp2_allocate": bound("mp2_allocate",
+                              nbytes(S, peaks, need, bud, *out), coded),
+        "mp2_pack": bound("mp2_pack", nbytes(*out, pads_d, offs_d, frames),
+                          coded),
+    }
+    log(f"K2 [{card}] at the bank shape: first pass {k2a_ms:.4f} ms (twin "
+        f"{k2a_plain:.4f} ms), second pass {k2b_ms:.4f} ms (twin "
+        f"{k2b_plain:.4f} ms); {coded} codes quantised; log10 differences "
+        f"{n_log10}")
+    res = {"mp2_analysis": (k1_ms, k1_plain, bd["mp2_analysis"], k1_library),
+           "mp2_allocate": (k2a_ms + k2b_ms, k2a_plain + k2b_plain,
+                            bd["mp2_allocate"]),
+           "mp2_pack": (k3_ms, k3_plain, bd["mp2_pack"])}
+    kernel_total = k1_ms + k2a_ms + k2b_ms + k3_ms
+    for name, (ms, plain_ms, b_, *_) in res.items():
+        log(f"{name} [{card}] at the AHX encode bank shape ({BANK_STREAMS} "
+            f"x {F} frames): kernel {ms:.4f} ms, twin {plain_ms:.4f} ms (one"
+            f" run), bound {b_['bound_ms']:.4f} ms by {b_['bound_by']}")
+    log(f"AHX encode bank [{card}]: K1-K3 {kernel_total:.4f} ms of the "
+        f"{wall * 1e3:.1f} ms call ({100 * kernel_total / (wall * 1e3):.2f} "
+        f"%)")
+    return res
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -2404,6 +2803,9 @@ def main() -> None:
 
     # -- phase 15: the AWB/ACB banks, the single-file surfaces, the CLI -------
     bank_phase(dev, card, expected)
+
+    # -- phase 16: the AHX / MPEG Layer II encode ----------------------------
+    results.update(ahx_encode_phase(dev, card, worst, launches))
 
     report = []
     for name, (ms, plain_ms, bd, *library) in results.items():

@@ -1,9 +1,9 @@
 """pycricodecs_tpu_torch: the PyTorch + CUDA port of pycricodecs_tpu.
 
 The batched HCA bank decode and encode, the batched ADX decode and encode,
-the batched AHX (MPEG Layer II) decode, the AWB/ACB bank decode and the HCA
-key search run on one NVIDIA Hopper GPU through hand-written CUDA kernels
-(csrc/), built with nvcc at first use; every kernel has a plain PyTorch twin
+the batched AHX (MPEG Layer II) decode and encode, the AWB/ACB bank decode
+and the HCA key search run on one NVIDIA Hopper GPU through hand-written
+CUDA kernels (csrc/), built with nvcc at first use; every kernel has a plain PyTorch twin
 that a CPU tensor runs instead. The single-file surfaces (ADX, HCA, AHX),
 the container readers (UTF, AWB, ACB) and the command line
 (`python -m pycricodecs_tpu_torch`) run through the same batch paths.
@@ -18,12 +18,12 @@ from .models.ahx import AHX
 from .models.hca import HCA, crypt
 from .ops.hca_frame import HcaInfo
 from .parallel import (DecodeStats, adx_decode_batch, adx_encode_batch,
-                       ahx_decode_batch, decode_acb, decode_awb, decode_batch,
-                       encode_batch, find_key, hca_encode_batch, rank_keys,
-                       score_key)
+                       ahx_decode_batch, ahx_encode_batch, decode_acb,
+                       decode_awb, decode_batch, encode_batch, find_key,
+                       hca_encode_batch, rank_keys, score_key)
 
 __all__ = ["ACB", "ADX", "AHX", "AWB", "DecodeStats", "HCA", "HcaInfo", "UTF",
            "adx_decode_batch", "adx_encode_batch", "ahx_decode_batch",
-           "crypt", "decode_acb", "decode_awb", "decode_batch",
-           "encode_batch", "find_key", "hca_encode_batch", "rank_keys",
-           "score_key"]
+           "ahx_encode_batch", "crypt", "decode_acb", "decode_awb",
+           "decode_batch", "encode_batch", "find_key", "hca_encode_batch",
+           "rank_keys", "score_key"]

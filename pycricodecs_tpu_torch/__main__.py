@@ -8,8 +8,8 @@
     python -m pycricodecs_tpu_torch info file.adx
 
 Every command takes --device (default cuda); work runs there and nowhere
-else. What the port does not carry refuses with SystemExit: encoding AHX,
-extracting or describing CPK, USM and IVF, and `build`. An ACB is opened by
+else. What the port does not carry refuses with SystemExit: extracting or
+describing CPK, USM and IVF, and `build`. An ACB is opened by
 its path, so a sibling `<Name>.awb` resolves beside it from any working
 directory (the JAX package's CLI opens it from bytes, which resolves the
 sibling against the working directory); the files written are the same.
@@ -76,13 +76,15 @@ def cmd_encode(args) -> None:
     data = _read(args.input)
     if _sniff(data) != "wav":
         raise SystemExit("encode expects a WAV input")
-    if args.format == "ahx":
-        raise _not_ported("encode --format ahx")
     if args.format == "adx":
         blob = adx.encode(data, bit_depth=args.bitdepth,
                           encoding_mode=args.mode, scale_fix=args.scale_fix,
                           device=args.device)
         ext = ".adx"
+    elif args.format == "ahx":
+        from .models.ahx import AHX
+        blob = AHX.encode(data, bitrate_kbps=args.bitrate, device=args.device)
+        ext = ".ahx"
     else:
         blob = pipeline.hca_encode_batch([data], quality=args.quality,
                                          device=args.device)[0]
@@ -208,7 +210,7 @@ def main(argv=None) -> None:
     common(p)
     p.set_defaults(fn=cmd_decode)
 
-    p = sub.add_parser("encode", help="WAV -> ADX/HCA (AHX is not ported)")
+    p = sub.add_parser("encode", help="WAV -> ADX/AHX/HCA")
     p.add_argument("--scale-fix", action="store_true", dest="scale_fix",
                    help="ADX: decoder-exact quantiser (fixes the "
                         "reference's high-bitdepth popping; output stays "
@@ -216,7 +218,7 @@ def main(argv=None) -> None:
     common(p)
     p.add_argument("--format", choices=("adx", "ahx", "hca"), default="hca")
     p.add_argument("--bitrate", type=int, default=None,
-                   help="AHX/MP2 bitrate in kbps (AHX is not ported)")
+                   help="AHX/MP2 bitrate in kbps")
     p.add_argument("--quality", type=int, default=1,
                    help="HCA quality 0 (highest) .. 4")
     p.add_argument("--bitdepth", type=int, default=4)

@@ -43,6 +43,7 @@ LIB_NAME = "libport_kernels.so"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_U = ctypes.c_uint
 # C entry points: each launches one kernel on the given stream and returns
 # cudaGetLastError()
 SIGNATURES = {
@@ -63,6 +64,11 @@ SIGNATURES = {
     "mp2_synth": [_P, _P, _P, _I, _I, _I, _P, _P],
     "hca_imdct_ola": [_P, _I, _I, _P, _P],
     "hca_imdct": [_P, _L, _P, _P],
+    "mp2_analysis": [_P, _L, _I, _P, _P],
+    "mp2_allocate": [_I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                     _P, _P, _P, _P],
+    "mp2_pack": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _P, _L, _I,
+                 _P, _P],
 }
 
 #: the Layer II quantisation classes n whose correctly rounded 1 / n the
@@ -123,7 +129,8 @@ def tables_header() -> str:
                       ("kImdctWindow", T.IMDCT_WINDOW)):
         out.append(_c_array(name, "float", _f32_literals(arr)))
     # MPEG Layer II: B10's header and allocation tables, the synthesis's
-    # scalefactors, transposed matrixing nt[k][q] = N[q][k] and window
+    # scalefactors (K2's too), transposed matrixing nt[k][q] = N[q][k] and
+    # window
     mt = M.tables()
     for name, ctype, arr in (("kMp2Nbal", "uint8_t", mt["nbal"]),
                              ("kMp2Classes", "uint16_t", mt["classes"]),
@@ -134,9 +141,12 @@ def tables_header() -> str:
                              ("kMp2Bitrate", "int", mt["bitrate"]),
                              ("kMp2Rate", "int", mt["rate"])):
         out.append(_c_array(name, ctype, _int_literals(arr)))
+    # and the encoder's analysis matrix M[k][q] and window C (K1)
     for name, arr in (("kMp2Sf", mp2_tables.scalefactors()),
                       ("kMp2Nt", mp2_tables.synthesis_matrixing().T),
                       ("kMp2Dwin", mp2_tables.synth_window()),
+                      ("kMp2Am", mp2_tables.analysis_matrix()),
+                      ("kMp2Cwin", mp2_tables.analysis_window()),
                       ("kMp2Recip", 1.0 / np.asarray(MP2_RECIP_N,
                                                      np.float64))):
         out.append(_c_array(name, "double", _f64_literals(arr)))

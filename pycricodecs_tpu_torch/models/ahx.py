@@ -1,21 +1,76 @@
 """AHX container: MPEG Layer II audio in an ADX-style CRI header.
 
-A copy of the decode-side header of pycricodecs_tpu/models/ahx.py
-(`AHX_TYPES`, `CRI_STRING`, `AHX.parse_header`) and of the AHX rule of
-pycricodecs_tpu/utils/sniff.py; tests hold them equal. The `AHX` class is
-the single-file surface (parse_header, decode, info; the encode is not
-ported): its decode runs the batch path of parallel/pipeline.py on `device`
-and, like the JAX package's AHX.decode, zero-fills a stream whose frames
-hold fewer samples than its header declares (ahx_decode_batch trims).
+A copy of the container half of pycricodecs_tpu/models/ahx.py
+(`AHX_TYPES`, `CRI_STRING`, `ahx_container`, `AHX.parse_header`) and of
+the AHX rule of pycricodecs_tpu/utils/sniff.py; tests hold them equal.
+`encode_mp2` is the JAX encode_mp2's f64 host lane (its default), byte for
+byte, run by ops/mp2_encode_device.py on `device`. The `AHX` class is the
+single-file surface (parse_header, decode, encode, info): decode and
+encode run the batch paths of parallel/pipeline.py and
+ops/mp2_encode_device.py on `device`; decode, like the JAX package's
+AHX.decode, zero-fills a stream whose frames hold fewer samples than its
+header declares (ahx_decode_batch trims).
 """
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
 import torch
 
 from ..ops import mp2_frame
+from ..ops import mp2_tables
 
 CRI_STRING = b"(c)CRI"
 AHX_TYPES = (0x10, 0x11)
+
+
+def ahx_container(stream: bytes, sample_rate: int, n_samples: int,
+                  AhxVersion: int = 0x11) -> bytes:
+    """Wrap a mono MPEG-2 LSF Layer II stream in the AHX (ADX-style)
+    container (header layout mirrored by parse_header)."""
+    header = bytearray(0x24)
+    header[0:2] = b"\x80\x00"
+    header[2:4] = (0x20).to_bytes(2, "big")     # data at 0x24
+    header[4] = AhxVersion
+    header[5] = 0                               # block size
+    header[6] = 0                               # bit depth
+    header[7] = 1                               # channels
+    header[8:12] = sample_rate.to_bytes(4, "big")
+    header[12:16] = n_samples.to_bytes(4, "big")
+    header[16:18] = b"\x00\x00"                 # highpass
+    header[18] = 0x06                           # AHX header version tag
+    header[19] = 0x00                           # flags
+    header[0x1E:0x24] = CRI_STRING
+    footer = b"\x80\x01\x00\x0c" + b"AHXE(c)CRI\x00\x00"
+    return bytes(header) + stream + footer
+
+
+def encode_mp2(pcm, sample_rate: int, bitrate_kbps: Optional[int] = None,
+               joint_bound: Optional[int] = None, *,
+               device="cuda") -> bytes:
+    """Encode int16 PCM ([N] mono or [C, N]) to MPEG Layer II on `device`:
+    the bytes of pycricodecs_tpu.models.ahx.encode_mp2(pcm, sample_rate,
+    bitrate_kbps, joint_bound=joint_bound) (its f64 host lane).
+
+    MPEG-2 LSF for 16/22.05/24 kHz, MPEG-1 for 32/44.1/48 kHz; stereo as
+    independent channels (mode 0) or, with joint_bound in {4, 8, 12, 16},
+    joint (intensity) stereo; CBR with the standard padding-slot
+    accumulator; greedy max-(SMR - SNR) allocation."""
+    from ..ops import mp2_encode_device, mp2_encode_host
+    pcm = np.asarray(pcm, dtype=np.int16)
+    if pcm.ndim == 1:
+        pcm = pcm[None, :]
+    C, N = pcm.shape
+    cfg = mp2_encode_host.configure(C, sample_rate, bitrate_kbps,
+                                    joint_bound)
+    if N == 0:
+        raise ValueError(mp2_encode_host.EMPTY_STREAM)
+    F = -(-N // mp2_frame.SAMPLES_PER_FRAME)
+    x = np.zeros((1, C, F * mp2_frame.SAMPLES_PER_FRAME), np.int16)
+    x[0, :, :N] = pcm
+    return mp2_encode_device.encode_streams(
+        torch.from_numpy(x).to(torch.device(device)), cfg)[0]
 
 
 def is_ahx(data: bytes) -> bool:
@@ -51,8 +106,8 @@ def _read(data) -> bytes:
 
 
 class AHX:
-    """AHX (ADX-container MPEG-2 Layer II) decoder, the drop-in shape of the
-    JAX package's AHX without its encode."""
+    """AHX (ADX-container MPEG-2 Layer II) decoder and encoder, the drop-in
+    shape of the JAX package's AHX."""
 
     parse_header = staticmethod(parse_header)
 
@@ -65,6 +120,26 @@ class AHX:
         parse_header(data)
         return pipeline._ahx_decode([data], torch.device(device), "raise",
                                     zero_fill=True)[0]
+
+    @staticmethod
+    def encode(data, bitrate_kbps: Optional[int] = None,
+               AhxVersion: int = 0x11, *, device="cuda") -> bytes:
+        """WAV -> AHX on `device`: pycricodecs_tpu.models.ahx.AHX.encode's
+        bytes. Input must be mono at an MPEG-2 LSF rate
+        (16000/22050/24000 Hz); resample upstream if needed."""
+        from ..utils import wav as wavmod
+        wf = wavmod.parse_wav(_read(data))
+        if wf.channels != 1:
+            raise ValueError("AHX is mono; got "
+                             f"{wf.channels} channels.")
+        if wf.sample_rate not in mp2_tables.SAMPLE_RATES_V2:
+            raise ValueError("AHX requires an MPEG-2 LSF sample rate "
+                             f"(16000/22050/24000), got {wf.sample_rate}.")
+        if AhxVersion not in AHX_TYPES:
+            raise ValueError("AhxVersion must be 0x10 or 0x11.")
+        pcm = wf.pcm16
+        stream = encode_mp2(pcm, wf.sample_rate, bitrate_kbps, device=device)
+        return ahx_container(stream, wf.sample_rate, len(pcm), AhxVersion)
 
     @staticmethod
     def info(data) -> dict:

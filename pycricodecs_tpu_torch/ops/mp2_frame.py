@@ -1,17 +1,25 @@
-"""MPEG Audio Layer II frame headers and the frame walk (for AHX).
+"""MPEG Audio Layer II frame headers, the frame walk and the frame writer
+(for AHX).
 
-A copy of the header half of pycricodecs_tpu/ops/mp2_frame.py: `Mp2Header`,
-`parse_header` and `scan_frames` (tests hold them equal). The host
-unpacker is not copied: kernel B10 (ops/mp2_unpack_device.py) unpacks every
-frame of the port's AHX decode.
+A copy of pycricodecs_tpu/ops/mp2_frame.py without its unpackers and its
+stream packer: `Mp2Header`, `parse_header`, `scan_frames`, `header_word`
+and `pack_frame` (tests hold them equal). Kernel B10
+(ops/mp2_unpack_device.py) unpacks every frame of the port's AHX decode;
+the encode packs whole streams with kernel K3 (ops/mp2_encode_device.py),
+and `pack_frame`, the per-frame reference, stays the readable oracle the
+tests hold it to.
 """
 from __future__ import annotations
 
 from typing import List, NamedTuple, Optional, Tuple
 
+import numpy as np
+
 from . import mp2_tables as T
+from ..utils.bitio import BitWriter
 
 SAMPLES_PER_FRAME = 1152          # 12 granules x 3 samples x 32 subbands
+GRANULES = 12
 
 
 class Mp2Header(NamedTuple):
@@ -92,3 +100,66 @@ def scan_frames(data: bytes, offset: int = 0,
     if not frames:
         raise ValueError("No complete Layer II frame found.")
     return hdr0, frames
+
+
+# --- encoder side ------------------------------------------------------------
+
+def header_word(version: int, bitrate_idx: int, sr_idx: int, padding: int,
+                mode: int, mode_ext: int = 0) -> int:
+    return ((0x7FF << 21) | (version << 19) | (2 << 17) | (1 << 16)
+            | (bitrate_idx << 12) | (sr_idx << 10) | (padding << 9)
+            | (mode << 6) | (mode_ext << 4))
+
+
+def pack_frame(hdr: Mp2Header, bitrate_idx: int, sr_idx: int,
+               alloc_idx: np.ndarray, scfsi: np.ndarray,
+               sfidx: np.ndarray, codes: np.ndarray) -> bytes:
+    """Pack one Layer II frame (no CRC).  alloc_idx [C, sblimit] are table
+    indices (not levels); scfsi [C, sblimit]; sfidx [C, 3, sblimit];
+    codes [C, 36, sblimit] quantised sample codes."""
+    table = T.ALLOC_TABLES[hdr.table_id]
+    sblimit, bound, nch = hdr.sblimit, hdr.bound, hdr.nch
+    bw = BitWriter(hdr.frame_size)
+    bw.write(header_word(hdr.version, bitrate_idx, sr_idx, hdr.padding,
+                         hdr.mode, hdr.mode_ext), 32)
+
+    for sb in range(sblimit):
+        nbal = (len(table[sb]) - 1).bit_length()
+        for ch in range(nch if sb < bound else 1):
+            bw.write(int(alloc_idx[ch, sb]), nbal)
+    for sb in range(sblimit):
+        for ch in range(nch):
+            if alloc_idx[ch, sb]:
+                bw.write(int(scfsi[ch, sb]), 2)
+    for sb in range(sblimit):
+        for ch in range(nch):
+            if not alloc_idx[ch, sb]:
+                continue
+            s = int(scfsi[ch, sb])
+            a, b, c = (int(v) for v in sfidx[ch, :, sb])
+            if s == 0:
+                bw.write(a, 6), bw.write(b, 6), bw.write(c, 6)
+            elif s == 1:
+                bw.write(a, 6), bw.write(c, 6)
+            elif s == 2:
+                bw.write(a, 6)
+            else:
+                bw.write(a, 6), bw.write(b, 6)
+
+    for gr in range(GRANULES):
+        row = gr * 3
+        for sb in range(sblimit):
+            for ch in range(nch if sb < bound else 1):
+                n = table[sb][int(alloc_idx[ch, sb])]
+                if not n:
+                    continue
+                v0 = int(codes[ch, row, sb])
+                v1 = int(codes[ch, row + 1, sb])
+                v2 = int(codes[ch, row + 2, sb])
+                gb = T.GROUP_BITS.get(n)
+                if gb is not None:
+                    bw.write(v0 + n * (v1 + n * v2), gb)
+                else:
+                    nb = T.code_bits(n)
+                    bw.write(v0, nb), bw.write(v1, nb), bw.write(v2, nb)
+    return bw.getvalue()

@@ -1,4 +1,5 @@
-"""MPEG Layer II synthesis: sample codes -> PCM16, in a fixed f64 order.
+"""MPEG Layer II synthesis (codes -> PCM16) and analysis (PCM16 -> subband
+samples), each in a fixed f64 order.
 
 Computes exactly what the JAX package's host lane computes
 (mp2_kernels.decode_pcm16_host, which runs the native V-FIFO synthesis
@@ -67,6 +68,38 @@ def synthesize_plain(codes: torch.Tensor, levels: torch.Tensor,
         o = o + dwin[64 * m + 32:64 * m + 64] * odd(m)
     y = torch.floor(o * 32768.0 + 0.5).clamp(-32768.0, 32767.0)
     return y.to(torch.int16).reshape(B, C, Tn * 32)
+
+
+def analyze_plain(pcm: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch twin of mp2_analysis: PCM i16 [B, C, N], N a multiple
+    of 32 -> subband samples f64 [B, C, N / 32, 32]."""
+    B, C, N = pcm.shape
+    Tn = N // 32
+    dev = pcm.device
+    win = torch.from_numpy(T.analysis_window()).to(dev)
+    M = torch.from_numpy(T.analysis_matrix()).to(dev)
+    x = pcm.double() / 32768.0
+    xp = torch.nn.functional.pad(x, (512, 0))
+    x32r = xp.reshape(B, C, Tn + 16, 32).flip(-1)            # block-reversed
+    Y = torch.zeros((B, C, Tn, 64), dtype=torch.float64, device=dev)
+    for h in range(2):
+        for r in range(8):
+            w = win[32 * h + 64 * r:32 * h + 64 * r + 32]
+            s0 = 16 - h - 2 * r                # +16: one extra zero block
+            Y[..., 32 * h:32 * h + 32] = (Y[..., 32 * h:32 * h + 32]
+                                          + w * x32r[..., s0:s0 + Tn, :])
+    S = Y[..., 0:1] * M[:, 0]
+    for q in range(1, 64):
+        S = S + Y[..., q:q + 1] * M[:, q]                    # [B, C, T, 32]
+    return S
+
+
+def analyze(pcm: torch.Tensor) -> torch.Tensor:
+    """The analysis of a batch: mp2_analysis on a CUDA tensor, its twin on
+    a CPU tensor (same arguments and result as analyze_plain)."""
+    if pcm.device.type == "cpu":
+        return analyze_plain(pcm)
+    return cuda_kernels.mp2_analysis(pcm)
 
 
 def mp2_decode_pcm(codes: torch.Tensor, levels: torch.Tensor,

@@ -52,6 +52,17 @@ unpacks them (each frame by its own header, so VBR streams mix in) and the
 synthesis kernel `mp2_synth` runs the host lane's f64 arithmetic in its
 order; the host trims to min(frames * 1152, total samples) and writes WAVs.
 
+AHX encode (`ahx_encode_batch`): counterpart of the JAX function of the
+same name with device=False (its f64 host lane), byte for byte. The host
+parses the WAVs and groups them by (channels, sample rate); per group it
+stacks the PCM, each stream zero-padded at its tail to the longest, and
+copies it to the device, which runs the analysis (kernel K1
+`mp2_analysis`), the frame peaks and, after numpy's log10 of them on the
+host, the allocation and quantisation (kernel K2 `mp2_allocate`, two
+passes) and the frame packer (kernel K3 `mp2_pack`); the streams come back,
+each cut to its own frame count, and mono LSF streams get the AHX
+container.
+
 Banks (`decode_awb`, `decode_acb`): counterparts of the JAX functions of the
 same names. The host reads the AFS2 bank (an ACB's embedded one, or the
 sibling `<Name>.awb` of an ACB opened by path) and routes its members by
@@ -817,6 +828,76 @@ def _ahx_decode(blobs: Sequence[bytes], device, on_error: str,
                            dtype=np.int16)
             out[:n] = pcm[row, :, :n].T
             results[idx] = wavmod.write_wav(out.reshape(-1), nch, rate)
+    return results
+
+
+# ---------------------------------------------------------------------------
+# AHX / MPEG Layer II encode
+# ---------------------------------------------------------------------------
+
+def ahx_encode_batch(wavs: Sequence[bytes],
+                     bitrate_kbps: Optional[int] = None, *, device="cuda",
+                     container: str = "auto",
+                     joint_bound: Optional[int] = None) -> List[bytes]:
+    """Encode many WAVs to AHX / raw MPEG Layer II on `device`; returns the
+    bytes of pycricodecs_tpu.parallel.ahx_encode_batch(wavs, bitrate_kbps,
+    container=container, joint_bound=joint_bound) (device=False, its f64
+    host lane) per WAV.
+
+    container: "ahx" wraps each stream in the AHX container (mono MPEG-2
+    LSF only, AHX.encode semantics), "mp2" returns raw Layer II streams,
+    "auto" picks AHX when the input is mono at an LSF rate.
+
+    Streams are grouped by (channels, sample rate); each group is one
+    device encode (ops/mp2_encode_device.encode_streams). Every WAV is
+    parsed and every stream's configuration and container checked, in
+    order, before anything is encoded, so a batch raises the JAX function's
+    first error. The JAX function's `mesh` (stream sharding) is not ported
+    yet, and its `max_workers` (the host lane's thread pool) has no
+    counterpart: each group is one launch of each kernel."""
+    from ..ops import mp2_encode_device, mp2_encode_host, mp2_tables
+
+    if container not in ("auto", "ahx", "mp2"):
+        raise ValueError("container must be 'auto', 'ahx' or 'mp2'")
+    device = torch.device(device)
+    parsed = [wavmod.parse_wav(bytes(b)) for b in wavs]
+
+    def use_ahx(w) -> bool:
+        return container == "ahx" or (
+            container == "auto" and w.channels == 1
+            and w.sample_rate in mp2_tables.SAMPLE_RATES_V2)
+
+    configs: dict = {}
+    for w in parsed:
+        key = (w.channels, w.sample_rate)
+        if key not in configs:
+            configs[key] = mp2_encode_host.configure(
+                w.channels, w.sample_rate, bitrate_kbps, joint_bound)
+        if w.pcm16.size == 0:
+            raise ValueError(mp2_encode_host.EMPTY_STREAM)
+        if use_ahx(w) and (w.channels != 1 or w.sample_rate not in
+                           mp2_tables.SAMPLE_RATES_V2):
+            raise ValueError("AHX container requires mono PCM at an "
+                             "MPEG-2 LSF rate (16000/22050/24000).")
+    groups: dict = {}
+    for i, w in enumerate(parsed):
+        groups.setdefault((w.channels, w.sample_rate), []).append(i)
+    results: List = [None] * len(wavs)
+    spf = mp2_frame.SAMPLES_PER_FRAME
+    for key, members in groups.items():
+        C = key[0]
+        lengths = [parsed[i].pcm16.size // C for i in members]
+        frames = [-(-n // spf) for n in lengths]
+        pcm = np.zeros((len(members), C, max(frames) * spf), np.int16)
+        for row, (i, n) in enumerate(zip(members, lengths)):
+            pcm[row, :, :n] = parsed[i].pcm16.reshape(n, C).T
+        streams = mp2_encode_device.encode_streams(
+            torch.from_numpy(pcm).to(device), configs[key], frames)
+        for i, stream in zip(members, streams):
+            w = parsed[i]
+            results[i] = (ahx_model.ahx_container(stream, w.sample_rate,
+                                                  w.pcm16.size)
+                          if use_ahx(w) else stream)
     return results
 
 

@@ -1,8 +1,8 @@
 """PyTorch port, the command line (`python -m pycricodecs_tpu_torch`, here
 in-process with --device cpu): decode, encode, extract, bank-decode,
 find-key and info write the same files and print the same text as the JAX
-package's CLI on the fixtures; what is not ported (encoding AHX, CPK, USM
-and IVF, build) refuses with a SystemExit that names it.
+package's CLI on the fixtures (encode --format ahx among them); what is not
+ported (CPK, USM and IVF, build) refuses with a SystemExit that names it.
 """
 import os
 
@@ -68,6 +68,11 @@ CASES = {
                        "ahx10_lsf_mono_16k_1s"]}),
     "encode_adx": (["encode", "in.wav", "--format", "adx", "--bitdepth", "8",
                     "--mode", "4", "--scale-fix"], {}),
+    "encode_ahx": (["encode", "in.wav", "--format", "ahx"],
+                   {"in.wav": H.wav(6000, 1, 22050, seed=7)}),
+    "encode_ahx_bitrate": (["encode", "in.wav", "--format", "ahx",
+                            "--bitrate", "32", "-o", "{out}/a.ahx"],
+                           {"in.wav": H.wav(4000, 1, 16000, seed=8)}),
     "encode_hca_key": (["encode", "in.wav", "--format", "hca", "--quality",
                         "2", "--key", hex(KEY), "--subkey", "3", "-o",
                         "{out}/e.hca"], {}),
@@ -102,7 +107,7 @@ def _inputs(case):
             hs = H.header_size(blob)
             blob = jax_hca.crypt(blob, True, hs, 56, KEY, 9)
         inputs["in.hca"] = blob
-    if "in.wav" in argv:
+    if "in.wav" in argv and "in.wav" not in inputs:
         inputs["in.wav"] = H.wav(3000, 2, seed=5, loop=(300, 2500))
     return argv, inputs
 
@@ -179,15 +184,17 @@ def test_find_key_ranks_the_true_key_first(capsys, tmp_path):
     assert code is None and stdout.startswith(f"0x{KEY:016X}")
 
 
+# each case's id fixed (argv1-argv6), whatever its place in the list
 @pytest.mark.parametrize("argv,what", [
-    (["encode", "in.wav", "--format", "ahx"], "encode --format ahx"),
-    (["extract", "in.cpk"], "extract of CPK"),
-    (["extract", "in.usm"], "extract of USM"),
-    (["info", "in.cpk"], "info of CPK"),
-    (["info", "in.usm"], "info of USM"),
-    (["info", "in.ivf"], "info of IVF"),
-    (["build", "somedir", "-o", "out.cpk"], "build"),
-])
+    pytest.param(argv, what, id=f"argv{i}-{what}") for i, (argv, what) in
+    enumerate([
+        (["extract", "in.cpk"], "extract of CPK"),
+        (["extract", "in.usm"], "extract of USM"),
+        (["info", "in.cpk"], "info of CPK"),
+        (["info", "in.usm"], "info of USM"),
+        (["info", "in.ivf"], "info of IVF"),
+        (["build", "somedir", "-o", "out.cpk"], "build"),
+    ], start=1)])
 def test_what_is_not_ported_refuses_by_name(tmp_path, argv, what):
     files = {"in.wav": H.wav(1000, 1), "in.cpk": b"CPK " + bytes(60),
              "in.usm": b"CRID" + bytes(60), "in.ivf": b"DKIF" + bytes(60)}

@@ -2,7 +2,7 @@
 models.adx.decode / encode and the ADX class, encode_batch, the HCA class
 (HCA or WAV input, info, decode, encode at every quality, encrypt,
 decrypt, the drop-in accessors) and models.hca.decode, and the AHX class
-(parse_header, decode, info) give the JAX package's bytes, values and
+(parse_header, decode, encode, info) give the JAX package's bytes, values and
 errors on the committed fixtures and on patched streams. AHX.decode
 zero-fills to the declared sample count as the JAX single-file AHX.decode
 does (ahx_decode_batch trims).
@@ -234,4 +234,8 @@ def test_ahx_errors_equal_jax(tmp_path):
         assert got == H.outcome(jax_ahx.AHX.decode, bad)
         assert H.outcome(port.AHX.info, bad) == \
             H.outcome(jax_ahx.AHX.info, bad)
-    assert not hasattr(port.AHX, "encode")
+    wav = H.wav(5000, 1, 22050)
+    assert port.AHX.encode(wav, 64, device="cpu") == \
+        jax_ahx.AHX.encode(wav, 64)
+    assert H.outcome(port.AHX.encode, wav, 64, 0x12, device="cpu") == \
+        H.outcome(jax_ahx.AHX.encode, wav, 64, 0x12)

@@ -4,9 +4,12 @@ launch, with a ValueError that names the input.
 `mp2_synth` reads codes as 32-bit pairs, levels as int2 and sfidx as
 16-bit pairs (8-byte alignment asked of all three), B6 `hca_mdct` stages
 PCM with 16-byte copies, B10 `mp2_unpack` stages frames with 16-byte
-copies from 16-byte boundaries. A view one element into a tensor is off
-those boundaries; the check runs before the device check, so it shows on
-CPU tensors too, and no launch is counted.
+copies from 16-byte boundaries; of the Layer II encoder's kernels, K1
+`mp2_analysis` stages PCM in 16-byte chunks, K2 `mp2_allocate` (both
+passes) a frame's rows of S and K3 `mp2_pack` a frame's codes with 16-byte
+loads. A view one element into a tensor is off those boundaries; the
+check runs before the device check, so it shows on CPU tensors too, and no
+launch is counted.
 
 Tolerance: exact (the error and the unchanged launch counts).
 """
@@ -17,7 +20,9 @@ from pycricodecs_tpu_torch.ops import cuda_kernels as K
 
 
 def _counts():
-    return (K.MP2_SYNTH_LAUNCHES, K.MDCT_LAUNCHES, K.MP2_UNPACK_LAUNCHES)
+    return (K.MP2_SYNTH_LAUNCHES, K.MDCT_LAUNCHES, K.MP2_UNPACK_LAUNCHES,
+            K.MP2_ANALYSIS_LAUNCHES, K.MP2_ALLOCATE_LAUNCHES,
+            K.MP2_PACK_LAUNCHES)
 
 
 def _synth_inputs(off):
@@ -47,4 +52,43 @@ def test_mdct_and_unpack_refuse_misaligned_inputs():
     frames = torch.zeros(2 * 700 + 1, dtype=torch.uint8)[1:].view(2, 700)
     with pytest.raises(ValueError, match="frames: data is not 16-byte"):
         K.mp2_unpack(frames, 1)
+    assert _counts() == before
+
+
+def test_mp2_analysis_refuses_misaligned_pcm():
+    before = _counts()
+    pcm = torch.zeros(2 * 1152 + 1, dtype=torch.int16)[1:].view(1, 2, 1152)
+    with pytest.raises(ValueError, match="pcm: data is not 16-byte"):
+        K.mp2_analysis(pcm)
+    assert _counts() == before
+
+
+@pytest.mark.parametrize("encode_pass", ["peaks", "allocate"])
+def test_mp2_allocate_refuses_misaligned_spectra(encode_pass):
+    before = _counts()
+    S = torch.zeros(2 * 36 * 32 + 1, dtype=torch.float64)[1:].view(
+        1, 2, 36, 32)
+    with pytest.raises(ValueError, match="S: data is not 16-byte"):
+        if encode_pass == "peaks":
+            K.mp2_allocate_peaks(S)
+        else:
+            K.mp2_allocate(S, torch.zeros((1, 1, 2, 32), dtype=torch.float64),
+                           torch.zeros(1, dtype=torch.int32),
+                           torch.zeros(1088, dtype=torch.int32),
+                           torch.zeros(512, dtype=torch.float64), sblimit=30,
+                           bound=8, joint=True)
+    assert _counts() == before
+
+
+def test_mp2_pack_refuses_misaligned_codes():
+    before = _counts()
+    u8 = lambda *shape: torch.zeros(shape, dtype=torch.uint8)  # noqa: E731
+    codes = torch.zeros(2 * 36 * 32 + 1, dtype=torch.uint16)[1:].view(
+        1, 1, 2, 36, 32)
+    with pytest.raises(ValueError, match="codes: data is not 16-byte"):
+        K.mp2_pack(u8(1, 1, 2, 32), u8(1, 1, 2, 32), u8(1, 1, 2, 3, 32),
+                   codes, torch.zeros(1, dtype=torch.int32),
+                   torch.tensor([0, 626]), torch.zeros(1568, dtype=torch.int32),
+                   sblimit=30, bound=30, header_base=0xFFF5A0C0, total=626,
+                   max_frame=626)
     assert _counts() == before
