@@ -4,7 +4,9 @@
 Drives the port's main paths on one CUDA GPU: the batched HCA bank decode,
 the batched ADX bank decode and encode, the batched HCA bank encode, the v3
 PNS decode, the AHX decode, the HCA key search, the AWB/ACB bank decode,
-the single-file surfaces and the CLI, and the AHX encode.
+the single-file surfaces and the CLI, the AHX encode, and the frame-range
+decode, the single-frame key test, the Layer II decode, the container
+builders and the graft entry.
 
 HCA:
 
@@ -162,7 +164,28 @@ package's f64 host lane, the input PCM rebuilt by utils/signals.py):
    library yardstick (the fold in torch and one f64 `torch.matmul`, within
    1e-12 of the kernel).
 
-Prints a JSON line of per-kernel results (launches on the main paths, max
+The remaining single-device surfaces (tests/data/torch_port/surfaces/,
+values from the JAX package):
+17. (a) `models.hca.decode_range` of the 10 s bank stream over (0, -1),
+   (100, 300), (468, -1) and (5, 5), and of the key search's enciphered
+   stream under its key, and `decode_frames_to_pcm` of the v3 PNS fixture
+   at random_state 1 and 0x1234: sha256 equal to the JAX package's and to
+   the same call with device="cpu", B1-B3 launched, the full stream timed
+   (median of 3 after a warm-up); (b) `ops.hca_frame.test_block_state`
+   threaded over all 469 frames of the enciphered stream under its key and
+   three wrong keys, one call a frame, and `score_frames` of them: the
+   (score, state) pairs equal to the JAX package's, B1, B2 (and B4 under
+   the key) launched, ms a frame (median of 3); (c) `models.ahx.
+   decode_mp2` of the AHX bank stream and the joint-stereo fixture, B10
+   and `mp2_synth` launched; (d) `ACBBuilder` of 256 copies of the bank
+   stream (bank.acb and its awb_blob, timed), mixed.acb rebuilt from its
+   members, `AWBBuilder` in list mode over the HCA fixtures: bytes equal
+   to the JAX package's; (e) the port's graft entry
+   (`__graft_entry_torch__.entry`): its fn's pcm equal to the JAX entry's,
+   err all false, B1-B3 launched.
+
+Prints one compact JSON line of every bank call's and phase 17's timings
+(`banks`), then a JSON line of per-kernel results (launches on the main paths, max
 |kernel - twin|, kernel/twin ms, the bound from the bytes and operations of
 the timed call, and for B7 (each instance) and B8 from their dependent
 chain at the card's maximum SM clock; the library calls of B4, B5, B6,
@@ -329,6 +352,12 @@ OPS_PER_S = {"mp2_synth": FP64_OPS_PER_S, "mp2_analysis": FP64_OPS_PER_S,
 #   shift and two clamps = 13 (14 in adx_encode_plain's order).
 CHAIN_OPS = {"adx_decode": 5, "adx_decode_host": 5, "adx_encode": 13}
 CHAIN_CYCLES_PER_OP = 4
+
+
+#: the median seconds of every bank call and of phase 17's timed calls,
+#: printed as one compact line before the kernels line, so that a reader of
+#: only the tail of the output still sees them
+BANKS: dict = {}
 
 
 def log(*args) -> None:
@@ -795,7 +824,7 @@ def drive(path: str, own, fn):
     reset_launches()
     out = fn()
     counts = read_launches()
-    log(f"{path} launches: {counts}")
+    log(f"{path} launches: { {k: v for k, v in counts.items() if v} }")
     for k in own:
         if counts[k] <= 0:
             raise AssertionError(f"{k} was not launched by {path}")
@@ -981,6 +1010,7 @@ def adx_phases(dev, card: str, worst: dict, launches: dict) -> dict:
                       ("encode", lambda: port.adx_encode_batch(
                           wav_bank, device=dev))):
         wall, runs = median_wall(fn)
+        BANKS[f"adx_{label}_batch_s"] = wall
         log(f"ADX bank {label} [{card}]: median of 3 = {wall:.4f} s for "
             f"{audio_s:.0f} audio-s -> {audio_s / wall:.1f} audio-s/s; runs "
             f"{[round(r, 4) for r in runs]}")
@@ -1313,6 +1343,7 @@ def hca_encode_phases(dev, card: str, worst: dict, launches: dict) -> dict:
     port.hca_encode_batch(wav_bank, quality=2, device=dev)   # warm-up
     wall, runs = median_wall(lambda: port.hca_encode_batch(
         wav_bank, quality=2, device=dev))
+    BANKS["hca_encode_batch_s"] = wall
     log(f"HCA encode bank [{card}]: median of 3 = {wall:.4f} s for "
         f"{audio_s:.0f} audio-s -> {audio_s / wall:.1f} audio-s/s; runs "
         f"{[round(r, 4) for r in runs]}")
@@ -1680,6 +1711,7 @@ def ahx_phase(dev, card: str, worst: dict, launches: dict) -> dict:
     # -- timings ------------------------------------------------------------
     port.ahx_decode_batch(bank, device=dev)                  # warm-up
     wall, runs = median_wall(lambda: port.ahx_decode_batch(bank, device=dev))
+    BANKS["ahx_decode_batch_s"] = wall
     audio_s = BANK_STREAMS * 10.0
     log(f"AHX bank [{card}]: median of 3 = {wall:.4f} s for {audio_s:.0f} "
         f"audio-s -> {audio_s / wall:.1f} audio-s/s; runs "
@@ -1935,6 +1967,7 @@ def keysearch_phase(dev, card: str, worst: dict, launches: dict) -> dict:
     port.find_key(enc, cands, max_frames=spec["max_frames"], device=dev)
     wall, runs = median_wall(lambda: port.find_key(
         enc, cands, max_frames=spec["max_frames"], device=dev))
+    BANKS["find_key_s"] = wall
     log(f"find_key [{card}]: median of 3 = {wall:.4f} s for {len(cands)} "
         f"keys -> {len(cands) / wall:.1f} keys/s; runs "
         f"{[round(r, 4) for r in runs]}")
@@ -2081,6 +2114,8 @@ def bank_phase(dev, card: str, hca_expected: dict) -> None:
         port.decode_acb(acb_path, device=dev)                  # warm-up
         wall, runs = median_wall(
             lambda: port.decode_acb(acb_path, device=dev))
+        BANKS["decode_acb_s"] = wall
+        BANKS["decode_acb_parse_s"] = parse_s
         audio_s = len(want) * hca_expected[BANK]["seconds"]
         log(f"decode_acb bank [{card}]: median of 3 = {wall:.4f} s for "
             f"{audio_s:.0f} audio-s -> {audio_s / wall:.1f} audio-s/s; runs "
@@ -2472,6 +2507,7 @@ def ahx_encode_phase(dev, card: str, worst: dict, launches: dict) -> dict:
     port.ahx_encode_batch(batch, 96, device=dev)             # warm-up
     wall, runs = median_wall(lambda: port.ahx_encode_batch(batch, 96,
                                                            device=dev))
+    BANKS["ahx_encode_batch_s"] = wall
     audio_s = BANK_STREAMS * 10.0
     log(f"AHX encode bank [{card}]: median of 3 = {wall:.4f} s for "
         f"{audio_s:.0f} audio-s -> {audio_s / wall:.1f} audio-s/s; runs "
@@ -2526,6 +2562,213 @@ def ahx_encode_phase(dev, card: str, worst: dict, launches: dict) -> dict:
         f"{wall * 1e3:.1f} ms call ({100 * kernel_total / (wall * 1e3):.2f} "
         f"%)")
     return res
+
+
+# ---------------------------------------------------------------------------
+# The remaining single-device surfaces (phase 17)
+# ---------------------------------------------------------------------------
+
+SURFACE_FIXTURES = os.path.join(FIXTURES, "surfaces")
+B1_B2 = ("hca_side_info", "hca_coefficients")
+
+
+def pcm_record(pcm: np.ndarray) -> dict:
+    pcm = np.ascontiguousarray(pcm)
+    if pcm.dtype != np.int16:
+        raise AssertionError(f"expected int16 samples, got {pcm.dtype}")
+    return {"sha256": sha(pcm.tobytes()), "shape": list(pcm.shape)}
+
+
+def require_record(what: str, pcm: np.ndarray, rec: dict) -> None:
+    got = pcm_record(pcm)
+    want = {"sha256": rec["sha256"], "shape": rec["shape"]}
+    if got != want:
+        raise AssertionError(f"{what}: {got} differs from the JAX "
+                             f"package's {want}")
+
+
+def afs2_members(awb: bytes) -> list:
+    """The members of an AFS2 bank exactly as built: each from its aligned
+    start to the next raw offset (AWB.getfiles keeps the padding)."""
+    import struct
+    (_, _, osize, isize, n, align, _) = struct.unpack_from("<4sBBHIHH", awb)
+    code = {2: "H", 4: "I", 8: "Q"}[osize]
+    raw = struct.unpack_from("<" + code * (n + 1), awb, 16 + isize * n)
+    return [awb[-(-raw[i] // align) * align:raw[i + 1]] for i in range(n)]
+
+
+def thread_test_block(info, enc: bytes, dev) -> list:
+    """(score, state) of ops.hca_frame.test_block_state threaded from 1
+    over every frame of enc, one call a frame on `dev`."""
+    from pycricodecs_tpu_torch.ops import hca_frame
+    hs, fs = info.header_size, info.frame_size
+    state, pairs = 1, []
+    for f in range(info.frame_count):
+        score, state = hca_frame.test_block_state(
+            info, enc[hs + f * fs:hs + (f + 1) * fs], state, device=dev)
+        pairs.append((score, state))
+    return pairs
+
+
+def surfaces_phase(dev, card: str) -> None:
+    """Phase 17: decode_range / decode_frames_to_pcm, test_block_state,
+    decode_mp2, the UTF/AWB/ACB builders and the graft entry on the card,
+    each held to the JAX package's recorded values (and the decodes to the
+    same call on the CPU)."""
+    import tempfile
+
+    import __graft_entry_torch__ as graft
+    from pycricodecs_tpu_torch.containers.acb import ACB, ACBBuilder
+    from pycricodecs_tpu_torch.containers.awb import AWBBuilder
+    from pycricodecs_tpu_torch.models import ahx as ahx_model
+    from pycricodecs_tpu_torch.models import hca as hca_model
+    from pycricodecs_tpu_torch.ops import hca_frame
+
+    with open(os.path.join(SURFACE_FIXTURES, "expected.json")) as f:
+        expected = json.load(f)
+    cpu = torch.device("cpu")
+
+    def read(*parts):
+        with open(os.path.join(*parts), "rb") as f:
+            return f.read()
+
+    # -- (a) decode_range / decode_frames_to_pcm -----------------------------
+    e = expected["decode_range"]
+    plain = read(FIXTURES, e["stream"] + ".hca")
+    hs = int.from_bytes(plain[6:8], "big")
+    enc = hca_model.crypt(plain, True, hs, 56, e["enciphered_key"])
+    if sha(enc) != e["enciphered_sha256"]:
+        raise AssertionError("the enciphered bank stream differs from the "
+                             "JAX package's")
+    key = e["enciphered_key"]
+    cases = [(f"decode_range {e['stream']} ({a}, {b})", rec,
+              lambda a=a, b=b, d=None: hca_model.decode_range(
+                  plain, a, b, device=d)) for a, b, rec in e["ranges"]]
+    cases += [(f"decode_range enciphered ({a}, {b})", rec,
+               lambda a=a, b=b, d=None: hca_model.decode_range(
+                   enc, a, b, key, device=d))
+              for a, b, rec in e["enciphered_ranges"]]
+    p = expected["decode_frames_to_pcm"]
+    pns = read(FIXTURES, p["stream"] + ".hca")
+    pinfo = hca_frame.parse_header(pns[:int.from_bytes(pns[6:8], "big")])
+    cases += [(f"decode_frames_to_pcm {p['stream']} random_state "
+               f"0x{state:X}", rec,
+               lambda state=state, d=None: hca_model.decode_frames_to_pcm(
+                   pinfo, pns[pinfo.header_size:], state, device=d))
+              for state, rec in p["random_states"]]
+    counts = {}
+    for what, rec, fn in cases:
+        own = HCA_KERNELS if rec["shape"][0] else ()
+        out, counts[what] = drive(what, own, lambda: fn(d=dev))
+        require_record(what, out, rec)
+        if not np.array_equal(fn(d=cpu), out):
+            raise AssertionError(f"{what}: the card and the CPU differ")
+    log(f"(a) {len(cases)} decode_range / decode_frames_to_pcm calls: "
+        f"sha256 equal to the JAX package's and to device='cpu'")
+    def full():
+        return hca_model.decode_range(plain, 0, -1, device=dev)
+
+    full()
+    wall, runs = median_wall(full)
+    BANKS["decode_range_full_s"] = wall
+    log(f"(a) decode_range of the full {e['stream']} [{card}]: median of 3 "
+        f"= {wall:.4f} s; runs {[round(r, 4) for r in runs]}")
+
+    # -- (b) test_block_state over every frame, true and wrong keys ----------
+    t = expected["test_block_state"]
+    per_frame = {}
+    for k, rec in t["keys"].items():
+        info = hca_frame.parse_header(enc[:hs])
+        info.set_key(int(k, 16))
+        own = (*B1_B2, "hca_imdct_ola") if k == t["true_key"] else B1_B2
+        pairs, counts[f"test_block_state {k}"] = drive(
+            f"test_block_state {k}", own,
+            lambda: thread_test_block(info, enc, dev))
+        got = sha(np.asarray(pairs, "<i8").tobytes())
+        if got != rec["pairs_sha256"]:
+            raise AssertionError(f"test_block_state {k}: the (score, state) "
+                                 f"pairs differ from the JAX package's")
+        scores, states = hca_frame.score_frames(
+            info, enc[hs:hs + info.frame_count * info.frame_size], 1,
+            device=dev)
+        pairs2 = np.stack([scores, states], 1).astype("<i8")
+        if sha(pairs2.tobytes()) != rec["pairs_sha256"]:
+            raise AssertionError(f"score_frames {k}: differs from the "
+                                 f"threaded test_block_state")
+        wall, _ = median_wall(lambda: thread_test_block(info, enc, dev))
+        per_frame[k] = wall / info.frame_count * 1e3
+    BANKS["test_block_state_ms_per_frame"] = per_frame
+    log(f"(b) test_block_state threaded over {info.frame_count} frames "
+        f"under {len(t['keys'])} keys (and score_frames): pairs equal to "
+        f"the JAX package's; [{card}] ms a frame, median of 3: "
+        f"{ {k: round(v, 4) for k, v in per_frame.items()} }")
+
+    # -- (c) decode_mp2 ---------------------------------------------------------
+    with open(os.path.join(AHX_FIXTURES, "expected.json")) as f:
+        ahx_expected = json.load(f)
+    for name, rec in expected["decode_mp2"].items():
+        blob = read(AHX_FIXTURES, ahx_expected[name]["file"])
+        (pcm, rate), counts[f"decode_mp2 {name}"] = drive(
+            f"decode_mp2 {name}", ("mp2_unpack", "mp2_synth"),
+            lambda: ahx_model.decode_mp2(blob, rec["offset"], device=dev))
+        require_record(f"decode_mp2 {name}", pcm, rec)
+        if rate != rec["sample_rate"]:
+            raise AssertionError(f"decode_mp2 {name}: rate {rate}")
+    log(f"(c) decode_mp2 of {list(expected['decode_mp2'])}: sha256 equal "
+        f"to the JAX package's host lane")
+
+    # -- (d) the builders --------------------------------------------------------
+    with open(os.path.join(BANK_FIXTURES, "expected.json")) as f:
+        bank_expected = json.load(f)
+    b = bank_expected["bank"]
+    track = read(FIXTURES, b["member"])
+
+    def build_bank():
+        builder = ACBBuilder([track] * b["tracks"], name=b["name"],
+                             embed_awb=False)
+        return builder.build(), builder.awb_blob
+
+    acb, awb = build_bank()
+    if sha(acb) != b["acb_sha256"] or sha(awb) != b["awb_sha256"]:
+        raise AssertionError("ACBBuilder's bank.acb or its awb_blob differs "
+                             "from the JAX package's")
+    del acb, awb
+    wall, runs = median_wall(build_bank)
+    BANKS["acb_builder_bank_s"] = wall
+    mixed = read(BANK_FIXTURES, bank_expected["mixed"]["file"])
+    members = afs2_members(ACB(mixed).awb.stream.getvalue())
+    if ACBBuilder(members, name="mixed").build() != mixed:
+        raise AssertionError("mixed.acb rebuilt from its members differs")
+    a = expected["awb_builder"]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "list.awb")
+        AWBBuilder([os.path.join(FIXTURES, n)
+                    for n in a["members"]]).build(path)
+        if sha(read(path)) != a["sha256"]:
+            raise AssertionError("AWBBuilder (list mode) differs from the "
+                                 "JAX package's")
+    log(f"(d) ACBBuilder of {b['tracks']} x {b['member']} (acb and "
+        f"awb_blob), mixed.acb rebuilt, AWBBuilder over {len(a['members'])} "
+        f"fixtures: sha256 equal to the JAX package's; the bank build "
+        f"[{card}]: median of 3 = {wall:.4f} s, runs "
+        f"{[round(r, 4) for r in runs]}")
+
+    # -- (e) the graft entry -----------------------------------------------------
+    g = expected["graft_entry"]
+    fn, args = graft.entry(device=dev)
+    (pcm, err), counts["graft entry fn"] = drive(
+        "graft entry fn", HCA_KERNELS, lambda: fn(*args))
+    if pcm.device.type != dev.type or bool(err.any()) != g["err_any"]:
+        raise AssertionError("graft entry: the result is not on the card "
+                             "or flags an error")
+    if sha(pcm.cpu().numpy().tobytes()) != g["sha256"]:
+        raise AssertionError("graft entry: pcm differs from the JAX entry's")
+    log(f"(e) graft entry fn{tuple(args[0].shape)}: pcm "
+        f"{tuple(pcm.shape)} equal to the JAX entry's, err all false")
+    BANKS["phase17_launches"] = {
+        k: sum(c[k] for c in counts.values())
+        for k in ("hca_side_info", "hca_coefficients", "hca_transform",
+                  "hca_imdct_ola", "mp2_unpack", "mp2_synth")}
 
 
 def main() -> None:
@@ -2740,6 +2983,7 @@ def main() -> None:
         runs.append((time.perf_counter() - t0, st))
     runs.sort(key=lambda r: r[0])
     wall, st = runs[1]
+    BANKS["hca_decode_batch_s"] = wall
     log(f"slice [{card}]: median of 3 = {wall:.4f} s for {audio_s:.0f} "
         f"audio-s -> {audio_s / wall:.1f} audio-s/s; runs "
         f"{[round(r[0], 4) for r in runs]}; stats of the median run: "
@@ -2807,6 +3051,9 @@ def main() -> None:
     # -- phase 16: the AHX / MPEG Layer II encode ----------------------------
     results.update(ahx_encode_phase(dev, card, worst, launches))
 
+    # -- phase 17: the remaining single-device surfaces ------------------------
+    surfaces_phase(dev, card)
+
     report = []
     for name, (ms, plain_ms, bd, *library) in results.items():
         report.append(dict(name=name, route="cuda", **KERNELS[name],
@@ -2814,6 +3061,7 @@ def main() -> None:
                            max_abs_err=worst[name], ms=ms,
                            plain_ms=plain_ms, **bd,
                            library_ms=library[0] if library else None))
+    log(json.dumps({"banks": BANKS, "card": card}))
     log(json.dumps({"kernels": report}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -6,10 +6,12 @@
     python -m pycricodecs_tpu_torch bank-decode bank.acb -o outdir
     python -m pycricodecs_tpu_torch find-key enc.hca --range 0x1000 65536
     python -m pycricodecs_tpu_torch info file.adx
+    python -m pycricodecs_tpu_torch build tracks/ -o bank.acb
 
-Every command takes --device (default cuda); work runs there and nowhere
-else. What the port does not carry refuses with SystemExit: extracting or
-describing CPK, USM and IVF, and `build`. An ACB is opened by
+Every command but `build` takes --device (default cuda); work runs there and
+nowhere else (`build` of an AWB or ACB runs on the host alone). What the
+port does not carry refuses with SystemExit: extracting or describing CPK,
+USM and IVF, and building CPK and USM. An ACB is opened by
 its path, so a sibling `<Name>.awb` resolves beside it from any working
 directory (the JAX package's CLI opens it from bytes, which resolves the
 sibling against the working directory); the files written are the same.
@@ -138,7 +140,29 @@ def cmd_bank_decode(args) -> None:
 
 
 def cmd_build(args) -> None:
-    raise _not_ported("build")
+    """Build an AWB or ACB from a directory (the JAX package's build)."""
+    ext = os.path.splitext(args.output)[1].lower().lstrip(".")
+    if ext in ("cpk", "usm"):
+        raise _not_ported(f"build of {ext.upper()}")
+    if ext == "awb":
+        from .containers.awb import AWBBuilder
+        AWBBuilder(args.input, subkey=args.subkey).build(args.output)
+    elif ext == "acb":
+        from .containers.acb import ACBBuilder
+        names, tracks = [], []
+        for fn in sorted(os.listdir(args.input)):
+            path = os.path.join(args.input, fn)
+            if os.path.isfile(path):
+                names.append(os.path.splitext(fn)[0])
+                tracks.append(_read(path))
+        if not tracks:
+            raise SystemExit(f"no files in {args.input}")
+        blob = ACBBuilder(tracks, name=os.path.splitext(
+            os.path.basename(args.output))[0], cue_names=names).build()
+        _write(args.output, blob)
+    else:
+        raise SystemExit("build output must end in .cpk/.awb/.acb/.usm")
+    print(args.output)
 
 
 def cmd_find_key(args) -> None:
@@ -236,10 +260,12 @@ def main(argv=None) -> None:
     common(p)
     p.set_defaults(fn=cmd_bank_decode)
 
-    p = sub.add_parser("build", help="not ported (the JAX package builds "
-                                     "CPK/AWB/ACB/USM)")
-    p.add_argument("input", nargs="?")
-    p.add_argument("-o", "--output", default=None)
+    p = sub.add_parser("build", help="dir -> AWB/ACB (CPK/USM are not "
+                                     "ported)")
+    p.add_argument("input", help="directory of the members")
+    p.add_argument("-o", "--output", required=True,
+                   help="output file; extension picks the container")
+    p.add_argument("--subkey", type=_int0, default=0)
     p.set_defaults(fn=cmd_build)
 
     p = sub.add_parser("find-key", help="batched keycode search")

@@ -1,2 +1,3 @@
-"""CRI containers the bank entry points open: @UTF tables, AFS2 (AWB)
-banks and ACB cue databases (readers, and build_afs2)."""
+"""CRI containers the bank entry points open and the builders write:
+@UTF tables, AFS2 (AWB) banks and ACB cue databases (readers, build_afs2,
+UTFBuilder, AWBBuilder, ACBBuilder)."""

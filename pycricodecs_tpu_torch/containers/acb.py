@@ -1,8 +1,9 @@
 """ACB cue database: a nested @UTF table referencing an AWB bank.
 
-A copy of `ACB` of pycricodecs_tpu/containers/acb.py (held equal by
-tests/test_torch_containers.py); ACBBuilder stays in the JAX package. The
-extractors decode HCA members with the port's HCA on `device`.
+A copy of `ACB` and `ACBBuilder` of pycricodecs_tpu/containers/acb.py
+(held equal by tests/test_torch_containers.py and
+tests/test_torch_builders.py). The extractors decode HCA members with the
+port's HCA on `device`; the builder writes the JAX package's bytes.
 
 Parity surface: PyCriCodecs.ACB (acb.py:9-176) — recursive payload parsing,
 embedded-or-sibling AWB loading, extract() with the EncodeType extension map.
@@ -263,3 +264,69 @@ class ACB(UTF):
             os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
             with open(path, "wb") as fh:
                 fh.write(payload)
+
+
+class ACBBuilder:
+    """Builds a minimal playable ACB (one cue per AWB track).
+
+    The reference's ACBBuilder is an empty stub (acb.py:179-180); this is a
+    functional replacement producing a self-contained ACB with an embedded
+    AWB, CueTable (ReferenceType 1), CueNameTable and WaveformTable.
+    """
+
+    def __init__(self, tracks: list, name: str = "pycricodecs_acb",
+                 encode_type: int = 2, sample_rate: int = 48000,
+                 channels: int = 2, cue_names=None,
+                 embed_awb: bool = True) -> None:
+        """tracks: list of encoded audio payloads (e.g. HCA bytes).
+
+        embed_awb=False leaves the AwbFile cell empty and exposes the bank
+        as `self.awb_blob` after build(); write it as `<Name>.awb` next to
+        the ACB — the extractor resolves that sibling, like the reference
+        (acb.py:33-43)."""
+        self.tracks = [bytes(t) for t in tracks]
+        self.name = name
+        self.encode_type = encode_type
+        self.sample_rate = sample_rate
+        self.channels = channels
+        self.cue_names = cue_names or [f"cue_{i:04d}" for i in range(len(tracks))]
+        self.embed_awb = bool(embed_awb)
+        self.awb_blob: bytes = b""
+
+    def build(self) -> bytes:
+        from .awb import build_afs2
+        from .utf import UTFBuilder
+
+        awb_blob = build_afs2(self.tracks, subkey=0)
+        self.awb_blob = awb_blob
+
+        waveform_rows = [{
+            "MemoryAwbId": (UTFTypeValues.ushort, i),
+            "EncodeType": (UTFTypeValues.uchar, self.encode_type),
+            "Streaming": (UTFTypeValues.uchar, 0),
+            "NumChannels": (UTFTypeValues.uchar, self.channels),
+            "SamplingRate": (UTFTypeValues.ushort, self.sample_rate & 0xFFFF),
+            "NumSamples": (UTFTypeValues.uint, 0),
+        } for i in range(len(self.tracks))]
+        cue_rows = [{
+            "CueId": (UTFTypeValues.uint, i),
+            "ReferenceType": (UTFTypeValues.uchar, 1),
+            "ReferenceIndex": (UTFTypeValues.ushort, i),
+        } for i in range(len(self.tracks))]
+        cue_name_rows = [{
+            "CueName": (UTFTypeValues.string, self.cue_names[i]),
+            "CueIndex": (UTFTypeValues.ushort, i),
+        } for i in range(len(self.tracks))]
+
+        def table(rows, name):
+            return bytes(UTFBuilder(rows, table_name=name).parse())
+
+        header = [{
+            "Name": (UTFTypeValues.string, self.name),
+            "AwbFile": (UTFTypeValues.bytes,
+                        awb_blob if self.embed_awb else b""),
+            "CueTable": (UTFTypeValues.bytes, table(cue_rows, "Cue")),
+            "CueNameTable": (UTFTypeValues.bytes, table(cue_name_rows, "CueName")),
+            "WaveformTable": (UTFTypeValues.bytes, table(waveform_rows, "Waveform")),
+        }]
+        return bytes(UTFBuilder(header, table_name="Header").parse())

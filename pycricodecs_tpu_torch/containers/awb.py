@@ -1,9 +1,12 @@
-"""AWB / AFS2 audio bank: the reader and extractor, and build_afs2.
+"""AWB / AFS2 audio bank: the reader and extractor, build_afs2 and the
+builder.
 
-A copy of `AWB` and `build_afs2` of pycricodecs_tpu/containers/awb.py (held
-equal by tests/test_torch_containers.py); AWBBuilder stays in the JAX
-package. Behaviour parity: PyCriCodecs/awb.py — same header fields
-(version, offset/id int sizes, alignment, subkey) and offset rounding.
+A copy of `AWB`, `build_afs2` and `AWBBuilder` of
+pycricodecs_tpu/containers/awb.py (held equal by
+tests/test_torch_containers.py and tests/test_torch_builders.py).
+Behaviour parity: PyCriCodecs/awb.py — same header fields (version,
+offset/id int sizes, alignment, subkey), same offset rounding, and the
+builder emits the JAX package's bytes for the same inputs.
 `extract(decode=True)` decodes HCA members with the port's HCA on `device`.
 """
 from __future__ import annotations
@@ -11,6 +14,7 @@ from __future__ import annotations
 import os
 from io import BytesIO, FileIO
 from struct import iter_unpack, pack
+from typing import List
 
 from .chunk import AWBChunkHeader, HCAType
 
@@ -145,3 +149,90 @@ def build_afs2(members, subkey: int = 0, version: int = 2,
     if headersize % align != 0:
         header = header.ljust(headersize + (align - headersize % align), b"\x00")
     return header + b"".join(blobs)
+
+
+class AWBBuilder:
+    """Builds an AFS2 bank from a list of files or a directory tree."""
+
+    __slots__ = ["dirname", "version", "align", "subkey", "id_intsize"]
+
+    def __init__(self, dirname, subkey: int = 0, version: int = 2,
+                 id_intsize: int = 0x2, align: int = 0x20) -> None:
+        if dirname == "":
+            raise ValueError("Invalid directory.")
+        if version == 1 and subkey != 0:
+            raise ValueError("Cannot have a subkey with AWB version of 1.")
+        if id_intsize not in (0x2, 0x4, 0x8):
+            raise ValueError("id_intsize must be either 2, 4 or 8.")
+        self.dirname = dirname
+        self.version = version
+        self.align = align
+        self.subkey = subkey
+        self.id_intsize = id_intsize
+
+    def _file_list(self) -> List[str]:
+        if isinstance(self.dirname, list):
+            return list(self.dirname)
+        files = []
+        for root, _, names in os.walk(self.dirname):
+            for name in names:
+                files.append(os.path.join(root, name))
+        return files
+
+    def build(self, outfile: str) -> None:
+        if outfile == "":
+            raise ValueError("Invalid output file name.")
+        files = self._file_list()
+        # directory mode aligns each size up-front (reference awb.py:188-195)
+        dir_mode = not isinstance(self.dirname, list)
+        sizes = []
+        for path in files:
+            sz = os.stat(path).st_size
+            if dir_mode and sz % self.align != 0:
+                sz += self.align - sz % self.align
+            sizes.append(sz)
+        cum = []
+        total = 0
+        for sz in sizes:
+            total += sz
+            cum.append(total)
+
+        intsize, strtype = (8, "<Q") if total > 0xFFFFFFFF else (4, "<I")
+        header = AWBChunkHeader.pack(b"AFS2", self.version, intsize,
+                                     self.id_intsize, len(files), self.align,
+                                     self.subkey)
+        for i in range(len(files)):
+            header += pack("<" + _int_code(self.id_intsize), i)
+        headersize = len(header) + intsize * len(files) + intsize
+        aligned = headersize + (self.align - headersize % self.align)
+        offsets = []
+        for idx, x in enumerate(cum):
+            v = x + aligned
+            if v % self.align != 0 and idx != len(cum) - 1:
+                v += self.align - v % self.align
+            offsets.append(v)
+        offsets = [headersize] + offsets
+        for off in offsets:
+            header += pack(strtype, off)
+        if headersize % self.align != 0:
+            header = header.ljust(
+                headersize + (self.align - headersize % self.align), b"\x00")
+        # "last file skips padding": list mode checks against the whole list;
+        # directory mode checks per-directory position (reference awb.py:177-181
+        # vs 229-233)
+        if dir_mode:
+            last_flags = []
+            for root, _, names in os.walk(self.dirname):
+                for idx, _name in enumerate(names):
+                    last_flags.append(idx == len(names) - 1)
+        else:
+            last_flags = [i == len(files) - 1 for i in range(len(files))]
+        with open(outfile, "wb") as out:
+            out.write(header)
+            for path, is_last in zip(files, last_flags):
+                with open(path, "rb") as fh:
+                    data = fh.read()
+                if len(data) % self.align != 0 and not is_last:
+                    data = data.ljust(
+                        len(data) + (self.align - len(data) % self.align), b"\x00")
+                out.write(data)

@@ -1,16 +1,18 @@
-"""@UTF — CRI's universal binary table format: the reader.
+"""@UTF — CRI's universal binary table format: the reader and the builder.
 
-A copy of `xor_utf` and `UTF` of pycricodecs_tpu/containers/utf.py (held
-equal by tests/test_torch_containers.py); the builder stays in the JAX
-package. Drop-in behaviour for PyCriCodecs.UTF (utf.py:7-196): the same
-`table` (columnar dict) and `get_payload()` (list of per-row dicts of
-``(UTFTypeValues, value)`` tuples) representations. Reads the XOR-encrypted
-EUTF variant.
+A copy of `xor_utf`, `UTF` and `UTFBuilder` of
+pycricodecs_tpu/containers/utf.py (held equal by
+tests/test_torch_containers.py and tests/test_torch_builders.py). Drop-in
+behaviour for PyCriCodecs.UTF/UTFBuilder (utf.py:7-355): the same `table`
+(columnar dict) and `get_payload()` (list of per-row dicts of
+``(UTFTypeValues, value)`` tuples) representations, and the builder emits
+the JAX package's bytes for the same payload. Reads and writes the
+XOR-encrypted EUTF variant.
 """
 from __future__ import annotations
 
 from io import BytesIO
-from struct import calcsize, unpack
+from struct import calcsize, pack, unpack
 
 import numpy as np
 
@@ -194,3 +196,165 @@ class UTF:
     def get_payload(self) -> list:
         """Row-dict payload (WannaCri-compatible, reference utf.py:177-187)."""
         return self._payload
+
+
+class UTFBuilder:
+    """Builds a @UTF table from a payload list (byte-parity with reference)."""
+
+    __slots__ = ["encoding", "dictarray", "encrypt", "strings", "table_name",
+                 "binary", "stflag", "rows_data", "column_data", "data_offset"]
+
+    def __init__(self, dictarray: list, encrypt: bool = False,
+                 encoding: str = "utf-8",
+                 table_name: str = "PyCriCodecs_table") -> None:
+        lengths = {len(d) for d in dictarray}
+        if len(lengths) != 1:
+            raise ValueError("All dictionaries must be equal in length.")
+        matches = [(k, v[0]) for k, v in dictarray[0].items()]
+        for d in dictarray[1:]:
+            if matches != [(k, v[0]) for k, v in d.items()]:
+                raise ValueError(
+                    "Keys and/or value types are not matching across dictionaries.")
+        self.dictarray = dictarray
+        self.encrypt = encrypt
+        self.encoding = encoding
+        self.table_name = table_name
+        self.binary = b""
+        self._collect_strings()
+
+    def _collect_strings(self) -> None:
+        strings = []
+        binary = b""
+        for d in self.dictarray:
+            for key in d:
+                if key not in strings:
+                    strings.append(key)
+        for d in self.dictarray:
+            for key, value in d.items():
+                if isinstance(value[1], str) and value[1] not in strings:
+                    strings.append(value[1])
+                if isinstance(value[1], (bytes, bytearray)) and value[1] not in binary:
+                    binary += value[1]
+        self.binary = bytes(binary)
+        strings = [self.table_name] + strings
+        if "<NULL>" in strings:
+            strings.remove("<NULL>")
+            strings = ["<NULL>"] + strings
+        encoded = []
+        for s in strings:
+            raw = s.encode(self.encoding)
+            if b"\x00" in raw:
+                raise ValueError(
+                    f"Encoding of {self.encoding} for '{s}' results in string "
+                    "with a null byte.")
+            encoded.append(raw)
+        self.strings = b"\x00".join(encoded) + b"\x00"
+
+    def _decide_stflags(self) -> None:
+        type_list = list(UTFTypeValues)
+        self.stflag = []
+        for key, first in self.dictarray[0].items():
+            tindex = type_list.index(first[0])
+            if len(self.dictarray) != 1:
+                varies = any(d[key][1] != first[1] for d in self.dictarray)
+                if varies:
+                    self.stflag.append((0x50, tindex, key))
+                elif first[1] is None:
+                    self.stflag.append((0x10, tindex, key))
+                else:
+                    self.stflag.append((0x30, tindex, key, first[1]))
+            else:
+                if first[1] is None or first[1] == "<NULL>":
+                    self.stflag.append((0x10, tindex, key))
+                else:
+                    self.stflag.append((0x50, tindex, key))
+
+    def _strptr(self, value: str) -> int:
+        raw = bytes(value, self.encoding)
+        if self.strings.startswith(raw + b"\x00"):
+            return 0
+        return self.strings.index(b"\x00" + raw + b"\x00") + 1
+
+    def _write_columns(self) -> bytearray:
+        out = bytearray()
+        for entry in self.stflag:
+            storage, tindex, key = entry[0], entry[1], entry[2]
+            out += int.to_bytes(storage | tindex, 1, "big")
+            name_ptr = self._strptr(key)
+            if storage in (0x10, 0x50):
+                out += int.to_bytes(name_ptr, 4, "big")
+            else:
+                value = entry[3]
+                out += int.to_bytes(name_ptr, 4, "big")
+                if tindex not in (0xA, 0xB):
+                    out += int.to_bytes(value, calcsize(_struct_code(tindex)),
+                                        "big")
+                elif tindex == 0xA:
+                    out += int.to_bytes(self._strptr(value), 4, "big")
+                else:
+                    out += int.to_bytes(self.binary.index(value), 4, "big")
+                    out += int.to_bytes(len(value), 4, "big")
+        return out
+
+    def _write_rows(self) -> bytearray:
+        out = bytearray()
+        for d in self.dictarray:
+            for entry in self.stflag:
+                if entry[0] != 0x50:
+                    continue
+                tindex, key = entry[1], entry[2]
+                value = d[key][1]
+                if tindex not in (0xA, 0xB):
+                    out += pack(">" + _struct_code(tindex), value)
+                elif tindex == 0xA:
+                    raw = bytes(value, self.encoding)
+                    if raw == b"":
+                        idx = self.strings.index(b"\x00\x00") + 1
+                        out += pack(">I", idx)
+                    else:
+                        # _strptr handles the pool's first string (offset 0,
+                        # e.g. "<NULL>" mixed into a varying column)
+                        out += pack(">I", self._strptr(value))
+                else:
+                    out += pack(">II", self.binary.index(value), len(value))
+        return out
+
+    def _write_header(self) -> bytearray:
+        datalen = (len(self.column_data) + len(self.rows_data)
+                   + len(self.strings) + len(self.binary) + 0x18)
+        self.data_offset = datalen
+        if self.data_offset % 8 != 0:
+            self.data_offset += 8 - self.data_offset % 8
+        binary_offset = self.data_offset if not self.binary \
+            else datalen - len(self.binary)
+        name_ptr = 0 if self.strings.startswith(
+            bytes(self.table_name, self.encoding)) else self.strings.index(
+            b"\x00" + bytes(self.table_name, self.encoding) + b"\x00") + 1
+        header = UTFChunkHeader.pack(
+            b"@UTF",
+            self.data_offset,
+            len(self.column_data) + 0x18,
+            datalen - len(self.strings) - len(self.binary),
+            binary_offset,
+            name_ptr,
+            len(self.stflag),
+            sum(calcsize(_struct_code(e[1])) for e in self.stflag
+                if e[0] == 0x50),
+            len(self.dictarray),
+        )
+        return bytearray(header)
+
+    def parse(self) -> bytearray:
+        """Serialise to a @UTF table (optionally XOR-encrypted)."""
+        self._decide_stflags()
+        self.column_data = self._write_columns()
+        self.rows_data = self._write_rows()
+        header = self._write_header()
+        data = (header + self.column_data + self.rows_data
+                + self.strings + self.binary)
+        if len(data) % 8 != 0:
+            data = data[:8] + bytes(data[8:]).ljust(self.data_offset, b"\x00")
+        data = bytearray(data)
+        if self.encrypt:
+            data = xor_utf(data)
+        return data

@@ -4,7 +4,9 @@ A copy of the container half of pycricodecs_tpu/models/ahx.py
 (`AHX_TYPES`, `CRI_STRING`, `ahx_container`, `AHX.parse_header`) and of
 the AHX rule of pycricodecs_tpu/utils/sniff.py; tests hold them equal.
 `encode_mp2` is the JAX encode_mp2's f64 host lane (its default), byte for
-byte, run by ops/mp2_encode_device.py on `device`. The `AHX` class is the
+byte, run by ops/mp2_encode_device.py on `device`; `decode_mp2` is the JAX
+decode_mp2's f64 host lane (device=False), kernels B10 and `mp2_synth` on
+`device`. The `AHX` class is the
 single-file surface (parse_header, decode, encode, info): decode and
 encode run the batch paths of parallel/pipeline.py and
 ops/mp2_encode_device.py on `device`; decode, like the JAX package's
@@ -44,6 +46,36 @@ def ahx_container(stream: bytes, sample_rate: int, n_samples: int,
     header[0x1E:0x24] = CRI_STRING
     footer = b"\x80\x01\x00\x0c" + b"AHXE(c)CRI\x00\x00"
     return bytes(header) + stream + footer
+
+
+def decode_mp2(data: bytes, offset: int = 0, *, device="cuda",
+               max_frames: Optional[int] = None):
+    """Decode consecutive MPEG Layer II frames from `offset` on `device` ->
+    (int16 [C, frames * 1152], sample_rate): pycricodecs_tpu.models.ahx.
+    decode_mp2(data, offset, device=False, max_frames=max_frames)'s
+    samples (its f64 host lane), untrimmed.
+
+    The walk stops at the end of the data, a sync loss, a config change or
+    an incomplete frame (mp2_frame.scan_frames); no complete frame raises
+    ValueError, and so does a frame whose fields run past its end. Kernel
+    B10 unpacks every frame, the synthesis kernel `mp2_synth` makes the
+    PCM."""
+    from ..ops import mp2_kernels, mp2_unpack_device
+    from ..parallel import pipeline
+    data = bytes(data)
+    hdr0, walk = mp2_frame.scan_frames(data, offset, max_frames)
+    C = hdr0.nch
+    frames_np = pipeline._stack_mp2_frames([walk])
+    _, F, fs_max = frames_np.shape
+    frames = torch.from_numpy(frames_np).to(torch.device(device))
+    codes, levels, sfidx, err = mp2_unpack_device.mp2_unpack(
+        frames.view(F, fs_max), C)
+    pcm = mp2_kernels.mp2_decode_pcm(
+        codes.view(1, F, C, 36, 32), levels.view(1, F, C, 32),
+        sfidx.view(1, F, C, 3, 32))
+    if bool(err.any()):
+        raise ValueError("Layer II frame truncated mid-field.")
+    return pcm[0].cpu().numpy(), hdr0.sample_rate
 
 
 def encode_mp2(pcm, sample_rate: int, bitrate_kbps: Optional[int] = None,

@@ -1,11 +1,13 @@
 """HCA codec: stream constants, loop-point math shared by the WAV writers,
-the frame cipher re-keying (`crypt`) and the single-file surface (`decode`
-and the drop-in `HCA` class).
+the frame cipher re-keying (`crypt`), the frame-range decode
+(`decode_range`, `decode_frames_to_pcm`) and the single-file surface
+(`decode` and the drop-in `HCA` class).
 
 Counterpart of pycricodecs_tpu/models/hca.py. The single-file decode and
 encode run one stream through the batch paths of parallel/pipeline.py
-(`decode_batch`, `hca_encode_batch`) on `device`, and give the JAX
-package's bytes. `decode_range` and `decode_frames_to_pcm` are not ported.
+(`decode_batch`, `hca_encode_batch`), and a frame range through its device
+half (`decode_rows`: kernels B1, B2 and B3), on `device`; each gives the
+JAX package's bytes.
 """
 from __future__ import annotations
 
@@ -59,6 +61,64 @@ def crypt(data: bytes, encrypt: bool, header_size: int, ciph_type: int,
                                     ciph_type if encrypt else 0)
     data[:header_size] = header
     return bytes(data)
+
+
+def decode_range(data: bytes, start_frame: int, end_frame: int = -1,
+                 key: int = 0, subkey: int = 0, *,
+                 device="cuda") -> np.ndarray:
+    """Decode the frames [start_frame, end_frame) of an HCA stream on
+    `device` to interleaved PCM16 [samples, channels]: pycricodecs_tpu.
+    models.hca.decode_range's samples.
+
+    HCA is CBR and frame-seekable: the range decodes after a decoder reset,
+    so (as in the reference, hca.h:90-92) its first frame lacks the previous
+    frame's overlap history and its first 128 samples differ from a
+    full-stream decode. No encoder delay or padding is trimmed. end_frame
+    < 0 or past the frame count means the frame count; start_frame is
+    clamped to [0, end_frame]; an empty range gives shape (0, channels)."""
+    data = bytes(data)
+    header_size = int.from_bytes(data[6:8], "big")
+    info = hca_frame.parse_header(data[:header_size])
+    info.set_key(hca_crypt.scramble_subkey(key, subkey))
+    if end_frame < 0 or end_frame > info.frame_count:
+        end_frame = info.frame_count
+    start_frame = max(0, min(start_frame, end_frame))
+    frames = data[header_size + start_frame * info.frame_size:
+                  header_size + end_frame * info.frame_size]
+    return decode_frames_to_pcm(info, frames, device=device)
+
+
+def decode_frames_to_pcm(info: hca_frame.HcaInfo, frames: bytes,
+                         random_state: int = 1, *,
+                         device="cuda") -> np.ndarray:
+    """Decode raw frame bytes of `info`'s stream (len(frames) // frame_size
+    whole frames, deciphered with info.cipher) on `device` to interleaved
+    PCM16 [frames * 1024, channels]: pycricodecs_tpu.models.hca.
+    decode_frames_to_pcm's samples. The first frame has a zero overlap
+    carry; the PNS noise generator of a v3 stream with min_resolution 0
+    starts at `random_state`. A frame with a bad sync word or CRC, or one
+    the unpacker flags, raises HcaError."""
+    import torch
+
+    from ..ops import hca_unpack_device
+    from ..parallel import pipeline
+    from ..utils.crc import crc16_batch
+
+    fs, C = info.frame_size, info.channels
+    F = len(frames) // fs
+    if F == 0:
+        return np.zeros((0, C), dtype=np.int16)
+    arr = np.frombuffer(frames, np.uint8, count=F * fs).reshape(F, fs)
+    if not (arr[:, :2] == 0xFF).all():
+        raise hca_frame.HcaError("Frame sync lost")
+    if crc16_batch(arr).any():
+        raise hca_frame.HcaError("Frame checksum mismatch")
+    up = hca_unpack_device.DeviceUnpacker(info, torch.device(device))
+    pcm, err = pipeline.decode_rows(up, torch.from_numpy(arr.copy())[None],
+                                    info, seed=random_state)
+    if bool(err.any()):
+        raise hca_frame.HcaError("Unpack error (device)")
+    return pcm[0].cpu().numpy()
 
 
 def decode(data: bytes, key: int = 0, subkey: int = 0, *,

@@ -13,7 +13,7 @@ import numpy as np
 
 from ..utils import hca_crypt
 from ..utils.bitio import BitReader
-from ..utils.crc import crc16
+from ..utils.crc import crc16, crc16_batch
 from . import hca_tables as T
 
 HCA_MASK = 0x7F7F7F7F
@@ -245,3 +245,118 @@ def parse_header(data: bytes) -> HcaInfo:
         raise HcaError("MS stereo streams unsupported")  # as the reference
     info.init_derived()
     return info
+
+
+# ---------------------------------------------------------------------------
+# Key testing (clHCA_TestBlock analogue, hca.cpp:1004-1097)
+# ---------------------------------------------------------------------------
+
+def test_block(info: HcaInfo, frame: bytes, random_state: int = 1, *,
+               device="cuda") -> int:
+    """Statistically score one frame under info.cipher on `device`
+    (clHCA_TestBlock, hca.cpp:1004-1097): pycricodecs_tpu.ops.hca_frame.
+    test_block's score. 0 = silent/neutral, 1 = plausible, 2/3/clips =
+    suspicious, negative = hard bitstream failure. The PNS noise state
+    threads across calls in the reference; test_block_state carries it."""
+    return test_block_state(info, frame, random_state, device=device)[0]
+
+
+def test_block_state(info: HcaInfo, frame: bytes, random_state: int = 1, *,
+                     device="cuda") -> tuple:
+    """test_block and the advanced noise LCG state: (score, random_state),
+    equal to pycricodecs_tpu.ops.hca_frame.test_block_state's.
+
+    The host runs the key-independent checks first, in the reference's
+    order: a frame whose body is all zero scores 0, a bad sync word or CRC
+    -1, each before any launch; the rest is `score_frames` of the one
+    frame. The state is unchanged on every early return. A frame longer
+    than frame_size is cut to it; a shorter one reads zeros past its
+    end."""
+    fs = info.frame_size
+    frame = bytes(frame[:fs])
+    if all(b == 0 for b in frame[2:fs - 2]):
+        return 0, random_state
+    if not (frame[0] == 0xFF and frame[1] == 0xFF):
+        return -1, random_state
+    if crc16(frame):
+        return -1, random_state
+    row = np.zeros((1, fs), np.uint8)
+    row[0, :len(frame)] = np.frombuffer(frame, np.uint8)
+    scores, states = _score_rows(info, row, np.zeros(1, np.int64),
+                                 random_state, device)
+    return int(scores[0]), int(states[0])
+
+
+def score_frames(info: HcaInfo, frames: bytes, random_state: int = 1, *,
+                 device="cuda"):
+    """test_block_state threaded over consecutive frames (len(frames) //
+    frame_size of them, deciphered with info.cipher) in one pass on
+    `device`: (scores i64 [n], the LCG state after each frame i64 [n]),
+    equal to the fold `score, state = test_block_state(info, frame,
+    state)` from random_state over the frames in order."""
+    fs = info.frame_size
+    n = len(frames) // fs
+    fb = np.frombuffer(frames, np.uint8, count=n * fs).reshape(n, fs)
+    # the key-independent checks: silent (0), then bad sync or CRC (-1)
+    silent = ~fb[:, 2:fs - 2].any(axis=1)
+    bad = (fb[:, 0] != 0xFF) | (fb[:, 1] != 0xFF) | (crc16_batch(fb) != 0)
+    pre = np.where(silent, 1, np.where(bad, -1, 0)).astype(np.int64)
+    return _score_rows(info, fb, pre, random_state, device)
+
+
+def _score_rows(info: HcaInfo, fb: np.ndarray, pre: np.ndarray,
+                random_state: int, device):
+    """The device half of the key test of consecutive frames u8 [n, fs]
+    with their host check pre i64 [n] (1 silent, -1 bad sync or CRC, 0
+    passed): (scores i64 [n], the LCG state after each frame i64 [n]).
+
+    Kernels B1 and B2 unpack every frame under the key search's status
+    rules (an unpack error or a nonzero byte after the last code -1, a
+    cursor past frame_size * 8 - 14 -6); the clean frames draw their PNS
+    noise maps (min_resolution 0) in frame order from random_state, and
+    each clean frame's float wave, decoded alone with a zero carry (kernel
+    B4), is scored as the key search scores it."""
+    import torch
+
+    from ..parallel import pipeline
+    from . import hca_kernels, hca_unpack_device
+
+    n = fb.shape[0]
+    states = np.full(n, random_state, np.int64)
+    if n == 0:
+        return np.zeros(0, np.int64), states
+    # raises HcaError for a scalefactor count of 128 with the v3 HFR
+    # extension, where the JAX test has no defined answer (IndexError)
+    up = hca_unpack_device.DeviceUnpacker(info, device)
+    dev = up.device
+    table = torch.from_numpy(up.cipher[None].copy()).to(dev)
+    zero = torch.zeros(1, dtype=torch.int64, device=dev)
+    status, (qc, sf, res, inten) = pipeline._frame_status(
+        up, torch.from_numpy(fb.copy()).to(dev),
+        torch.from_numpy(pre).to(dev), table, zero, n, True)
+    scores = torch.where(status[0] == 1, 0, status[0])
+    live = status[0] == 1
+    sel = live.nonzero().squeeze(1)
+    k = int(sel.numel())
+    if k:
+        C = info.channels
+        noise = None
+        if info.min_resolution == 0:
+            # the reference's TestBlock runs the full transform, PNS noise
+            # included, with the LCG state threading across the clean
+            # frames
+            maps = up.noise_maps(sf, res, 1, live=live, seed=random_state)
+            drawn = maps[2].view(n, -1).sum(dim=1).cumsum(0)
+            # a frame before the first draw leaves the state as it was
+            states = np.where(
+                drawn.cpu().numpy() > 0,
+                hca_unpack_device.lcg_jump(drawn, random_state).cpu().numpy(),
+                random_state)
+            noise = tuple(m[sel].view(k, 1, C, 8, 128) for m in maps)
+        hfr, cfg = hca_kernels.transform_config(info)
+        wave = hca_kernels.hca_decode_wave(
+            qc[sel].view(k, 1, C, 8, 128), sf[sel].view(k, 1, C, 128),
+            res[sel].view(k, 1, C, 128), inten[sel].view(k, 1, C, 8), hfr,
+            noise=noise, **cfg)
+        scores[sel] = pipeline._wave_scores(wave)
+    return scores.cpu().numpy(), states

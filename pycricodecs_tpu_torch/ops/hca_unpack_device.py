@@ -86,11 +86,12 @@ def _mul32(a: int, x: torch.Tensor) -> torch.Tensor:
     return ((a & 0xFFFF) * x + (hi << 16)) & _MASK32
 
 
-def lcg_jump(n_draws: torch.Tensor) -> torch.Tensor:
+def lcg_jump(n_draws: torch.Tensor, seed: int = 1) -> torch.Tensor:
     """State after n_draws (mod 2^32) applications of the noise LCG to
-    seed 1, int64 in [0, 2^32)."""
+    `seed` (mod 2^32; the JAX package's random_state), int64 in
+    [0, 2^32)."""
     n = n_draws & _MASK32
-    x = torch.ones_like(n)
+    x = torch.full_like(n, int(seed) & _MASK32)
     for k, (a, b) in enumerate(_LCG_POWS):
         hit = ((n >> k) & 1) == 1
         x = torch.where(hit, (_mul32(a, x) + b) & _MASK32, x)
@@ -422,21 +423,23 @@ class DeviceUnpacker:
     # -- v3 PNS noise maps --------------------------------------------------
 
     def noise_maps(self, sf: torch.Tensor, res: torch.Tensor, B: int,
-                   live=None):
+                   live=None, seed: int = 1):
         """PNS noise fill maps (reconstruct_noise, hca.cpp:1602-1635) of the
         frames of B streams: sf/res u8 [N, C, 128], N = B * F frame-major
         per stream -> (src u8, sci u8, mask bool), each [N, C, 8, 128], on
-        the device of sf. `live` (bool [N], or None for all): a frame not
-        live draws nothing and gets no mask, so each stream's (or each
-        key's) LCG starts at 1 and advances only across its live frames, in
-        frame order (the key search's rule, JAX pipeline.py:1147-1166).
+        the device of sf. Each stream's LCG starts at `seed` (the JAX
+        package's random_state, 1 in a stream decode). `live` (bool [N], or
+        None for all): a frame not live draws nothing and gets no mask, so
+        each stream's (or each key's) LCG advances only across its live
+        frames, in frame order (the key search's rule, JAX
+        pipeline.py:1147-1166).
 
         The draw order is subframe-major, then channel, then noise slot; a
         (subframe, channel) with nc noise bands and vc > 0 valid bands takes
         nc draws. A band's draw ordinal is the frames-before prefix (per
         stream, so a padded tail frame moves no real frame) + s * NC + the
         channels-before prefix + its noise rank; the LCG state there is a
-        closed-form jump from seed 1. The drawn 15-bit value picks the
+        closed-form jump from the seed. The drawn 15-bit value picks the
         (vc-1-j)-th valid band, found by a gather (the JAX package's one-hot
         select computes the same index). Plain PyTorch: the JAX package
         computes these maps in XLA, outside its kernels."""
@@ -464,7 +467,7 @@ class DeviceUnpacker:
                    + s8[None, None, :, None] * NC[:, None, None, None]
                    + pre_c[:, :, None, None]
                    + nrank[:, :, None, :])                     # [N, C, 8, 128]
-        rand = lcg_jump(ordinal + 1)                           # state at the draw
+        rand = lcg_jump(ordinal + 1, seed)                     # state at the draw
         vc4 = vc[:, :, None, None]
         j = ((rand & 0x7FFF) * vc4) >> 15
         target = (vc4 - 1 - j).clamp(min=0)                    # valid rank wanted

@@ -1,11 +1,12 @@
 """Batched bank decode and encode (HCA, ADX, AHX), the AWB/ACB bank
-decode, and the HCA key search (see pipeline.py)."""
+decode, the HCA key search, and the profiler helpers (see pipeline.py)."""
 from .pipeline import (DecodeStats, adx_decode_batch, adx_encode_batch,
                        ahx_decode_batch, ahx_encode_batch, decode_acb,
                        decode_awb, decode_batch, encode_batch, find_key,
-                       hca_encode_batch, rank_keys, score_key)
+                       hca_encode_batch, measure_d2h_bandwidth, rank_keys,
+                       score_key, trace)
 
 __all__ = ["DecodeStats", "adx_decode_batch", "adx_encode_batch",
            "ahx_decode_batch", "ahx_encode_batch", "decode_acb", "decode_awb",
            "decode_batch", "encode_batch", "find_key", "hca_encode_batch",
-           "rank_keys", "score_key"]
+           "measure_d2h_bandwidth", "rank_keys", "score_key", "trace"]

@@ -71,10 +71,15 @@ members through one ahx_decode_batch call, and all ADX members through one
 launch of B7 per geometry in the JAX host decoders' arithmetic; a member
 that does not parse comes back raw.
 
+Observability: `trace(log_dir)` records a torch.profiler Chrome trace of
+the calls it wraps, and `measure_d2h_bandwidth` times one device-to-host
+copy.
+
 On a CPU `device` every path runs the kernels' plain PyTorch twins.
 """
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass
 from typing import List, Optional, Sequence
@@ -113,6 +118,68 @@ class DecodeStats:
 
     def as_dict(self) -> dict:
         return dict(self.__dict__)
+
+
+class trace:
+    """Optional profiler tracing of pipeline calls (the JAX package's
+    parallel.trace, on torch.profiler):
+
+        with parallel.trace("prof"):
+            parallel.decode_batch(blobs)
+
+    Records CPU activity, and CUDA activity where a GPU is present, and
+    writes a Chrome trace (`trace_<pid>_<n>.json`, view it in Perfetto or
+    chrome://tracing) into log_dir on exit; its path is `self.path`. A
+    no-op, with `path` None, only where the profiler cannot start."""
+
+    def __init__(self, log_dir: str):
+        self.log_dir = log_dir
+        self.path: Optional[str] = None
+        self._prof = None
+
+    def __enter__(self):
+        from torch.profiler import ProfilerActivity, profile
+        activities = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            activities.append(ProfilerActivity.CUDA)
+        try:
+            self._prof = profile(activities=activities)
+            self._prof.__enter__()
+        except Exception:
+            self._prof = None
+        return self
+
+    def __exit__(self, *exc):
+        if self._prof is None:
+            return False
+        self._prof.__exit__(*exc)
+        os.makedirs(self.log_dir, exist_ok=True)
+        self.path = os.path.join(
+            self.log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json")
+        self._prof.export_chrome_trace(self.path)
+        return False
+
+
+_d2h_mbps: dict = {}
+
+
+def measure_d2h_bandwidth(nbytes: int = 8 << 20, *, device="cuda") -> float:
+    """Device-to-host copy bandwidth (MB/s) of `device`: one timed `.cpu()`
+    of an nbytes float32 buffer after a small warm-up copy, measured once
+    per process and device. A failed probe raises (the JAX package reports
+    0 there, which would hide a broken device)."""
+    device = torch.device(device)
+    if str(device) in _d2h_mbps:
+        return _d2h_mbps[str(device)]
+    x = torch.ones(max(nbytes // 4, 1), dtype=torch.float32, device=device)
+    x[:1024].cpu()                      # warm the transfer path
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    out = x.cpu()
+    dt = time.perf_counter() - t0
+    _d2h_mbps[str(device)] = out.numel() * 4 / 1e6 / max(dt, 1e-9)
+    return _d2h_mbps[str(device)]
 
 
 def _config_key(info: hca_frame.HcaInfo) -> tuple:
@@ -223,14 +290,39 @@ def decode_batch(blobs: Sequence[bytes], key: int = 0, subkey: int = 0,
     return out
 
 
+def decode_rows(up: hca_unpack_device.DeviceUnpacker, frames: torch.Tensor,
+                info, seed: int = 1):
+    """The device half of a stream decode: enciphered frames u8 [B, F, fs]
+    (sync and CRC checked) of B streams of `info`'s config -> (interleaved
+    PCM16 [B, F * 1024, C], unpack error bool [B, F]) on the unpacker's
+    device, untrimmed. Kernels B1 and B2 unpack every frame, the PNS noise
+    maps follow when min_resolution is 0 (each stream's LCG from `seed`),
+    then kernel B3; each stream's first frame has a zero overlap carry
+    (the JAX fused decode's `core`, pipeline.py:461-485)."""
+    B, F, fs = frames.shape
+    C = up.C
+    qc, sf, res, inten, err = up(frames.reshape(B * F, fs))
+    noise = None
+    if info.min_resolution == 0:
+        # v3 PNS: the fill applies whenever min_resolution is 0, as in the
+        # JAX fused device path (apply_noise=up.need_noise)
+        noise = tuple(m.view(B, F, C, 8, 128)
+                      for m in up.noise_maps(sf, res, B, seed=seed))
+    hfr, cfg = hca_kernels.transform_config(info)
+    pcm = hca_kernels.hca_decode_transform_batched(
+        qc.view(B, F, C, 8, 128), sf.view(B, F, C, 128),
+        res.view(B, F, C, 128), inten.view(B, F, C, 8), hfr, noise=noise,
+        **cfg)
+    return pcm.view(B, F * SAMPLES_PER_FRAME, C), err.view(B, F)
+
+
 def _decode_group(up: hca_unpack_device.DeviceUnpacker, group, infos,
                   results, stats: Optional[DecodeStats] = None) -> None:
     """Decode one (config, sample rate, cipher) group, CHUNK_STREAMS streams
     per device batch, into results[idx] (pcm16 [samples, C])."""
     info0 = infos[group[0]][0]
-    C, fs = info0.channels, info0.frame_size
+    fs = info0.frame_size
     fmax = max(infos[i][0].frame_count for i in group)
-    hfr, cfg = hca_kernels.transform_config(info0)
     t_unpack = t_device = t_fetch = 0.0
     for start in range(0, len(group), CHUNK_STREAMS):
         members = group[start:start + CHUNK_STREAMS]
@@ -251,18 +343,7 @@ def _decode_group(up: hca_unpack_device.DeviceUnpacker, group, infos,
         if crc16_batch(frames_np.reshape(-1, fs)).any():
             raise hca_frame.HcaError("Frame checksum mismatch")
         t1 = time.perf_counter()
-        frames = torch.from_numpy(frames_np).to(up.device)
-        qc, sf, res, inten, err = up(frames.view(Bc * fmax, fs))
-        noise = None
-        if info0.min_resolution == 0:
-            # v3 PNS: the fill applies whenever min_resolution is 0, as in
-            # the JAX fused device path (apply_noise=up.need_noise)
-            noise = tuple(m.view(Bc, fmax, C, 8, 128)
-                          for m in up.noise_maps(sf, res, Bc))
-        pcm = hca_kernels.hca_decode_transform_batched(
-            qc.view(Bc, fmax, C, 8, 128), sf.view(Bc, fmax, C, 128),
-            res.view(Bc, fmax, C, 128), inten.view(Bc, fmax, C, 8), hfr,
-            noise=noise, **cfg)
+        pcm, err = decode_rows(up, torch.from_numpy(frames_np), info0)
         t2 = time.perf_counter()
         if bool(err.any()):
             raise hca_frame.HcaError("Unpack error (device)")
@@ -271,8 +352,7 @@ def _decode_group(up: hca_unpack_device.DeviceUnpacker, group, infos,
             info = infos[idx][0]
             samples = (info.frame_count * SAMPLES_PER_FRAME
                        - info.encoder_delay - info.encoder_padding)
-            pcm_b = out[b].reshape(-1, C)
-            pcm_b = pcm_b[info.encoder_delay:info.encoder_delay + samples]
+            pcm_b = out[b, info.encoder_delay:info.encoder_delay + samples]
             # owned copy: a view would pin the whole fetched chunk buffer
             pcm_b = pcm_b.copy()
             # truncated stream: the reference zeroes everything past the

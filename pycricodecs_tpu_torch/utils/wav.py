@@ -39,6 +39,14 @@ class WavFile:
         """Total interleaved sample count (frames * channels)."""
         return int(self.pcm16.size)
 
+    @property
+    def samples_per_channel(self) -> int:
+        return int(self.pcm16.size) // self.channels
+
+    def deinterleave(self) -> np.ndarray:
+        """[channels, frames] view of the PCM data."""
+        return self.pcm16.reshape(-1, self.channels).T
+
 
 def _u16(b: bytes, off: int) -> int:
     return int.from_bytes(b[off:off + 2], "little")

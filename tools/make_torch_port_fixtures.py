@@ -102,8 +102,31 @@ the JAX package's builders (ACBBuilder, build_afs2, crypt):
   sibling bank.awb with the port's build_afs2 and holds it to the sha256
   that the JAX package's build_afs2 gives, recorded here.
 
-Usage: python3 tools/make_torch_port_fixtures.py [--keysearch | --bank]
-(--keysearch writes only the key search directory, --bank only the banks'.)
+Surfaces (tests/data/torch_port/surfaces/expected.json), the values
+chip_smoke.py's phase 17 holds the port's remaining surfaces to, from the
+JAX package:
+- "decode_range": the sha256 of models.hca.decode_range's int16 samples
+  (C order, [samples, channels]) of bank_q2_stereo_48k_10s over (0, -1),
+  (100, 300), (468, -1) and (5, 5), and of the key search's enciphered
+  stream under its key over (0, -1) and (100, 300);
+- "decode_frames_to_pcm": the same of decode_frames_to_pcm of
+  pns_v3_mono_48k_1s's frames at random_state 1 and 0x1234;
+- "test_block_state": ops.hca_frame.test_block_state threaded from 1 over
+  every frame of the enciphered stream under its key and three wrong
+  keys: per key the sha256 of the (score, state) pairs as int64
+  little-endian [frames, 2], the score counts and the last state;
+- "decode_mp2": models.ahx.decode_mp2(device=False)'s int16 [C, N]
+  samples' sha256, shape and rate for ahx_bank_lsf_mono_22k_96k_10s and
+  mp2_joint8_44k_192k_1s;
+- "awb_builder": containers.awb.AWBBuilder in list mode over the HCA
+  fixtures (sorted by name): the bank's sha256;
+- "graft_entry": __graft_entry__.entry()'s fn on its example args: the
+  sha256 and shape of its pcm and whether any err is set.
+
+Usage: python3 tools/make_torch_port_fixtures.py [--keysearch | --bank |
+--surfaces] (--keysearch writes only the key search directory, --bank only
+the banks', --surfaces only the surfaces' expected.json; --bank and
+--surfaces read the fixtures above, so run them after them.)
 """
 import hashlib
 import json
@@ -122,6 +145,7 @@ ADX_DIR = os.path.join(OUT_DIR, "adx")
 AHX_DIR = os.path.join(OUT_DIR, "ahx")
 KEYSEARCH_DIR = os.path.join(OUT_DIR, "keysearch")
 BANK_DIR = os.path.join(OUT_DIR, "bank")
+SURFACES_DIR = os.path.join(OUT_DIR, "surfaces")
 BANK_TRACKS = 256
 SUBKEY = 0x55AA
 ZERO_CODED = "zero_coded_v2_stereo_48k_1s"
@@ -249,6 +273,9 @@ def main() -> None:
     if "--bank" in sys.argv[1:]:
         write_bank_fixtures()
         return
+    if "--surfaces" in sys.argv[1:]:
+        write_surface_fixtures()
+        return
     from pycricodecs_tpu import parallel
 
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -281,6 +308,7 @@ def main() -> None:
     write_ahx_fixtures()
     write_keysearch_fixtures()
     write_bank_fixtures()
+    write_surface_fixtures()
 
 
 def sha256(data: bytes) -> str:
@@ -503,6 +531,111 @@ def write_bank_fixtures() -> None:
         json.dump(expected, f, indent=1, sort_keys=True)
         f.write("\n")
 
+
+
+#: the wrong keys test_block_state is threaded under, beside the true key
+WRONG_KEYS = (KEYSEARCH["key"] + 1, 1, 0xDEADBEEF)
+RANGES = ((0, -1), (100, 300), (468, -1), (5, 5))
+ENCIPHERED_RANGES = ((0, -1), (100, 300))
+PNS_STATES = (1, 0x1234)
+MP2_STREAMS = ("ahx_bank_lsf_mono_22k_96k_10s", "mp2_joint8_44k_192k_1s")
+
+
+def pcm_record(pcm) -> dict:
+    """sha256 (C order bytes) and shape of an int16 array."""
+    import numpy as np
+    pcm = np.ascontiguousarray(pcm)
+    if pcm.dtype != np.int16:
+        raise SystemExit(f"expected int16 samples, got {pcm.dtype}")
+    return {"sha256": sha256(pcm.tobytes()), "shape": list(pcm.shape)}
+
+
+def write_surface_fixtures() -> None:
+    import numpy as np
+
+    import __graft_entry__
+    from pycricodecs_tpu.containers.awb import AWBBuilder
+    from pycricodecs_tpu.models import ahx as jax_ahx
+    from pycricodecs_tpu.models import hca as jax_hca
+    from pycricodecs_tpu.ops import hca_frame
+
+    os.makedirs(SURFACES_DIR, exist_ok=True)
+    spec = dict(KEYSEARCH)
+    with open(os.path.join(OUT_DIR, spec["stream"] + ".hca"), "rb") as f:
+        plain = f.read()
+    hs = int.from_bytes(plain[6:8], "big")
+    enc = jax_hca.crypt(plain, True, hs, spec["cipher"], spec["key"])
+    out = {"decode_range": {
+        "stream": spec["stream"],
+        "ranges": [[a, b, pcm_record(jax_hca.decode_range(plain, a, b))]
+                   for a, b in RANGES],
+        "enciphered_key": spec["key"],
+        "enciphered_sha256": sha256(enc),
+        "enciphered_ranges": [
+            [a, b, pcm_record(jax_hca.decode_range(enc, a, b, spec["key"]))]
+            for a, b in ENCIPHERED_RANGES]}}
+    print("decode_range", out["decode_range"]["ranges"][0])
+
+    with open(os.path.join(OUT_DIR, "pns_v3_mono_48k_1s.hca"), "rb") as f:
+        pns = f.read()
+    phs = int.from_bytes(pns[6:8], "big")
+    info = hca_frame.parse_header(pns[:phs])
+    out["decode_frames_to_pcm"] = {
+        "stream": "pns_v3_mono_48k_1s",
+        "random_states": [[s, pcm_record(jax_hca.decode_frames_to_pcm(
+            info, pns[phs:], s))] for s in PNS_STATES]}
+
+    keys = {}
+    for key in (spec["key"],) + WRONG_KEYS:
+        info = hca_frame.parse_header(enc[:hs])
+        info.set_key(key)
+        state, pairs = 1, []
+        for f in range(info.frame_count):
+            off = hs + f * info.frame_size
+            score, state = hca_frame.test_block_state(
+                info, enc[off:off + info.frame_size], state)
+            pairs.append((score, state))
+        scores = [p[0] for p in pairs]
+        keys[f"0x{key:016X}"] = {
+            "pairs_sha256": sha256(np.asarray(pairs, "<i8").tobytes()),
+            "frames": len(pairs), "last_state": state,
+            "score_counts": {str(v): scores.count(v)
+                             for v in sorted(set(scores))}}
+        print("test_block_state", hex(key), keys[f"0x{key:016X}"])
+    out["test_block_state"] = {"stream": "enciphered", "start_state": 1,
+                               "true_key": f"0x{spec['key']:016X}",
+                               "keys": keys}
+
+    mp2 = {}
+    with open(os.path.join(AHX_DIR, "expected.json")) as f:
+        ahx_expected = json.load(f)
+    for name in MP2_STREAMS:
+        with open(os.path.join(AHX_DIR, ahx_expected[name]["file"]),
+                  "rb") as f:
+            blob = f.read()
+        offset = (jax_ahx.AHX.parse_header(blob)["data_offset"]
+                  if blob[:1] == b"\x80" else 0)
+        pcm, rate = jax_ahx.decode_mp2(blob, offset, device=False)
+        mp2[name] = dict(pcm_record(pcm), offset=offset, sample_rate=rate)
+    out["decode_mp2"] = mp2
+    print("decode_mp2", mp2)
+
+    import tempfile
+    names = sorted(f for f in os.listdir(OUT_DIR) if f.endswith(".hca"))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "list.awb")
+        AWBBuilder([os.path.join(OUT_DIR, n) for n in names]).build(path)
+        with open(path, "rb") as f:
+            awb = f.read()
+    out["awb_builder"] = {"members": names, "sha256": sha256(awb)}
+
+    fn, args = __graft_entry__.entry()
+    pcm, err = (np.asarray(x) for x in fn(*args))
+    out["graft_entry"] = dict(pcm_record(pcm), err_any=bool(err.any()))
+    print("graft_entry", out["graft_entry"])
+    with open(os.path.join(SURFACES_DIR, "expected.json"), "w") as f:
+        json.dump(out, f, indent=1, sort_keys=True)
+        f.write("\n")
 
 if __name__ == "__main__":
     main()
