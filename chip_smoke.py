@@ -146,13 +146,15 @@ the JAX package):
 
 AHX / MPEG Layer II encode (tests/data/torch_port/ahx/, hashes from the JAX
 package's f64 host lane, the input PCM rebuilt by utils/signals.py):
-16. K1 `mp2_analysis` against `analyze_plain` (f64 bit for bit), K2
-   `mp2_allocate`'s two passes against `frame_peaks_plain` and
+16. K1 `mp2_analysis` (S, part peaks, frame peaks) against
+   `analyze_plain`, `part_peaks_plain` and `frame_peaks_plain` (f64 bit for
+   bit), K2 `mp2_allocate` (one pass, from the part peaks) against
    `allocate_plain`, K3 `mp2_pack` against `pack_plain`, byte for byte:
    random tones, noise and level jumps (a silent tail, a full-scale square
    wave) for 12 configurations (every allocation table, mono, stereo,
-   joint bounds 4-16, frame counts off K1's 64-row tile, one frame) and
-   the bank's PCM (256 x 192 frames); how many of the bank's peaks and of
+   joint bounds 4-16, odd frame counts that end in half of K1's 72-row
+   tile, one frame) and the bank's PCM (256 x 192 frames); how many of
+   the bank's peaks and of
    1,000,000 log-uniform values torch.log10 on the card gives otherwise
    than np.log10 on the host (need_db is numpy's on the host);
    `ahx_encode_batch` of 256 copies of the bank's 10 s WAV at 96 kbps
@@ -162,7 +164,9 @@ package's f64 host lane, the input PCM rebuilt by utils/signals.py):
    bank call timed (median of 3 after a warm-up) with its stage split; the
    kernels timed at the bank shape (CUDA events), the twins once, K1's
    library yardstick (the fold in torch and one f64 `torch.matmul`, within
-   1e-12 of the kernel).
+   1e-12 of the kernel), and K2's ablation by its inputs: class levels
+   zeroed (the loop runs as it does, nothing to quantise) and budgets
+   zeroed (no step allocates).
 
 The remaining single-device surfaces (tests/data/torch_port/surfaces/,
 values from the JAX package):
@@ -322,10 +326,13 @@ FP64_OPS_PER_S = 17e12
 #   output value; B5 (hca_imdct): the DCT-IV's 28;
 # - K1 (mp2_analysis), f64 operations per input sample: window fold 32
 #   (64 outputs x 8 mul + 8 add per 32 samples) and matrixing 127 (32
-#   outputs x 64 mul + 63 add per 32 samples): 159;
+#   outputs x 64 mul + 63 add per 32 samples): 159 (the peaks' compares
+#   uncounted); its bytes: the PCM in, S and both peak tensors out;
 # - K2 (mp2_allocate), f64 operations per quantised code (a code of an
 #   allocated (frame, channel, subband), x 36): divide, multiply, add,
 #   subtract, divide, add, floor = 7 (the greedy steps' compares uncounted);
+#   its bytes: S and the part peaks, need_db and budgets in once, the four
+#   outputs;
 # - K3 (mp2_pack): three per quantised code written (field value, shift,
 #   shared-memory OR).
 OPS = {"hca_side_info": 1, "hca_coefficients": 3, "hca_transform": 35,
@@ -2218,8 +2225,8 @@ ENCODE_KERNELS = ("mp2_analysis", "mp2_allocate", "mp2_pack")
 LOG10_VALUES = 1_000_000
 # (label, channels, sample rate, kbps, joint bound, streams, frames) of the
 # random-signal checks: every allocation table (LSF 4, MPEG-1 a/b/c/d),
-# mono, stereo and joint bounds 4-16, frame counts whose 36-row frames end
-# off K1's 64-row tile, one frame, one stream
+# mono, stereo and joint bounds 4-16, odd frame counts (the last of K1's
+# 72-row tiles half used), one frame, one stream
 ENCODE_CASES = (
     ("LSF mono 16 kHz 64 kbps (table 4)", 1, 16000, 64, None, 3, 7),
     ("LSF mono 24 kHz 160 kbps (table 4)", 1, 24000, 160, None, 2, 5),
@@ -2267,23 +2274,23 @@ def f64_equal(what: str, a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def encode_pairs(worst: dict, label: str, pcm, cfg):
-    """K1, both passes of K2 and K3 against their twins on `pcm`, each
-    twin fed the kernel's input; returns (S, peaks, need, K2 outputs,
+    """K1, K2 and K3 against their twins on `pcm`, each twin fed the
+    kernel's input; returns (S, part peaks, frame peaks, need, K2 outputs,
     K3 bytes)."""
     from pycricodecs_tpu_torch.ops import cuda_kernels
     from pycricodecs_tpu_torch.ops import mp2_encode_device as E
     from pycricodecs_tpu_torch.ops import mp2_kernels as MK
-    S = cuda_kernels.mp2_analysis(pcm)
+    S, part, peaks = cuda_kernels.mp2_analysis(pcm)
     worst["mp2_analysis"] = max(worst["mp2_analysis"], f64_equal(
-        f"K1 {label}", S, MK.analyze_plain(pcm)))
-    peaks = cuda_kernels.mp2_allocate_peaks(S)
-    f64_equal(f"K2 peaks {label}", peaks, E.frame_peaks_plain(S))
+        f"K1 {label}", S, MK.analyze_plain(pcm)), f64_equal(
+        f"K1 part peaks {label}", part, E.part_peaks_plain(S)), f64_equal(
+        f"K1 frame peaks {label}", peaks, E.frame_peaks_plain(S)))
     need = E.need_db_host(peaks)
     F = S.shape[2] // 36
     pads, sizes, budgets = cfg.frame_plan(F)
     bud = torch.from_numpy(budgets).to(pcm.device)
-    got = E.allocate(S, need, bud, cfg)
-    want = E.allocate_plain(S, need, bud, cfg)
+    got = E.allocate(S, part, need, bud, cfg)
+    want = E.allocate_plain(S, part, need, bud, cfg)
     worst["mp2_allocate"] = max(worst["mp2_allocate"], require_equal(
         f"K2 {label}", [(n, a.view(torch.int16) if a.dtype == torch.uint16
                          else a, b.view(torch.int16) if b.dtype ==
@@ -2294,7 +2301,7 @@ def encode_pairs(worst: dict, label: str, pcm, cfg):
     worst["mp2_pack"] = max(worst["mp2_pack"], require_equal(
         f"K3 {label}", [("frames", frames, E.pack_plain(
             *got, cfg, torch.from_numpy(pads).to(pcm.device), sizes))]))
-    return S, peaks, need, got, frames
+    return S, part, peaks, need, got, frames
 
 
 def log10_check(dev, peaks: torch.Tensor) -> int:
@@ -2311,8 +2318,8 @@ def log10_check(dev, peaks: torch.Tensor) -> int:
         counts.append(n)
         log(f"log10: torch.log10 on the card differs from np.log10 on the "
             f"host on {n} of {v.size} {label}")
-    log("need_db design: numpy's log10 on the host from K2's first-pass "
-        "peaks (the reference's function; taken because CUDA's differs)"
+    log("need_db design: numpy's log10 on the host from K1's frame peaks "
+        "(the reference's function; taken because CUDA's differs)"
         if sum(counts) else "need_db: CUDA's log10 agreed everywhere")
     return sum(counts)
 
@@ -2355,7 +2362,6 @@ def encode_stage_split(dev, wav: bytes, cfg, card: str) -> None:
     synchronise: where the time goes, on the host clock."""
     from pycricodecs_tpu_torch.models import ahx as ahx_model
     from pycricodecs_tpu_torch.ops import mp2_encode_device as E
-    from pycricodecs_tpu_torch.ops import mp2_kernels as MK
     from pycricodecs_tpu_torch.utils import wav as wavmod
     split = {}
 
@@ -2375,15 +2381,13 @@ def encode_stage_split(dev, wav: bytes, cfg, card: str) -> None:
     t = lap("host: WAV parse and stacking", t)
     pcm_d = torch.from_numpy(pcm).to(dev)
     t = lap("H2D of the PCM", t)
-    S = MK.analyze(pcm_d)
-    t = lap("K1 mp2_analysis", t)
-    peaks = E.frame_peaks(S)
-    t = lap("K2 first pass (peaks)", t)
+    S, part, peaks = E.analysis(pcm_d)
+    t = lap("K1 mp2_analysis (spectra, part and frame peaks)", t)
     need = E.need_db_host(peaks)
     t = lap("host: peaks D2H, numpy log10, need_db H2D", t)
     pads, sizes, budgets = cfg.frame_plan(F)
-    out = E.allocate(S, need, torch.from_numpy(budgets).to(dev), cfg)
-    t = lap("K2 second pass (allocation, quantisation)", t)
+    out = E.allocate(S, part, need, torch.from_numpy(budgets).to(dev), cfg)
+    t = lap("K2 mp2_allocate (allocation, quantisation)", t)
     frames = E.pack(*out, cfg, pads, sizes)
     t = lap("K3 mp2_pack", t)
     data = frames.cpu().numpy()
@@ -2397,6 +2401,27 @@ def encode_stage_split(dev, wav: bytes, cfg, card: str) -> None:
         f"each step, {total:.4f} s): " + "; ".join(
             f"{k} {v:.4f} s ({100 * v / total:.1f} %)"
             for k, v in split.items()))
+
+
+K2_PARTS = ("quantisation", "greedy loop", "prologue, S stream and stores")
+
+
+def k2_ablation(k2, itab, bud, reps: int = 10) -> dict:
+    """K2's ablation by its inputs, in ms (CUDA events, median of reps):
+    the whole call, the class levels zeroed (the greedy loop runs step for
+    step, as the loop reads no levels; nothing is quantised), then the
+    budgets zeroed as well (the loop's first step allocates nothing); the
+    differences are K2_PARTS. k2(budgets=..., classes=...) launches K2 with
+    the bank's other inputs."""
+    no_levels = itab.clone()
+    no_levels[:32 * 16] = 0
+    whole = cuda_ms(k2, reps)
+    loop = cuda_ms(lambda: k2(classes=no_levels), reps)
+    bare = cuda_ms(lambda: k2(budgets=torch.zeros_like(bud),
+                              classes=no_levels), reps)
+    return {"whole": whole, "levels_zeroed": loop,
+            "levels_budgets_zeroed": bare, K2_PARTS[0]: whole - loop,
+            K2_PARTS[1]: loop - bare, K2_PARTS[2]: bare}
 
 
 def ahx_encode_phase(dev, card: str, worst: dict, launches: dict) -> dict:
@@ -2432,7 +2457,8 @@ def ahx_encode_phase(dev, card: str, worst: dict, launches: dict) -> dict:
     x = np.zeros((BANK_STREAMS, 1, F * 1152), np.int16)
     x[:, 0, :n] = bank_pcm
     pcm = torch.from_numpy(x).to(dev)
-    S, peaks, need, out, frames = encode_pairs(worst, "bank", pcm, cfg)
+    S, part, peaks, need, out, frames = encode_pairs(worst, "bank", pcm,
+                                                     cfg)
     offs = E.frame_offsets(cfg.frame_plan(F)[1])
     want = expected[bank_name]["stream_sha256"]
     for b in (0, BANK_STREAMS - 1):
@@ -2520,17 +2546,26 @@ def ahx_encode_phase(dev, card: str, worst: dict, launches: dict) -> dict:
     offs_d = torch.from_numpy(offs).to(dev)
     pads_d = torch.from_numpy(pads).to(dev)
     k1_ms = cuda_ms(lambda: cuda_kernels.mp2_analysis(pcm), 10)
-    k2a_ms = cuda_ms(lambda: cuda_kernels.mp2_allocate_peaks(S), 10)
-    k2b_ms = cuda_ms(lambda: cuda_kernels.mp2_allocate(
-        S, need, bud, itab, snr, sblimit=cfg.sblimit, bound=cfg.bound,
-        joint=cfg.joint), 10)
+
+    def k2(budgets=bud, classes=itab):
+        return cuda_kernels.mp2_allocate(
+            S, part, need, budgets, classes, snr, sblimit=cfg.sblimit,
+            bound=cfg.bound, joint=cfg.joint)
+
+    abl = k2_ablation(k2, itab, bud)
+    k2_ms = abl["whole"]
     k3_ms = cuda_ms(lambda: cuda_kernels.mp2_pack(
         *out, pads_d, offs_d, ctab, sblimit=cfg.sblimit, bound=cfg.bound,
         header_base=cfg.header_base, total=int(offs[-1]),
         max_frame=int(sizes.max())), 10)
-    _, k1_plain = cuda_ms_once(lambda: MK.analyze_plain(pcm))
-    _, k2a_plain = cuda_ms_once(lambda: E.frame_peaks_plain(S))
-    _, k2b_plain = cuda_ms_once(lambda: E.allocate_plain(S, need, bud, cfg))
+
+    def k1_twins():
+        S_p = MK.analyze_plain(pcm)
+        return S_p, E.part_peaks_plain(S_p), E.frame_peaks_plain(S_p)
+
+    _, k1_plain = cuda_ms_once(k1_twins)
+    _, k2_plain = cuda_ms_once(lambda: E.allocate_plain(S, part, need, bud,
+                                                        cfg))
     _, k3_plain = cuda_ms_once(lambda: E.pack_plain(*out, cfg, pads_d,
                                                     sizes))
     k1_library = analysis_library(pcm, S, card)
@@ -2539,21 +2574,24 @@ def ahx_encode_phase(dev, card: str, worst: dict, launches: dict) -> dict:
     coded = int((levels[torch.arange(32, device=dev), alloc.long()] > 0)
                 .sum()) * 36
     bd = {
-        "mp2_analysis": bound("mp2_analysis", nbytes(pcm, S), pcm.numel()),
+        "mp2_analysis": bound("mp2_analysis", nbytes(pcm, S, part, peaks),
+                              pcm.numel()),
         "mp2_allocate": bound("mp2_allocate",
-                              nbytes(S, peaks, need, bud, *out), coded),
+                              nbytes(S, part, need, bud, *out), coded),
         "mp2_pack": bound("mp2_pack", nbytes(*out, pads_d, offs_d, frames),
                           coded),
     }
-    log(f"K2 [{card}] at the bank shape: first pass {k2a_ms:.4f} ms (twin "
-        f"{k2a_plain:.4f} ms), second pass {k2b_ms:.4f} ms (twin "
-        f"{k2b_plain:.4f} ms); {coded} codes quantised; log10 differences "
-        f"{n_log10}")
+    parts = {k: abl[k] for k in K2_PARTS}
+    log(f"K2 ablation [{card}] at the bank shape: whole {k2_ms:.4f} ms; "
+        f"levels zeroed {abl['levels_zeroed']:.4f} ms; levels and budgets "
+        f"zeroed {abl['levels_budgets_zeroed']:.4f} ms -> " + "; ".join(
+            f"{k} {v:.4f} ms" for k, v in parts.items())
+        + f"; most: {max(parts, key=parts.get)}; {coded} codes quantised; "
+        f"log10 differences {n_log10}")
     res = {"mp2_analysis": (k1_ms, k1_plain, bd["mp2_analysis"], k1_library),
-           "mp2_allocate": (k2a_ms + k2b_ms, k2a_plain + k2b_plain,
-                            bd["mp2_allocate"]),
+           "mp2_allocate": (k2_ms, k2_plain, bd["mp2_allocate"]),
            "mp2_pack": (k3_ms, k3_plain, bd["mp2_pack"])}
-    kernel_total = k1_ms + k2a_ms + k2b_ms + k3_ms
+    kernel_total = k1_ms + k2_ms + k3_ms
     for name, (ms, plain_ms, b_, *_) in res.items():
         log(f"{name} [{card}] at the AHX encode bank shape ({BANK_STREAMS} "
             f"x {F} frames): kernel {ms:.4f} ms, twin {plain_ms:.4f} ms (one"

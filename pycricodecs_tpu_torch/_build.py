@@ -64,9 +64,9 @@ SIGNATURES = {
     "mp2_synth": [_P, _P, _P, _I, _I, _I, _P, _P],
     "hca_imdct_ola": [_P, _I, _I, _P, _P],
     "hca_imdct": [_P, _L, _P, _P],
-    "mp2_analysis": [_P, _L, _I, _P, _P],
-    "mp2_allocate": [_I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                     _P, _P, _P, _P],
+    "mp2_analysis": [_P, _I, _I, _I, _P, _P, _P, _P],
+    "mp2_allocate": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                     _P, _P, _P],
     "mp2_pack": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _P, _L, _I,
                  _P, _P],
 }
@@ -141,11 +141,12 @@ def tables_header() -> str:
                              ("kMp2Bitrate", "int", mt["bitrate"]),
                              ("kMp2Rate", "int", mt["rate"])):
         out.append(_c_array(name, ctype, _int_literals(arr)))
-    # and the encoder's analysis matrix M[k][q] and window C (K1)
+    # and the encoder's analysis matrix, transposed (Mt[q][k] = M[k][q]),
+    # and window C (K1)
     for name, arr in (("kMp2Sf", mp2_tables.scalefactors()),
                       ("kMp2Nt", mp2_tables.synthesis_matrixing().T),
                       ("kMp2Dwin", mp2_tables.synth_window()),
-                      ("kMp2Am", mp2_tables.analysis_matrix()),
+                      ("kMp2AmT", mp2_tables.analysis_matrix().T),
                       ("kMp2Cwin", mp2_tables.analysis_window()),
                       ("kMp2Recip", 1.0 / np.asarray(MP2_RECIP_N,
                                                      np.float64))):

@@ -1,5 +1,5 @@
-// MPEG Layer II encoder kernels for Hopper (sm_90a): K2 mp2_allocate (two
-// passes) and K3 mp2_pack.
+// MPEG Layer II encoder kernels for Hopper (sm_90a): K2 mp2_allocate and K3
+// mp2_pack.
 //
 // Not TPU Pallas kernels: in the JAX package these steps are numpy on the
 // host, the f64 lane of pycricodecs_tpu/models/ahx.py encode_mp2
@@ -7,27 +7,26 @@
 // ops/mp2_frame.py pack_frames (:367-472). (Its jnp device encoder,
 // ops/mp2_encode_device.py, ranks by an f32 proxy and gives other bytes.)
 // Plain PyTorch twins: pycricodecs_tpu_torch/ops/mp2_encode_device.py
-// (frame_peaks_plain, allocate_plain, pack_plain), byte-equal by test.
+// (allocate_plain, pack_plain), byte-equal by test.
 //
-// K2, a warp per (stream, frame), lane = subband, a slot per channel:
-//   pass 1: peak[c][sb] = max |S| over the frame's 36 rows (the host takes
-//     numpy's 20 log10(max(peak, 1e-9)) of it: CUDA's log10 differs from
-//     numpy's in the last bit on 5.8 % of values, and the reference is
-//     numpy's);
-//   pass 2: from S and need_db, exactly as encode_mp2 orders each float64
-//     operation: the part peaks (12 rows each), sfidx = count(sf >= peak -
-//     1e-12) - 1 floored at 0, scfsi and its scalefactor bits, the joint
-//     mid signal (S0 + S1) * 0.5 with its own scalefactors; first_cost,
-//     need and eligibility (joint subbands allocate once, in channel 0's
-//     slot, paying both channels' side info, needing the louder channel);
-//     the greedy loop: each step every eligible slot's cost and gain = need
-//     - snr[class], ok = class + 1 < ncls, gain > -60, spent + cost <=
-//     budget; a warp argmax over the flat channel-major index ch * sblimit
-//     + sb picks the largest gain, the lowest index on a tie (numpy's
-//     argmax); it stops when no slot is ok. Then the quantisation
-//     clip(floor(((s / sf) * n + n - 1) / 2 + 0.5), 0, n - 1) with IEEE
-//     divisions, and the transmitted allocation (channel 1 repeats channel
-//     0 at joint subbands).
+// K2, a warp per (stream, frame), lane = subband, a slot per channel, from
+// S, K1's part peaks and need_db (numpy's 20 log10(max(frame peak, 1e-9))
+// on the host: CUDA's log10 differs from numpy's in the last bit on 5.8 %
+// of values, and the reference is numpy's), exactly as encode_mp2 orders
+// each float64 operation: sfidx = count(sf >= part peak - 1e-12) - 1
+// floored at 0 (a binary search: the 63 scalefactors strictly decrease),
+// scfsi and its scalefactor bits; at joint subbands the mid signal
+// (S0 + S1) * 0.5 and its part peaks' scalefactors; first_cost, need and
+// eligibility (joint subbands allocate once, in channel 0's slot, paying
+// both channels' side info, needing the louder channel); the greedy loop:
+// each step every eligible slot's cost and gain = need - snr[class], ok =
+// class + 1 < ncls, gain > -60, spent + cost <= budget; a warp argmax over
+// the flat channel-major index ch * sblimit + sb picks the largest gain,
+// the lowest index on a tie (numpy's argmax); it stops when no slot is ok.
+// Then the quantisation clip(floor(((s / sf) * n + n - 1) * 0.5 + 0.5), 0,
+// n - 1) with an IEEE division by sf (the reference's / 2 is the multiply
+// by 0.5, the same correctly rounded value), and the transmitted
+// allocation (channel 1 repeats channel 0 at joint subbands).
 // K3, a warp per (stream, frame), lane = subband: the frame's bytes in
 //   pack_frame's field order: header with the frame's padding bit; nbal
 //   allocation bits a (sb, ch < C, or 1 at joint subbands); 2-bit scfsi a
@@ -37,22 +36,29 @@
 //   frame end is dropped (pack_frame's BitWriter drops it; the budget
 //   keeps every encoded frame inside).
 //
-// What bounds them on this card: bytes. K2 reads S (9,216 bytes a frame and
-// channel) and writes 2.6 KB of codes and side info; a frame's greedy loop
-// is a few hundred warp steps of integer and f64 compares. K3 reads the
-// codes and side info and writes the frames (~0.6 KB each at the AHX bank).
+// What bounds them on this card: bytes. K2 reads S once (9,216 bytes a
+// frame and channel) and the part peaks, and writes 2.6 KB of codes and
+// side info; a frame's greedy loop is a few tens of warp steps of integer
+// and f64 compares. K3 reads the codes and side info and writes the frames
+// (~0.6 KB each at the AHX bank).
 //
-// Design: K2 pass 2 stages each frame's S rows once into shared memory
-// with 16-byte loads (each (stream, channel, frame) block of S is 9,216
-// contiguous bytes) and the class tables once a CTA; the lanes read their
-// own column from there for the peaks, the mid signal and the
-// quantisation. The argmax is a 5-step xor butterfly of (gain, index)
-// pairs, so every lane ends with the same pick; the chosen slot's cost is
-// a shuffle from its lane. K3 stages the frame's codes with 16-byte loads,
-// lays each of the four sections out with one exclusive warp scan of the
-// lanes' field widths (a lane's two channel slots in order), ORs each field
-// into a zeroed big-endian word buffer in shared memory and writes the
-// frame's bytes out, coalesced, at its offset.
+// Design: K2 keeps no S in shared memory for the loop: a CTA of 8 warps
+// holds the class tables and scalefactors (9 KB), so many frames are in
+// flight an SM to hide the loop's shuffle chain and the divisions. S is
+// streamed once, for the quantisation, through a per-warp ring of one
+// 12-row part (3 KB; both channels' in a joint configuration, whose
+// channel 0 quantises the mid signal at joint subbands) filled with
+// 16-byte cp.async copies: the first part is in flight through the
+// prologue and the loop, each next one through the current one's
+// divisions. Joint configurations also read their joint subbands' S
+// columns before the loop for the mid signal's part peaks. The argmax is a
+// 5-step xor butterfly of (gain, index) pairs, so every lane ends with the
+// same pick; the chosen slot's cost is a shuffle from its lane. K3 stages
+// the frame's codes with 16-byte loads, lays each of the four sections out
+// with one exclusive warp scan of the lanes' field widths (a lane's two
+// channel slots in order), ORs each field into a zeroed big-endian word
+// buffer in shared memory and writes the frame's bytes out, coalesced, at
+// its offset.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -61,8 +67,11 @@
 namespace {
 
 constexpr unsigned kFull = 0xFFFFFFFFu;
-constexpr int kWarps = 4;            // frames (warps) a CTA
+constexpr int kWarps = 4;            // frames (warps) a K3 CTA
+constexpr int kAllocWarps = 8;       // frames (warps) a K2 CTA
 constexpr int kRows = 36;            // subband rows a frame
+constexpr int kPartRows = 12;        // rows a scalefactor part
+constexpr int kPart = kPartRows * 32;  // doubles of one part of one channel
 constexpr int kClasses = 16;
 constexpr int kMaxFrame = 1729;      // largest Layer II frame: 384 kbps, 32 kHz
 constexpr int kWords = (kMaxFrame + 3) / 4 + 1;
@@ -71,12 +80,20 @@ constexpr int kWords = (kMaxFrame + 3) / 4 + 1;
 constexpr int kBitsOff = 32 * kClasses;
 constexpr int kNclsOff = kBitsOff + 32 * (kClasses + 1);
 constexpr int kItab = kNclsOff + 32;
+// K2's shared memory, in doubles: itab, snr [32][16], the 63 scalefactors
+// (and one more), then a ring per warp
+constexpr int kSnrOff = kItab / 2;
+constexpr int kSfOff = kSnrOff + 32 * kClasses;
+constexpr int kRingOff = kSfOff + 64;
 
-__device__ __forceinline__ int sf_index(double peak) {
+// count of sf[i] >= peak - 1e-12 over the strictly decreasing sf[0..62],
+// less one, floored at 0: the reference's count, found by bisection
+__device__ __forceinline__ int sf_index(const double* sf, double peak) {
   const double thr = __dsub_rn(peak, 1e-12);
   int cnt = 0;
-#pragma unroll 9
-  for (int i = 0; i < 63; ++i) cnt += kMp2Sf[i] >= thr;
+#pragma unroll
+  for (int step = 32; step > 0; step >>= 1)
+    if (cnt + step <= 63 && sf[cnt + step - 1] >= thr) cnt += step;
   return (cnt > 1 ? cnt : 1) - 1;
 }
 
@@ -89,112 +106,129 @@ __device__ __forceinline__ int sf_bits(int s) {
   return s == 2 ? 6 : (s == 0 ? 18 : 12);
 }
 
-// copy n16 16-byte chunks from global to shared, the warp's lanes in turn
-__device__ __forceinline__ void stage16(double* dst, const double* src,
-                                        int n16, int lane) {
-  const int4* s = reinterpret_cast<const int4*>(src);
-  int4* d = reinterpret_cast<int4*>(dst);
-  for (int i = lane; i < n16; i += 32) d[i] = __ldg(s + i);
+__device__ __forceinline__ void cp_async16(double* dst, const double* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
 }
 
-__global__ void __launch_bounds__(kWarps * 32)
-    mp2_allocate_kernel(int pass, const double* __restrict__ S, int F, int C,
-                        long long n_frames, int sblimit, int bound, int joint,
+// one part (12 rows, 3,072 contiguous bytes) into the ring, the warp's
+// lanes in turn, as one group
+__device__ __forceinline__ void fetch_part(double* ring, const double* src,
+                                           int lane) {
+#pragma unroll
+  for (int i = lane; i < kPart / 2; i += 32)
+    cp_async16(ring + 2 * i, src + 2 * i);
+}
+
+__device__ __forceinline__ void commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+template <int C, bool kJoint>
+__global__ void __launch_bounds__(kAllocWarps * 32, 4)
+    mp2_allocate_kernel(const double* __restrict__ S,
+                        const double* __restrict__ part_peaks, int F,
+                        long long n_frames, int sblimit, int bound,
                         const double* __restrict__ need_db,
                         const int* __restrict__ budgets,
                         const int* __restrict__ itab,
                         const double* __restrict__ snr_tab,
-                        double* __restrict__ peaks, uint8_t* __restrict__ alloc,
+                        uint8_t* __restrict__ alloc,
                         uint8_t* __restrict__ scfsi,
                         uint8_t* __restrict__ sfidx,
                         uint16_t* __restrict__ codes) {
+  constexpr int kRing = kJoint ? 2 * kPart : kPart;  // the warp's ring
   extern __shared__ double smem[];
+  int* tab = reinterpret_cast<int*>(smem);
+  double* snr = smem + kSnrOff;
+  double* sfs = smem + kSfOff;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long long gid = (long long)blockIdx.x * kWarps + warp;
+  double* ring = smem + kRingOff + warp * kRing;
+  const long long gid = (long long)blockIdx.x * kAllocWarps + warp;
   const bool live_frame = gid < n_frames;
   const long long b = gid / F;
   const int f = (int)(gid - b * F);
-  if (pass == 1) {
-    if (!live_frame) return;
-    for (int c = 0; c < C; ++c) {
-      const double* col = S + (((b * C + c) * F + f) * kRows) * 32 + lane;
-      double m = fabs(col[0]);
-#pragma unroll 4
-      for (int r = 1; r < kRows; ++r) {
-        const double v = fabs(col[r * 32]);
-        m = v > m ? v : m;
-      }
-      peaks[((b * F + f) * C + c) * 32 + lane] = m;
-    }
-    return;
+  const long long T = (long long)F * kRows;
+  // rows 12p .. 12p + 11 of channel c of this frame
+  auto part_of = [&](int c, int p) {
+    return S + ((b * C + c) * T + f * kRows + kPartRows * p) * 32;
+  };
+  // the quantisation's first block (channel 0, part 0; both channels' in a
+  // joint configuration) is in flight through the prologue and the loop
+  if (live_frame) {
+    fetch_part(ring, part_of(0, 0), lane);
+    if (kJoint) fetch_part(ring + kPart, part_of(1, 0), lane);
+    commit();
   }
-  // class tables, once a CTA
-  int* tab = reinterpret_cast<int*>(smem);
-  double* snr = smem + (kItab + 1) / 2;
-  double* sw = snr + 32 * kClasses + warp * C * kRows * 32;  // this frame's S
-  for (int i = threadIdx.x; i < kItab; i += kWarps * 32) tab[i] = itab[i];
-  for (int i = threadIdx.x; i < 32 * kClasses; i += kWarps * 32)
+  for (int i = threadIdx.x; i < kItab; i += kAllocWarps * 32)
+    tab[i] = itab[i];
+  for (int i = threadIdx.x; i < 32 * kClasses; i += kAllocWarps * 32)
     snr[i] = snr_tab[i];
-  if (live_frame)
-    for (int c = 0; c < C; ++c)
-      stage16(sw + c * kRows * 32, S + ((b * C + c) * F + f) * kRows * 32,
-              kRows * 32 / 2, lane);
+  for (int i = threadIdx.x; i < 64; i += kAllocWarps * 32)
+    sfs[i] = kMp2Sf[i];
   __syncthreads();
   if (!live_frame) return;
 
   const int sb = lane;
   const bool live = sb < sblimit;
-  const bool shared_sb = joint && sb >= bound;     // a joint subband
-  int sfi[2][3], sc[2], fc[2];
-  double nd[2];
-  for (int c = 0; c < C; ++c) {
-    const double* col = sw + c * kRows * 32 + sb;
+  const bool shared_sb = kJoint && sb >= bound;    // a joint subband
+  const long long fc_base = gid * C;
+  int sfi[C][3], sc[C], fc[C];
+  double nd[C];
 #pragma unroll
-    for (int p = 0; p < 3; ++p) {
-      double m = fabs(col[(12 * p) * 32]);
-      for (int r = 1; r < 12; ++r) {
-        const double v = fabs(col[(12 * p + r) * 32]);
-        m = v > m ? v : m;
-      }
-      sfi[c][p] = sf_index(m);
-    }
+  for (int c = 0; c < C; ++c) {
+#pragma unroll
+    for (int p = 0; p < 3; ++p)
+      sfi[c][p] =
+          sf_index(sfs, part_peaks[((fc_base + c) * 3 + p) * 32 + sb]);
     sc[c] = scfsi_of(sfi[c][0], sfi[c][1], sfi[c][2]);
     fc[c] = 2 + sf_bits(sc[c]);
-    nd[c] = need_db[((b * F + f) * C + c) * 32 + sb];
+    nd[c] = need_db[(fc_base + c) * 32 + sb];
   }
   int sfj[3] = {0, 0, 0};
-  if (shared_sb) {
+  if (kJoint && shared_sb && live) {
     // the mid signal's scalefactors; channel 0's slot pays both channels'
     // side info and needs the louder channel
 #pragma unroll
     for (int p = 0; p < 3; ++p) {
+      const double* s0 = part_of(0, p) + sb;
+      const double* s1 = part_of(C - 1, p) + sb;
       double m = 0.0;
-      for (int r = 0; r < 12; ++r) {
-        const int o = (12 * p + r) * 32 + sb;
-        const double v =
-            fabs(__dmul_rn(__dadd_rn(sw[o], sw[kRows * 32 + o]), 0.5));
+#pragma unroll 4
+      for (int r = 0; r < kPartRows; ++r) {
+        const double v = fabs(__dmul_rn(
+            __dadd_rn(__ldg(s0 + r * 32), __ldg(s1 + r * 32)), 0.5));
         m = (r == 0 || v > m) ? v : m;
       }
-      sfj[p] = sf_index(m);
+      sfj[p] = sf_index(sfs, m);
     }
-    fc[0] = 4 + sf_bits(sc[0]) + sf_bits(sc[1]);
-    nd[0] = nd[1] > nd[0] ? nd[1] : nd[0];
+    fc[0] = 4 + sf_bits(sc[0]) + sf_bits(sc[C - 1]);
+    nd[0] = nd[C - 1] > nd[0] ? nd[C - 1] : nd[0];
   }
   const int ncls = live ? tab[kNclsOff + sb] : 0;
   const int* bits = tab + kBitsOff + sb * (kClasses + 1);
   const double* snr_sb = snr + sb * kClasses;
-  int al[2] = {0, 0};
+  int al[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) al[c] = 0;
   int spent = 0;
   const int budget = budgets[f];
   for (;;) {
     double g_best = -__longlong_as_double(0x7FF0000000000000LL);  // -inf
     int i_best = 0x7FFFFFFF;
-    int cost[2] = {0, 0};
+    int cost[C];
+#pragma unroll
     for (int c = 0; c < C; ++c) {
       const int a = al[c];
+      cost[c] = 0;
       if (!live || a + 1 >= ncls || (c == 1 && shared_sb)) continue;
       cost[c] = bits[a + 1] - bits[a] + (a == 0 ? fc[c] : 0);
-      const double gain = __dsub_rn(nd[c], snr_sb[a < ncls - 1 ? a : ncls - 1]);
+      const double gain = __dsub_rn(nd[c], snr_sb[a]);   // a < ncls - 1
       if (gain > -60.0 && spent + cost[c] <= budget && gain > g_best) {
         g_best = gain;              // slot 0 comes first: it wins a tie
         i_best = c * sblimit + sb;
@@ -212,36 +246,58 @@ __global__ void __launch_bounds__(kWarps * 32)
     if (i_best == 0x7FFFFFFF) break;   // no slot is ok (every gain -inf)
     const int c_best = i_best >= sblimit ? 1 : 0;
     const int owner = i_best - c_best * sblimit;
-    spent += __shfl_sync(kFull, cost[c_best], owner);
-    if (sb == owner) al[c_best] += 1;
+    const int pay = __shfl_sync(kFull, C == 2 && c_best ? cost[C - 1]
+                                                        : cost[0], owner);
+    spent += pay;
+    if (sb == owner) {
+      if (c_best) al[C - 1] += 1;
+      else al[0] += 1;
+    }
   }
 
-  // quantisation and the outputs, every byte of this frame's rows
-  const long long fc_base = (b * F + f) * C;
+  // quantisation: each (channel, part) block from the ring, the next one
+  // fetched once the lanes hold this one's values
+#pragma unroll
   for (int c = 0; c < C; ++c) {
     const int n = live ? tab[sb * kClasses + al[c]] : 0;
     const double nf = (double)n;
-    const bool mid = shared_sb && c == 0;
-    const double* col = sw + c * kRows * 32 + sb;
-    uint16_t* out = codes + (fc_base + c) * kRows * 32 + sb;
-    for (int r = 0; r < kRows; ++r) {
-      uint16_t code = 0;
-      if (n > 0) {
-        const int p = r / 12;
-        const double x = mid ? __dmul_rn(__dadd_rn(col[r * 32],
-                                                   col[kRows * 32 + r * 32]),
-                                         0.5)
-                             : col[r * 32];
-        const double sf = kMp2Sf[mid ? sfj[p] : sfi[c][p]];
-        double t = __dmul_rn(__ddiv_rn(x, sf), nf);
-        t = __dsub_rn(__dadd_rn(t, nf), 1.0);
-        t = __dadd_rn(__ddiv_rn(t, 2.0), 0.5);
-        double q = floor(t);
-        q = q > 0.0 ? q : 0.0;
-        q = q < nf - 1.0 ? q : nf - 1.0;
-        code = (uint16_t)q;
+    const bool mid = c == 0 && shared_sb;
+#pragma unroll
+    for (int p = 0; p < 3; ++p) {
+      wait_all();
+      __syncwarp();
+      double x[kPartRows];
+#pragma unroll
+      for (int r = 0; r < kPartRows; ++r) {
+        x[r] = ring[r * 32 + sb];
+        if (kJoint && c == 0 && mid)
+          x[r] = __dmul_rn(__dadd_rn(x[r], ring[kPart + r * 32 + sb]), 0.5);
       }
-      out[r * 32] = code;
+      __syncwarp();
+      const int nc = p == 2 ? c + 1 : c, np = p == 2 ? 0 : p + 1;
+      if (nc < C) {
+        fetch_part(ring, part_of(nc, np), lane);
+        if (kJoint && nc == 0)
+          fetch_part(ring + kPart, part_of(1, np), lane);
+        commit();
+      }
+      const double sf = sfs[mid ? sfj[p] : sfi[c][p]];
+      uint16_t* out =
+          codes + ((fc_base + c) * kRows + kPartRows * p) * 32 + sb;
+#pragma unroll
+      for (int r = 0; r < kPartRows; ++r) {
+        uint16_t code = 0;
+        if (n > 0) {
+          double t = __dmul_rn(__ddiv_rn(x[r], sf), nf);
+          t = __dsub_rn(__dadd_rn(t, nf), 1.0);
+          t = __dadd_rn(__dmul_rn(t, 0.5), 0.5);
+          double q = floor(t);
+          q = q > 0.0 ? q : 0.0;
+          q = q < nf - 1.0 ? q : nf - 1.0;
+          code = (uint16_t)q;
+        }
+        out[r * 32] = code;
+      }
     }
     const int a_tx = (c == 1 && shared_sb) ? al[0] : al[c];
     alloc[(fc_base + c) * 32 + sb] = (uint8_t)(live ? a_tx : 0);
@@ -398,39 +454,64 @@ __global__ void __launch_bounds__(kWarps * 32)
     dst[i] = (uint8_t)(words[i >> 2] >> (24 - 8 * (i & 3)));
 }
 
+template <int C, bool kJoint>
+cudaError_t launch_allocate(const double* S, const double* part_peaks, int F,
+                            long long n_frames, int sblimit, int bound,
+                            const double* need_db, const int* budgets,
+                            const int* itab, const double* snr,
+                            uint8_t* alloc, uint8_t* scfsi, uint8_t* sfidx,
+                            uint16_t* codes, cudaStream_t stream) {
+  const size_t smem =
+      (size_t)(kRingOff + kAllocWarps * (kJoint ? 2 : 1) * kPart) *
+      sizeof(double);
+  cudaError_t e = cudaFuncSetAttribute(
+      mp2_allocate_kernel<C, kJoint>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const long long blocks = (n_frames + kAllocWarps - 1) / kAllocWarps;
+  if (blocks > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
+  mp2_allocate_kernel<C, kJoint><<<(unsigned)blocks, kAllocWarps * 32, smem,
+                                   stream>>>(
+      S, part_peaks, F, n_frames, sblimit, bound, need_db, budgets, itab, snr,
+      alloc, scfsi, sfidx, codes);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-extern "C" int mp2_allocate(int pass, const void* S, int B, int F, int C,
-                            int sblimit, int bound, int joint,
+extern "C" int mp2_allocate(const void* S, const void* part_peaks, int B,
+                            int F, int C, int sblimit, int bound, int joint,
                             const void* need_db, const void* budgets,
-                            const void* itab, const void* snr, void* peaks,
-                            void* alloc, void* scfsi, void* sfidx,
-                            void* codes, void* stream) {
+                            const void* itab, const void* snr, void* alloc,
+                            void* scfsi, void* sfidx, void* codes,
+                            void* stream) {
   if (B < 1 || F < 1 || C < 1 || C > 2 || sblimit < 1 || sblimit > 32 ||
-      bound < 0 || bound > sblimit || (pass != 1 && pass != 2))
+      bound < 0 || bound > sblimit || (joint && C != 2))
     return (int)cudaErrorInvalidValue;
-  // a frame's rows of S are staged with 16-byte loads
+  // S is streamed through the rings with 16-byte copies
   if ((reinterpret_cast<uintptr_t>(S) & 15) != 0)
     return (int)cudaErrorMisalignedAddress;
   const long long n_frames = (long long)B * F;
-  const long long blocks = (n_frames + kWarps - 1) / kWarps;
-  if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
-  size_t smem = 0;
-  if (pass == 2) {
-    smem = (size_t)((kItab + 1) / 2 + 32 * kClasses +
-                    kWarps * C * kRows * 32) * sizeof(double);
-    cudaError_t e = cudaFuncSetAttribute(
-        mp2_allocate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  mp2_allocate_kernel<<<(unsigned)blocks, kWarps * 32, smem,
-                        (cudaStream_t)stream>>>(
-      pass, (const double*)S, F, C, n_frames, sblimit, bound, joint,
-      (const double*)need_db, (const int*)budgets, (const int*)itab,
-      (const double*)snr, (double*)peaks, (uint8_t*)alloc, (uint8_t*)scfsi,
-      (uint8_t*)sfidx, (uint16_t*)codes);
-  return (int)cudaGetLastError();
+  const double* s = (const double*)S;
+  const double* pp = (const double*)part_peaks;
+  const double* nd = (const double*)need_db;
+  const int* bud = (const int*)budgets;
+  const int* it = (const int*)itab;
+  const double* sn = (const double*)snr;
+  uint8_t* al = (uint8_t*)alloc;
+  uint8_t* sc = (uint8_t*)scfsi;
+  uint8_t* sf = (uint8_t*)sfidx;
+  uint16_t* cd = (uint16_t*)codes;
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t e =
+      C == 1 ? launch_allocate<1, false>(s, pp, F, n_frames, sblimit, bound,
+                                         nd, bud, it, sn, al, sc, sf, cd, st)
+      : joint ? launch_allocate<2, true>(s, pp, F, n_frames, sblimit, bound,
+                                         nd, bud, it, sn, al, sc, sf, cd, st)
+              : launch_allocate<2, false>(s, pp, F, n_frames, sblimit, bound,
+                                          nd, bud, it, sn, al, sc, sf, cd,
+                                          st);
+  return (int)e;
 }
 
 extern "C" int mp2_pack(const void* alloc, const void* scfsi,

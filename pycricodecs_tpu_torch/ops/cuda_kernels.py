@@ -11,8 +11,8 @@ Mp2DeviceUnpacker._unpack) and the Layer II synthesis `mp2_synth`
 (csrc/mp2_synth.cu, the fixed-order f64 lane; no Pallas kernel), B4
 `hca_imdct_ola` and B5 `hca_imdct` (csrc/hca_imdct.cu, replace
 pallas_kernels.imdct_ola_pallas and imdct_pallas), and the Layer II
-encoder's K1 `mp2_analysis` (csrc/mp2_analysis.cu), K2 `mp2_allocate` (two
-passes: `mp2_allocate_peaks`, `mp2_allocate`) and K3 `mp2_pack`
+encoder's K1 `mp2_analysis` (csrc/mp2_analysis.cu; the spectra and their
+part and frame peaks), K2 `mp2_allocate` and K3 `mp2_pack`
 (csrc/mp2_encode.cu), which replace the JAX package's numpy host lane of
 the encode (no Pallas kernel).
 The unpack kernels B1/B2 are wrapped in
@@ -42,7 +42,7 @@ MP2_SYNTH_LAUNCHES = 0
 IMDCT_OLA_LAUNCHES = 0
 IMDCT_LAUNCHES = 0
 MP2_ANALYSIS_LAUNCHES = 0
-MP2_ALLOCATE_LAUNCHES = 0          # both passes of K2
+MP2_ALLOCATE_LAUNCHES = 0
 MP2_PACK_LAUNCHES = 0
 
 
@@ -425,74 +425,60 @@ def hca_imdct(spec) -> torch.Tensor:
     return out
 
 
-def mp2_analysis(pcm) -> torch.Tensor:
-    """Kernel K1: PCM i16 [B, C, T * 32] (CUDA) -> subband samples f64
-    [B, C, T, 32]."""
+def mp2_analysis(pcm):
+    """Kernel K1: PCM i16 [B, C, F * 1152] (CUDA) -> (subband samples S f64
+    [B, C, F * 36, 32], part peaks max |S| over each 12-row part f64
+    [B, F, C, 3, 32], frame peaks max |S| over each 36-row frame f64
+    [B, F, C, 32])."""
     global MP2_ANALYSIS_LAUNCHES
-    if pcm.dim() != 3 or pcm.shape[-1] % 32:
-        raise ValueError(f"pcm: expected [B, C, T * 32], got "
-                         f"{tuple(pcm.shape)}")
+    if pcm.dim() != 3 or pcm.shape[-1] % 1152:
+        raise ValueError(f"pcm: expected [B, C, F * 1152] (whole frames), "
+                         f"got {tuple(pcm.shape)}")
     B, C, N = pcm.shape
     check_aligned(pcm, "pcm")
     check_cuda(pcm, "pcm", torch.int16, (B, C, N))
-    out = torch.empty((B, C, N // 32, 32), dtype=torch.float64,
-                      device=pcm.device)
-    if B * C * N == 0:
-        return out
-    rc = _build.load().mp2_analysis(ptr(pcm), B * C, N // 32, ptr(out),
-                                    stream_ptr(pcm))
+    F = N // 1152
+    dev = pcm.device
+    S = torch.empty((B, C, F * 36, 32), dtype=torch.float64, device=dev)
+    part = torch.empty((B, F, C, 3, 32), dtype=torch.float64, device=dev)
+    frame = torch.empty((B, F, C, 32), dtype=torch.float64, device=dev)
+    if B * C * F == 0:
+        return S, part, frame
+    rc = _build.load().mp2_analysis(ptr(pcm), B, C, F * 36, ptr(S),
+                                    ptr(part), ptr(frame), stream_ptr(pcm))
     if rc:
         raise launch_failed("mp2_analysis", rc)
     MP2_ANALYSIS_LAUNCHES += 1
-    return out
+    return S, part, frame
 
 
-def _check_spectra(S) -> tuple:
-    """(B, C, F) of subband samples f64 [B, C, F * 36, 32] (CUDA, 16-byte
-    aligned: K2 stages each frame's rows with 16-byte loads)."""
-    if S.dim() != 4 or S.shape[2] % 36 or S.shape[3] != 32:
-        raise ValueError(f"S: expected [B, C, F * 36, 32], got "
-                         f"{tuple(S.shape)}")
-    B, C, T = S.shape[:3]
-    check_aligned(S, "S")
-    check_cuda(S, "S", torch.float64, (B, C, T, 32))
-    if C not in (1, 2):
-        raise ValueError(f"channels {C} not in (1, 2)")
-    return B, C, T // 36
-
-
-def mp2_allocate_peaks(S) -> torch.Tensor:
-    """Kernel K2, first pass: S f64 [B, C, F * 36, 32] (CUDA) -> max |S|
-    over each frame's rows, f64 [B, F, C, 32]."""
-    global MP2_ALLOCATE_LAUNCHES
-    B, C, F = _check_spectra(S)
-    peaks = torch.empty((B, F, C, 32), dtype=torch.float64, device=S.device)
-    if B * F == 0:
-        return peaks
-    rc = _build.load().mp2_allocate(1, ptr(S), B, F, C, 32, 32, 0, None,
-                                    None, None, None, ptr(peaks), None,
-                                    None, None, None, stream_ptr(S))
-    if rc:
-        raise launch_failed("mp2_allocate", rc)
-    MP2_ALLOCATE_LAUNCHES += 1
-    return peaks
-
-
-def mp2_allocate(S, need_db, budgets, itab, snr, *, sblimit: int,
-                 bound: int, joint: bool):
-    """Kernel K2, second pass: S f64 [B, C, F * 36, 32], need_db f64
+def mp2_allocate(S, part_peaks, need_db, budgets, itab, snr, *,
+                 sblimit: int, bound: int, joint: bool):
+    """Kernel K2: S f64 [B, C, F * 36, 32] (16-byte aligned: streamed with
+    16-byte copies), its part peaks f64 [B, F, C, 3, 32], need_db f64
     [B, F, C, 32], budgets i32 [F], the class tables itab i32 [1088]
     (levels [32, 16], bits [32, 17], ncls [32]) and snr f64 [512] (CUDA)
     -> (alloc u8 [B, F, C, 32], scfsi u8 [B, F, C, 32], sfidx u8
     [B, F, C, 3, 32], codes u16 [B, F, C, 36, 32]); every byte written."""
     global MP2_ALLOCATE_LAUNCHES
-    B, C, F = _check_spectra(S)
+    if S.dim() != 4 or S.shape[2] % 36 or S.shape[3] != 32:
+        raise ValueError(f"S: expected [B, C, F * 36, 32], got "
+                         f"{tuple(S.shape)}")
+    B, C, T = S.shape[:3]
+    F = T // 36
+    check_aligned(S, "S")
+    check_cuda(S, "S", torch.float64, (B, C, T, 32))
+    if C not in (1, 2):
+        raise ValueError(f"channels {C} not in (1, 2)")
+    check_cuda(part_peaks, "part_peaks", torch.float64, (B, F, C, 3, 32))
     check_cuda(need_db, "need_db", torch.float64, (B, F, C, 32))
     check_cuda(budgets, "budgets", torch.int32, (F,))
     check_cuda(itab, "itab", torch.int32, (32 * 16 + 32 * 17 + 32,))
     check_cuda(snr, "snr", torch.float64, (32 * 16,))
     if not 1 <= bound <= sblimit <= 32:
         raise ValueError(f"bound {bound} / sblimit {sblimit} out of range")
+    if joint and C != 2:
+        raise ValueError("joint stereo needs two channels")
     dev = S.device
     alloc = torch.empty((B, F, C, 32), dtype=torch.uint8, device=dev)
     scfsi = torch.empty((B, F, C, 32), dtype=torch.uint8, device=dev)
@@ -501,9 +487,9 @@ def mp2_allocate(S, need_db, budgets, itab, snr, *, sblimit: int,
     if B * F == 0:
         return alloc, scfsi, sfidx, codes
     rc = _build.load().mp2_allocate(
-        2, ptr(S), B, F, C, int(sblimit), int(bound), int(bool(joint)),
-        ptr(need_db), ptr(budgets), ptr(itab), ptr(snr), None, ptr(alloc),
-        ptr(scfsi), ptr(sfidx), ptr(codes), stream_ptr(S))
+        ptr(S), ptr(part_peaks), B, F, C, int(sblimit), int(bound),
+        int(bool(joint)), ptr(need_db), ptr(budgets), ptr(itab), ptr(snr),
+        ptr(alloc), ptr(scfsi), ptr(sfidx), ptr(codes), stream_ptr(S))
     if rc:
         raise launch_failed("mp2_allocate", rc)
     MP2_ALLOCATE_LAUNCHES += 1

@@ -5,22 +5,23 @@ Computes, byte for byte, what the JAX package's f64 host lane computes
 AHX.encode and ahx_encode_batch run by default), for a group of streams of
 one configuration (ops/mp2_encode_host.EncodeConfig):
 
-1. analysis: PCM16 -> subband samples S f64 [B, C, F*36, 32] (kernel K1
-   `mp2_analysis`, twin mp2_kernels.analyze_plain; a fixed summation order,
-   see there);
-2. the frame peaks max |S| over each frame's 36 rows, f64 [B, F, C, 32]
-   (kernel K2 `mp2_allocate`, first pass; twin `frame_peaks_plain`);
-3. on the host, with numpy: need_db = 20 log10(max(peak, 1e-9)). The
-   reference takes numpy's log10; CUDA's float64 log10 differs from it in
-   the last bit on 5.8 % of values (PERF.md §6), and such a bit can
+1. analysis: PCM16 -> subband samples S f64 [B, C, F*36, 32], with the
+   part peaks max |S| over each 12-row part, f64 [B, F, C, 3, 32], and the
+   frame peaks max |S| over each 36-row frame, f64 [B, F, C, 32] (kernel
+   K1 `mp2_analysis`; twins mp2_kernels.analyze_plain, `part_peaks_plain`,
+   `frame_peaks_plain`; a fixed summation order, see analyze_plain; a max
+   is exact in any order);
+2. on the host, with numpy: need_db = 20 log10(max(frame peak, 1e-9)).
+   The reference takes numpy's log10; CUDA's float64 log10 differs from it
+   in the last bit on 5.8 % of values (PERF.md §6), and such a bit can
    flip an allocation tie, so this one transcendental is numpy's on every
    device;
-4. scalefactors, scfsi, the joint-stereo mid signal, the greedy allocation
-   and the quantisation (kernel K2 `mp2_allocate`, second pass; twin
-   `allocate_plain`);
-5. the frames (kernel K3 `mp2_pack`, twin `pack_plain`): every byte of
+3. scalefactors (from the part peaks), scfsi, the joint-stereo mid signal,
+   the greedy allocation and the quantisation (kernel K2 `mp2_allocate`,
+   one pass; twin `allocate_plain`);
+4. the frames (kernel K3 `mp2_pack`, twin `pack_plain`): every byte of
    each frame at its CBR offset, no CRC;
-6. on the host: each stream cut to its own frame count.
+5. on the host: each stream cut to its own frame count.
 
 The JAX package's device encoder (ops/mp2_encode_device.py there) is not
 the reference: it ranks by an f32 proxy and quantises by an f32
@@ -62,10 +63,19 @@ def device_tables(cfg: EncodeConfig, device) -> tuple:
             torch.from_numpy(cfg.snr_tbl.reshape(-1).copy()).to(device))
 
 
-# -- K2 first pass: frame peaks ------------------------------------------------
+# -- K1's peaks ---------------------------------------------------------------
+
+def part_peaks_plain(S: torch.Tensor) -> torch.Tensor:
+    """Twin of K1's part peaks: S f64 [B, C, F*36, 32] -> max |S| over each
+    12-row part, f64 [B, F, C, 3, 32] (models/ahx.py:170's peaks)."""
+    B, C, Tn, _ = S.shape
+    F = Tn // ROWS
+    return S.abs().view(B, C, F, 3, 12, 32).amax(4).permute(0, 2, 1, 3, 4) \
+        .contiguous()
+
 
 def frame_peaks_plain(S: torch.Tensor) -> torch.Tensor:
-    """Twin of K2's first pass: S f64 [B, C, F*36, 32] -> max |S| over each
+    """Twin of K1's frame peaks: S f64 [B, C, F*36, 32] -> max |S| over each
     frame's rows, f64 [B, F, C, 32]."""
     B, C, Tn, _ = S.shape
     F = Tn // ROWS
@@ -73,10 +83,13 @@ def frame_peaks_plain(S: torch.Tensor) -> torch.Tensor:
         .contiguous()
 
 
-def frame_peaks(S: torch.Tensor) -> torch.Tensor:
-    if S.device.type == "cpu":
-        return frame_peaks_plain(S)
-    return cuda_kernels.mp2_allocate_peaks(S)
+def analysis(pcm: torch.Tensor) -> tuple:
+    """PCM16 i16 [B, C, F*1152] -> (S, part peaks, frame peaks): kernel K1
+    on a CUDA tensor, its twins on a CPU tensor."""
+    if pcm.device.type == "cpu":
+        S = mp2_kernels.analyze_plain(pcm)
+        return S, part_peaks_plain(S), frame_peaks_plain(S)
+    return cuda_kernels.mp2_analysis(pcm)
 
 
 def need_db_host(peaks: torch.Tensor) -> torch.Tensor:
@@ -87,7 +100,7 @@ def need_db_host(peaks: torch.Tensor) -> torch.Tensor:
         peaks.device)
 
 
-# -- K2 second pass: allocation and quantisation -------------------------------
+# -- K2: allocation and quantisation -----------------------------------------
 
 def _sf_indices(peak: torch.Tensor, sf63: torch.Tensor) -> torch.Tensor:
     """Tightest scalefactor index with sf >= peak - 1e-12 (int64)."""
@@ -95,12 +108,14 @@ def _sf_indices(peak: torch.Tensor, sf63: torch.Tensor) -> torch.Tensor:
     return cnt.clamp(min=1) - 1
 
 
-def allocate_plain(S: torch.Tensor, need_db: torch.Tensor,
-                   budgets: torch.Tensor, cfg: EncodeConfig):
-    """Twin of K2's second pass: S f64 [B, C, F*36, 32], need_db f64
-    [B, F, C, 32], budgets i32 [F] -> (alloc u8 [B, F, C, 32], scfsi u8
-    [B, F, C, 32], sfidx u8 [B, F, C, 3, 32], codes u16 [B, F, C, 36, 32]),
-    models/ahx.py:170-283's arithmetic, every frame advanced in lockstep."""
+def allocate_plain(S: torch.Tensor, part_peaks: torch.Tensor,
+                   need_db: torch.Tensor, budgets: torch.Tensor,
+                   cfg: EncodeConfig):
+    """Twin of K2: S f64 [B, C, F*36, 32], its part peaks f64
+    [B, F, C, 3, 32], need_db f64 [B, F, C, 32], budgets i32 [F] ->
+    (alloc u8 [B, F, C, 32], scfsi u8 [B, F, C, 32], sfidx u8
+    [B, F, C, 3, 32], codes u16 [B, F, C, 36, 32]), models/ahx.py:170-283's
+    arithmetic, every frame advanced in lockstep."""
     B, C, Tn, _ = S.shape
     F = Tn // ROWS
     N = B * F
@@ -109,8 +124,7 @@ def allocate_plain(S: torch.Tensor, need_db: torch.Tensor,
     sf_t = torch.from_numpy(T.scalefactors()).to(dev)
     Sf = S.view(B, C, F, ROWS, 32).permute(0, 2, 1, 3, 4).reshape(
         N, C, ROWS, 32)
-    peaks = Sf.abs().view(N, C, 3, 12, 32).amax(3)           # [N, C, 3, 32]
-    sfidx = _sf_indices(peaks, sf_t[:63])
+    sfidx = _sf_indices(part_peaks.reshape(N, C, 3, 32), sf_t[:63])
     sf_val = sf_t[sfidx]
     if joint:
         Sj = (Sf[:, 0] + Sf[:, 1]) * 0.5                      # [N, 36, 32]
@@ -159,7 +173,8 @@ def allocate_plain(S: torch.Tensor, need_db: torch.Tensor,
         spent.view(N)[fsel] += cost.reshape(N, C * SB)[fsel, bsel]
         alloc.view(N, C * SB)[fsel, bsel] += 1
 
-    # quantise: codes = clip(floor(((s / sf) * n + n - 1) / 2 + .5), 0, n - 1)
+    # quantise: codes = clip(floor(((s / sf) * n + n - 1) / 2 + .5), 0, n - 1),
+    # the / 2 as K2's * 0.5 (the same correctly rounded value)
     levels_tbl = tb(cfg.levels_tbl[:SB].astype(np.int64))
     nf = levels_tbl[sb_ix, alloc].double()[:, :, None, :]    # [N, C, 1, SB]
     S_q = Sf[..., :SB].clone()
@@ -168,7 +183,7 @@ def allocate_plain(S: torch.Tensor, need_db: torch.Tensor,
         S_q[:, 0, :, bound:] = Sj[:, :, bound:SB]
         sf_src[:, 0, :, bound:] = sf_val_j[:, :, bound:SB]
     sfq = sf_src[:, :, torch.arange(ROWS, device=dev) // 12, :]
-    q = torch.floor(((S_q / sfq) * nf + nf - 1) / 2 + 0.5)
+    q = torch.floor(((S_q / sfq) * nf + nf - 1) * 0.5 + 0.5)
     q = torch.minimum(torch.maximum(q, torch.zeros_like(q)), nf - 1)
     codes = torch.zeros((N, C, ROWS, 32), dtype=torch.int32, device=dev)
     codes[..., :SB] = torch.where(nf > 0, q, 0.0).to(torch.int32)
@@ -181,12 +196,12 @@ def allocate_plain(S: torch.Tensor, need_db: torch.Tensor,
             codes.to(torch.uint16).view(B, F, C, ROWS, 32))
 
 
-def allocate(S, need_db, budgets, cfg: EncodeConfig):
-    """K2's second pass on CUDA tensors, its twin on CPU tensors."""
+def allocate(S, part_peaks, need_db, budgets, cfg: EncodeConfig):
+    """K2 on CUDA tensors, its twin on CPU tensors."""
     if S.device.type == "cpu":
-        return allocate_plain(S, need_db, budgets, cfg)
+        return allocate_plain(S, part_peaks, need_db, budgets, cfg)
     return cuda_kernels.mp2_allocate(
-        S, need_db, budgets, *device_tables(cfg, S.device),
+        S, part_peaks, need_db, budgets, *device_tables(cfg, S.device),
         sblimit=cfg.sblimit, bound=cfg.bound, joint=cfg.joint)
 
 
@@ -331,11 +346,13 @@ def pack(alloc, scfsi, sfidx, codes, cfg: EncodeConfig, pads: np.ndarray,
 # -- the encode ----------------------------------------------------------------
 
 def encode_from_spectra(S: torch.Tensor, cfg: EncodeConfig,
-                        frames: Optional[Sequence[int]] = None
-                        ) -> List[bytes]:
-    """Stages 2-6 on given spectra S f64 [B, C, F*36, 32] (on their
-    device): one Layer II stream per row, cut to `frames[b]` frames
-    (default all F)."""
+                        frames: Optional[Sequence[int]] = None,
+                        peaks: Optional[tuple] = None) -> List[bytes]:
+    """Stages 2-5 on given spectra S f64 [B, C, F*36, 32] (on their
+    device) and their (part, frame) peaks as K1 gives them: one Layer II
+    stream per row, cut to `frames[b]` frames (default all F). Without
+    peaks, spectra on the CPU get them from the twins; spectra on the card
+    take them from K1 (`encode_streams`), never from a plain reduction."""
     B, C, Tn, _ = S.shape
     F = Tn // ROWS
     frames = [F] * B if frames is None else list(frames)
@@ -343,8 +360,14 @@ def encode_from_spectra(S: torch.Tensor, cfg: EncodeConfig,
     offs = frame_offsets(frame_sizes)
     if B * F == 0:
         return [b""] * B
-    need = need_db_host(frame_peaks(S))
-    out = allocate(S, need, torch.from_numpy(budgets).to(S.device), cfg)
+    if peaks is None:
+        if S.device.type != "cpu":
+            raise ValueError("encode_from_spectra: spectra on the card need "
+                             "their peaks from kernel K1 (mp2_analysis)")
+        peaks = (part_peaks_plain(S), frame_peaks_plain(S))
+    part, frame = peaks
+    need = need_db_host(frame)
+    out = allocate(S, part, need, torch.from_numpy(budgets).to(S.device), cfg)
     data = pack(*out, cfg, pads, frame_sizes).cpu().numpy()
     return [data[b, :offs[f]].tobytes() for b, f in enumerate(frames)]
 
@@ -354,4 +377,5 @@ def encode_streams(pcm: torch.Tensor, cfg: EncodeConfig,
     """PCM16 i16 [B, C, F*1152] (each stream's tail zero-padded, on the
     device the work runs on) -> one Layer II stream per row, cut to
     `frames[b]` frames (default all F)."""
-    return encode_from_spectra(mp2_kernels.analyze(pcm), cfg, frames)
+    S, part, frame = analysis(pcm)
+    return encode_from_spectra(S, cfg, frames, peaks=(part, frame))

@@ -71,8 +71,10 @@ def synthesize_plain(codes: torch.Tensor, levels: torch.Tensor,
 
 
 def analyze_plain(pcm: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch twin of mp2_analysis: PCM i16 [B, C, N], N a multiple
-    of 32 -> subband samples f64 [B, C, N / 32, 32]."""
+    """Plain PyTorch twin of mp2_analysis's spectra: PCM i16 [B, C, N], N a
+    multiple of 32 -> subband samples f64 [B, C, N / 32, 32] (the kernel
+    takes whole frames, N a multiple of 1152; the peaks' twins are in
+    mp2_encode_device)."""
     B, C, N = pcm.shape
     Tn = N // 32
     dev = pcm.device
@@ -92,14 +94,6 @@ def analyze_plain(pcm: torch.Tensor) -> torch.Tensor:
     for q in range(1, 64):
         S = S + Y[..., q:q + 1] * M[:, q]                    # [B, C, T, 32]
     return S
-
-
-def analyze(pcm: torch.Tensor) -> torch.Tensor:
-    """The analysis of a batch: mp2_analysis on a CUDA tensor, its twin on
-    a CPU tensor (same arguments and result as analyze_plain)."""
-    if pcm.device.type == "cpu":
-        return analyze_plain(pcm)
-    return cuda_kernels.mp2_analysis(pcm)
 
 
 def mp2_decode_pcm(codes: torch.Tensor, levels: torch.Tensor,

@@ -56,12 +56,12 @@ AHX encode (`ahx_encode_batch`): counterpart of the JAX function of the
 same name with device=False (its f64 host lane), byte for byte. The host
 parses the WAVs and groups them by (channels, sample rate); per group it
 stacks the PCM, each stream zero-padded at its tail to the longest, and
-copies it to the device, which runs the analysis (kernel K1
-`mp2_analysis`), the frame peaks and, after numpy's log10 of them on the
-host, the allocation and quantisation (kernel K2 `mp2_allocate`, two
-passes) and the frame packer (kernel K3 `mp2_pack`); the streams come back,
-each cut to its own frame count, and mono LSF streams get the AHX
-container.
+copies it to the device, which runs the analysis with its part and frame
+peaks (kernel K1 `mp2_analysis`) and, after numpy's log10 of the frame
+peaks on the host, the allocation and quantisation (kernel K2
+`mp2_allocate`) and the frame packer (kernel K3 `mp2_pack`); the streams
+come back, each cut to its own frame count, and mono LSF streams get the
+AHX container.
 
 Banks (`decode_awb`, `decode_acb`): counterparts of the JAX functions of the
 same names. The host reads the AFS2 bank (an ACB's embedded one, or the
@@ -985,11 +985,13 @@ def ahx_encode_batch(wavs: Sequence[bytes],
 # AWB / ACB banks
 # ---------------------------------------------------------------------------
 
-def decode_awb(awb_or_bytes, key: int = 0, decode_non_hca: bool = True, *,
+def decode_awb(awb_or_bytes, key: int = 0, *, decode_non_hca: bool = True,
                device="cuda") -> List[bytes]:
     """Decode every member of an AWB (AFS2) bank on `device`; returns one
     bytes object per member, byte-equal to pycricodecs_tpu.parallel.
-    decode_awb.
+    decode_awb. `decode_non_hca` is keyword-only: the JAX function's third
+    positional parameter is its mesh, so a positional third argument
+    raises TypeError here instead of turning the non-HCA decode off.
 
     Members route by their first bytes, as in the JAX package:
     - HCA (`HCA\\0`, or the masked `\\xC8\\xC3\\xC1\\0`): one decode_batch

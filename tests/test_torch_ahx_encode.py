@@ -8,10 +8,13 @@ default):
     summation order; measured at most 1.4e-16, PERF.md);
 (b) the spectra injection: the JAX `analyze_fast` output, recorded by a
     monkeypatch that wraps it, fed through the port's
-    `encode_from_spectra` gives encode_mp2's bytes on every configuration
-    (mono LSF 16/22.05/24 kHz, MPEG-1 stereo 44.1 kHz 192 kbps, joint
-    bounds 4/8/12/16): the stages after the analysis are exact whatever
-    the analysis rounding;
+    `encode_from_spectra` with its part and frame peaks (as K1 gives them
+    with the spectra), and without them (the CPU twins take them), gives
+    encode_mp2's bytes on every configuration (mono LSF 16/22.05/24 kHz,
+    MPEG-1 stereo 44.1 kHz 192 kbps, joint bounds 4/8/12/16): the stages
+    after the analysis are exact whatever the analysis rounding; spectra
+    off the CPU without their peaks are refused (K1 gives them on the
+    card, never a plain reduction);
 (c) whole streams: `AHX.encode`, `encode_mp2` and
     `ahx_encode_batch(device="cpu")` give each AHX fixture's recorded
     stream_sha256 (the PCM rebuilt as tools/make_torch_port_fixtures.py
@@ -134,8 +137,18 @@ def test_stages_after_the_analysis_are_exact_given_the_jax_spectra(
     (S,) = recorded
     cfg = EH.configure(pcm.shape[0], rate, kw.get("bitrate_kbps"),
                        kw.get("joint_bound"))
-    got = E.encode_from_spectra(torch.from_numpy(S)[None], cfg)[0]
+    S_t = torch.from_numpy(S)[None]
+    peaks = (E.part_peaks_plain(S_t), E.frame_peaks_plain(S_t))
+    got = E.encode_from_spectra(S_t, cfg, peaks=peaks)[0]
     assert got == ref
+    assert E.encode_from_spectra(S_t, cfg)[0] == ref
+
+
+def test_spectra_off_the_cpu_need_their_peaks():
+    cfg = EH.configure(1, 22050, 96)
+    S = torch.empty((1, 1, 72, 32), dtype=torch.float64, device="meta")
+    with pytest.raises(ValueError, match="peaks from kernel K1"):
+        E.encode_from_spectra(S, cfg)
 
 
 # -- (c) whole streams -------------------------------------------------------------

@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from pycricodecs_tpu import parallel as jax_parallel
+from pycricodecs_tpu.containers.acb import ACB as JaxACB
 from pycricodecs_tpu.containers.acb import ACBBuilder
 from pycricodecs_tpu.containers.awb import build_afs2 as jax_build_afs2
 from pycricodecs_tpu.models import adx as jax_adx
@@ -85,6 +86,25 @@ def test_mixed_acb_exercises_the_host_arithmetic(mixed):
     loose = mixed["members"][MIXED.index("adx_non_strict")]
     with pytest.raises(ValueError, match="Criware"):
         port.ADX.decode(loose, device="cpu")
+
+
+def test_decode_awb_refuses_a_positional_third_argument():
+    """The JAX decode_awb's third positional parameter is its mesh, so the
+    meshless JAX call decode_awb(awb, 0, None) would turn the port's
+    non-HCA decode off; the port takes decode_non_hca by keyword only."""
+    with pytest.raises(TypeError):
+        port.decode_awb(ACB(BLOBS["mixed"]).awb, 0, None, device="cpu")
+    with pytest.raises(TypeError):
+        port.decode_awb(ACB(BLOBS["mixed"]).awb, 0, False, device="cpu")
+
+
+@pytest.mark.parametrize("kw", [{}, dict(decode_non_hca=False)],
+                         ids=["default", "no_non_hca"])
+def test_decode_awb_keyword_calls_equal_the_meshless_jax_calls(mixed, kw):
+    got = port.decode_awb(ACB(BLOBS["mixed"]).awb, 0, device="cpu", **kw)
+    want = jax_parallel.decode_awb(JaxACB(BLOBS["mixed"]).awb, 0, None, **kw)
+    assert got == want
+    assert got == (mixed["jax"] if not kw else mixed["port_raw"])
 
 
 def test_subkey_awb_equals_jax():

@@ -3,18 +3,29 @@ the CPU: numpy models.
 
 K2 (pycricodecs_tpu_torch/csrc/mp2_encode.cu) gives each (stream, frame)
 one warp, lane = subband, a slot per channel (for C = 2 the lane's (sb, 0)
-and (sb, 1)). Each greedy step, a lane offers its best ok slot (slot 0
+and (sb, 1)), and reads K1's part peaks, need_db and S. A lane's
+scalefactor index is the count of scalefactors >= peak - 1e-12 less one,
+found by bisection over the 63 strictly decreasing scalefactors (held here
+to the reference's count on every scalefactor, its neighbours one ulp
+away, and random peaks); at joint subbands the mid signal's part peaks
+come from S. Each greedy step, a lane offers its best ok slot (slot 0
 first, so it wins a tie) as (gain, flat index ch * sblimit + sb); a 5-step
 xor butterfly keeps the larger gain, the lower index on a tie, so every
 lane ends with numpy's argmax (its first maximum); the step stops when no
 lane offers one (every gain -inf); the chosen slot's cost comes from its
-lane by a shuffle. The model runs those steps lane by lane in numpy (the
-butterfly as its 5 rounds of partner exchanges) on its own reading of
-models/ahx.py's arithmetic and is held byte-equal to the twin
-`allocate_plain` (alloc, scfsi, sfidx, codes) on analysed random signals of
-mono, stereo and joint bounds 4-16 and every allocation table; the
-butterfly alone is held to np.argmax on random gains full of ties and
--inf.
+lane by a shuffle. The quantisation reads S one (channel, 12-row part)
+block at a time from a per-warp ring (channel 0's block holds channel 1's
+rows beside it in a joint configuration, for the mid signal) and takes
+((s / sf) * n + n - 1) * 0.5 + 0.5, the reference's / 2 as a multiply. The
+model runs those steps lane by lane in numpy (the butterfly as its 5
+rounds of partner exchanges, the ring's blocks in the kernel's fetch
+order) on its own reading of models/ahx.py's arithmetic and is held
+byte-equal to the twin `allocate_plain` (alloc, scfsi, sfidx, codes) on
+analysed random signals of mono, stereo and joint bounds 4-16 and every
+allocation table, and, fed the JAX `analyze_fast` spectra of an
+encode_mp2 call (recorded by a monkeypatch), packed by the twin, to that
+call's bytes; the butterfly alone is held to np.argmax on random gains
+full of ties and -inf.
 
 K3 gives each frame one warp, lane = subband: the header from lane 0, and
 each of the four sections laid out by one exclusive warp scan of the lanes'
@@ -31,7 +42,9 @@ import numpy as np
 import pytest
 import torch
 
+from pycricodecs_tpu.models import ahx as jax_ahx
 from pycricodecs_tpu.ops import mp2_frame as jax_frame
+from pycricodecs_tpu.ops import mp2_kernels as jax_kernels
 from pycricodecs_tpu_torch.ops import mp2_encode_device as E
 from pycricodecs_tpu_torch.ops import mp2_encode_host as EH
 from pycricodecs_tpu_torch.ops import mp2_kernels as MK
@@ -85,28 +98,45 @@ def test_butterfly_is_numpys_first_argmax(C, sblimit):
             assert iw[0] == 0x7FFFFFFF
 
 
-def k2_model(Sf, need, budget, cfg):
-    """One frame: Sf f64 [C, 36, 32], need f64 [C, 32], budget -> (alloc
-    as transmitted [C, 32], scfsi [C, 32], sfidx [C, 3, 32], codes
-    [C, 36, 32]), lane by lane as the kernel orders it."""
+def sf_index(peak):
+    """K2's bisection: the count of SF[0..62] >= peak - 1e-12, less one,
+    floored at 0 (peak [32] -> [32])."""
+    thr = peak - 1e-12
+    cnt = np.zeros(peak.shape, np.int64)
+    for step in (32, 16, 8, 4, 2, 1):
+        probe = np.minimum(cnt + step - 1, 62)
+        cnt = np.where((cnt + step <= 63) & (SF[probe] >= thr), cnt + step,
+                       cnt)
+    return np.maximum(cnt, 1) - 1
+
+
+def ring_blocks(C, joint):
+    """The quantisation's blocks in K2's fetch order: (channel, part, rows
+    of S the ring holds, as (channel, first row) pairs)."""
+    return [(c, p, [(c, 12 * p)] + ([(1, 12 * p)] if joint and c == 0
+                                    else []))
+            for c in range(C) for p in range(3)]
+
+
+def k2_model(Sf, part, need, budget, cfg):
+    """One frame: Sf f64 [C, 36, 32], K1's part peaks f64 [C, 3, 32], need
+    f64 [C, 32], budget -> (alloc as transmitted [C, 32], scfsi [C, 32],
+    sfidx [C, 3, 32], codes [C, 36, 32]), lane by lane as the kernel
+    orders it."""
     C = Sf.shape[0]
     SB, bound, joint = cfg.sblimit, cfg.bound, cfg.joint
     lanes = np.arange(32)
     live = lanes < SB
     shared = joint & (lanes >= bound)
 
-    def sf_index(peak):
-        cnt = (SF[None, :63] >= (peak - 1e-12)[:, None]).sum(1)
-        return np.maximum(cnt, 1) - 1
-
-    sfi = np.stack([np.stack([sf_index(np.abs(Sf[c, 12 * p:12 * p + 12])
-                                       .max(0)) for p in range(3)])
+    sfi = np.stack([np.stack([sf_index(part[c, p]) for p in range(3)])
                     for c in range(C)])                          # [C, 3, 32]
     e01, e12 = sfi[:, 0] == sfi[:, 1], sfi[:, 1] == sfi[:, 2]
     sc = np.where(e01, np.where(e12, 2, 1), np.where(e12, 3, 0))
     sfb = np.where(sc == 2, 6, np.where(sc == 0, 18, 12))
     fc = 2 + sfb
     nd = need.copy()
+    sfj = np.zeros((3, 32), np.int64)
     if joint:
         mid = (Sf[0] + Sf[1]) * 0.5
         sfj = np.stack([sf_index(np.abs(mid[12 * p:12 * p + 12]).max(0))
@@ -129,7 +159,7 @@ def k2_model(Sf, need, budget, cfg):
                     continue
                 cost[c, sb] = (cfg.bits_tbl[sb, a + 1] - cfg.bits_tbl[sb, a]
                                + (fc[c, sb] if a == 0 else 0))
-                gain = nd[c, sb] - cfg.snr_tbl[sb, min(a, ncls[sb] - 1)]
+                gain = nd[c, sb] - cfg.snr_tbl[sb, a]        # a < ncls - 1
                 if gain > -60.0 and spent + cost[c, sb] <= budget and \
                         gain > g[sb]:
                     g[sb], i[sb] = gain, c * SB + sb
@@ -140,21 +170,36 @@ def k2_model(Sf, need, budget, cfg):
         spent += cost[c_b, owner]            # the shuffle from the owner lane
         al[c_b, owner] += 1
     codes = np.zeros((C, 36, 32), np.uint16)
-    for c in range(C):
+    for c, p, held in ring_blocks(C, joint):
+        ring = np.concatenate([Sf[ch, r0:r0 + 12] for ch, r0 in held])
         n = np.where(live, cfg.levels_tbl[lanes, al[c]], 0).astype(float)
-        for r in range(36):
-            p = r // 12
-            x = np.where(shared & (c == 0), (Sf[0, r] + Sf[-1, r]) * 0.5,
-                         Sf[c, r])
-            sf = SF[np.where(shared & (c == 0), sfj[p] if joint else 0,
-                             sfi[c, p])]
-            t = ((x / sf) * n + n - 1.0) / 2.0 + 0.5
-            q = np.minimum(np.maximum(np.floor(t), 0.0), n - 1.0)
-            codes[c, r] = np.where(n > 0, q, 0.0).astype(np.uint16)
+        mid = shared & (c == 0)
+        x = np.where(mid, (ring[:12] + ring[12:24]) * 0.5, ring[:12]) \
+            if len(held) == 2 else ring[:12]
+        sf = SF[np.where(mid, sfj[p], sfi[c, p])]
+        t = ((x / sf) * n + n - 1.0) * 0.5 + 0.5
+        q = np.minimum(np.maximum(np.floor(t), 0.0), n - 1.0)
+        codes[c, 12 * p:12 * p + 12] = np.where(n > 0, q, 0.0).astype(
+            np.uint16)
     alloc = np.where(live, al, 0)
     if joint:
         alloc[1] = np.where(shared, alloc[0], alloc[1])
     return alloc, sc, sfi, codes
+
+
+def test_sf_index_bisection_is_the_reference_count():
+    sf = SF[:63]
+    ulp = np.spacing(sf)
+    probes = np.concatenate([
+        sf, sf + 1e-12, sf + 1e-12 + ulp, sf + 1e-12 - ulp, sf - ulp,
+        sf + ulp, [0.0, 1e-300, 5e-7, 2.0, 2.5, 1e6],
+        np.exp(np.random.default_rng(3).uniform(np.log(1e-8), np.log(4.0),
+                                                20000))])
+    for chunk in np.array_split(probes, 1 + probes.size // 32):
+        peak = np.zeros(32)
+        peak[:chunk.size] = chunk
+        np.testing.assert_array_equal(sf_index(peak),
+                                      jax_ahx._sf_indices(peak))
 
 
 @pytest.mark.parametrize("cfg_key", CONFIGS, ids=IDS)
@@ -172,18 +217,59 @@ def test_k2_model_equals_allocate_plain(cfg_key):
     pcm[0, :, n // 2:] = 0.0
     pcm = np.clip(np.round(pcm * 32767), -32768, 32767).astype(np.int16)
     S = MK.analyze_plain(torch.from_numpy(pcm))
+    part = E.part_peaks_plain(S)
     need = E.need_db_host(E.frame_peaks_plain(S))
     _, _, budgets = cfg.frame_plan(F)
-    got = E.allocate_plain(S, need, torch.from_numpy(budgets), cfg)
+    got = E.allocate_plain(S, part, need, torch.from_numpy(budgets), cfg)
     Sn = S.numpy().reshape(B, C, F, 36, 32)
     for b in range(B):
         for f in range(F):
-            want = k2_model(Sn[b, :, f], need[b, f].numpy(), budgets[f], cfg)
+            want = k2_model(Sn[b, :, f], part[b, f].numpy(),
+                            need[b, f].numpy(), budgets[f], cfg)
             for name, g, w in zip(("alloc", "scfsi", "sfidx", "codes"), got,
                                   want):
                 np.testing.assert_array_equal(
                     g[b, f].numpy().astype(np.int64), w.astype(np.int64),
                     err_msg=f"{name} stream {b} frame {f}")
+
+
+@pytest.mark.parametrize("cfg_key", CONFIGS, ids=IDS)
+def test_k2_model_on_the_jax_spectra_gives_encode_mp2s_bytes(cfg_key,
+                                                             monkeypatch):
+    C, rate, kbps, jb = cfg_key
+    cfg = EH.configure(C, rate, kbps, jb)
+    rng = np.random.default_rng(kbps * 3 + C)
+    n = 3 * 1152 - 100
+    t = np.arange(n)
+    pcm = np.stack([
+        rng.uniform(0.1, 0.7) * np.sin(2 * np.pi * rng.uniform(0.002, 0.4) * t)
+        + rng.uniform(0, 0.2) * rng.standard_normal(n) for _ in range(C)])
+    pcm = np.clip(np.round(pcm * 32767), -32768, 32767).astype(np.int16)
+    recorded = []
+    analyze = jax_kernels.analyze_fast
+
+    def record(x):
+        recorded.append(analyze(x))
+        return recorded[-1]
+
+    monkeypatch.setattr(jax_kernels, "analyze_fast", record)
+    ref = jax_ahx.encode_mp2(pcm if C == 2 else pcm[0], rate,
+                             bitrate_kbps=kbps, joint_bound=jb)
+    S = torch.from_numpy(recorded[0])[None]                   # [1, C, T, 32]
+    F = S.shape[2] // 36
+    part = E.part_peaks_plain(S)
+    need = E.need_db_host(E.frame_peaks_plain(S))
+    pads, sizes, budgets = cfg.frame_plan(F)
+    Sn = S.numpy().reshape(C, F, 36, 32)
+    frames = [k2_model(Sn[:, f], part[0, f].numpy(), need[0, f].numpy(),
+                       budgets[f], cfg) for f in range(F)]
+    out = [torch.from_numpy(np.stack([fr[k] for fr in frames]).astype(
+        np.uint8 if k < 3 else np.uint16))[None] for k in range(4)]
+    twin = E.allocate_plain(S, part, need, torch.from_numpy(budgets), cfg)
+    for name, a, b in zip(("alloc", "scfsi", "sfidx", "codes"), out, twin):
+        assert torch.equal(a, b), name
+    got = E.pack_plain(*out, cfg, torch.from_numpy(pads), sizes)
+    assert got.numpy()[0].tobytes() == ref
 
 
 # -- K3 ---------------------------------------------------------------------------

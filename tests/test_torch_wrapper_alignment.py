@@ -5,8 +5,9 @@ launch, with a ValueError that names the input.
 16-bit pairs (8-byte alignment asked of all three), B6 `hca_mdct` stages
 PCM with 16-byte copies, B10 `mp2_unpack` stages frames with 16-byte
 copies from 16-byte boundaries; of the Layer II encoder's kernels, K1
-`mp2_analysis` stages PCM in 16-byte chunks, K2 `mp2_allocate` (both
-passes) a frame's rows of S and K3 `mp2_pack` a frame's codes with 16-byte
+`mp2_analysis` (which now gives the peaks beside the spectra) stages PCM
+in 16-byte chunks, K2 `mp2_allocate` streams S through its rings with
+16-byte copies and K3 `mp2_pack` stages a frame's codes with 16-byte
 loads. A view one element into a tensor is off those boundaries; the
 check runs before the device check, so it shows on CPU tensors too, and no
 launch is counted.
@@ -65,14 +66,24 @@ def test_mp2_analysis_refuses_misaligned_pcm():
 
 @pytest.mark.parametrize("encode_pass", ["peaks", "allocate"])
 def test_mp2_allocate_refuses_misaligned_spectra(encode_pass):
+    """"peaks": the peaks come from K1, whose PCM (two stereo frames here)
+    it stages in 16-byte chunks, in a view 8 bytes in (8-byte aligned, so
+    an 8-byte check would let it through; the case above is 2 bytes in);
+    "allocate": K2's S."""
     before = _counts()
-    S = torch.zeros(2 * 36 * 32 + 1, dtype=torch.float64)[1:].view(
-        1, 2, 36, 32)
-    with pytest.raises(ValueError, match="S: data is not 16-byte"):
-        if encode_pass == "peaks":
-            K.mp2_allocate_peaks(S)
-        else:
-            K.mp2_allocate(S, torch.zeros((1, 1, 2, 32), dtype=torch.float64),
+    if encode_pass == "peaks":
+        pcm = torch.zeros(2 * 2304 + 4, dtype=torch.int16)[4:].view(
+            1, 2, 2304)
+        assert pcm.data_ptr() % 16 == 8
+        with pytest.raises(ValueError, match="pcm: data is not 16-byte"):
+            K.mp2_analysis(pcm)
+    else:
+        S = torch.zeros(2 * 36 * 32 + 1, dtype=torch.float64)[1:].view(
+            1, 2, 36, 32)
+        with pytest.raises(ValueError, match="S: data is not 16-byte"):
+            K.mp2_allocate(S, torch.zeros((1, 1, 2, 3, 32),
+                                          dtype=torch.float64),
+                           torch.zeros((1, 1, 2, 32), dtype=torch.float64),
                            torch.zeros(1, dtype=torch.int32),
                            torch.zeros(1088, dtype=torch.int32),
                            torch.zeros(512, dtype=torch.float64), sblimit=30,

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Ablations of kernels B3 (`hca_transform`) and `mp2_synth`, on one CUDA
-GPU: where a kernel's time goes, phase by phase.
+"""Ablations of kernels B3 (`hca_transform`), `mp2_synth` and K1
+(`mp2_analysis`), on one CUDA GPU: where a kernel's time goes, phase by
+phase.
 
 Each variant is the kernel's source with one phase switched off by a text
 substitution (the phase runs only when a runtime condition that never
@@ -11,19 +12,35 @@ library; the baseline is the port's own build. Variants:
   spectra staged), `no_copy` (no cp.async of qc, maps and frame rows),
   `no_store` (no PCM store);
 - mp2_synth: `no_dequant`, `no_quotient` (the quotient's reciprocal path
-  replaced by one multiply), `no_matrix`, `no_window`.
+  replaced by one multiply), `no_matrix`, `no_window`;
+- K1: `k1_no_stage` (no PCM widened to doubles; its copies still
+  arrive), `k1_no_fold` (neither half's window fold), `k1_no_matrix`
+  (neither half's matrixing), `k1_no_out` (no S or peaks stored),
+  `k1_matrix_only` (the last three off at once: the matrixing alone),
+  `k1_matrix_y_regs` and `k1_matrix_m_regs` (that, with a q step's Y
+  values, or its matrix values, from registers instead of shared memory:
+  what those loads cost the matrixing).
 A variant's output is wrong by design; only its time is read. Shapes: B3 at
 the HCA bank chunk (the bank's real spectra, and random PNS maps), the
-synthesis at the AHX bank, as tools/time_transform_synth.py. Each variant
+synthesis at the AHX bank, as tools/time_transform_synth.py, K1 at the AHX
+encode bank (256 x 192 frames of the bank PCM). --source limits the run to
+the variants of one source file (and its kernel's baseline). Each variant
 is timed in --rounds rounds (median of --reps CUDA-event runs each), the
 baseline first in every round. Prints one line per variant and round with
-the card's name and power limit, and last one JSON line. No CPU path.
+the card's name and power limit, and last one JSON line. With --sass,
+also the static SASS instruction counts by opcode class (`cuobjdump
+-sass`, as tools/time_transform_synth.py counts them) of the kernel in
+the baseline and in each variant, which show whether ptxas shared or
+dropped instructions of a variant (a phase switched off by a runtime test
+still counts) and whether it spilled. No CPU path.
 
 Run from the repository root:
-    python3 tools/time_kernel_variants.py [--rounds N] [--reps N]
+    python3 tools/time_kernel_variants.py [--rounds N] [--reps N] [--sass]
+        [--source hca_transform.cu|mp2_synth.cu|mp2_analysis.cu]
 """
 import argparse
 import ctypes
+import importlib.util
 import json
 import os
 import subprocess
@@ -35,7 +52,7 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NEVER = "cfg.F < 0"          # B3: a condition that never holds
-NEVER_SYNTH = "F < 0"        # mp2_synth: the same
+NEVER_SYNTH = "F < 0"        # mp2_synth and K1: the same
 VARIANTS = {
     "no_dct": ("hca_transform.cu", [(
         "    dct4_row(myrow, y);",
@@ -65,13 +82,78 @@ VARIANTS = {
     "no_window": ("mp2_synth.cu", [(
         "    window(V, t0, T, o_bc);",
         f"    if ({NEVER_SYNTH}) window(V, t0, T, o_bc);")]),
+    "k1_no_stage": ("mp2_analysis.cu", [(
+        "    // at store e, lane l writes its piece (e + l / 2) % 4\n"
+        "    for (int i = tid; i < kChunks; i += kThreads) {",
+        f"    for (int i = tid; i < ({NEVER_SYNTH} ? kChunks : 0); "
+        "i += kThreads) {")]),
+    "k1_no_fold": ("mp2_analysis.cu", [
+        (f"    fold<{h}>(xs, Yq, warp, lane);",
+         f"    if ({NEVER_SYNTH}) fold<{h}>(xs, Yq, warp, lane);")
+        for h in (0, 1)]),
+    "k1_no_matrix": ("mp2_analysis.cu", [
+        (f"    matrix<{h}>(Yq, Mt, rg, kg, acc);",
+         f"    if ({NEVER_SYNTH}) matrix<{h}>(Yq, Mt, rg, kg, acc);")
+        for h in (0, 1)]),
+    "k1_no_out": ("mp2_analysis.cu", [(
+        "    if (f < F) {\n      double2* dst",
+        f"    if ({NEVER_SYNTH}) {{\n      double2* dst"), (
+        "  if (f < F)\n    frame_peaks[",
+        f"  if ({NEVER_SYNTH})\n    frame_peaks[")]),
 }
+VARIANTS["k1_matrix_only"] = ("mp2_analysis.cu", [
+    sub for name in ("k1_no_stage", "k1_no_fold", "k1_no_out")
+    for sub in VARIANTS[name][1]])
+# the matrixing alone with one operand from registers: each q step's
+# loads of Y (k1_matrix_y_regs) or of Mt (k1_matrix_m_regs) replaced by the
+# first step's values; the other operand is still loaded every step, so
+# every step's products differ and none can be shared (--sass shows the
+# DMUL/DADD counts equal k1_matrix_only's)
+VARIANTS["k1_matrix_y_regs"] = ("mp2_analysis.cu",
+                                VARIANTS["k1_matrix_only"][1] + [(
+    "      const double2 t = yr[qq * kYStride / 2 + v];",
+    "      const double2 t = yr[v];")])
+VARIANTS["k1_matrix_m_regs"] = ("mp2_analysis.cu",
+                                VARIANTS["k1_matrix_only"][1] + [(
+    "    const double2 mv = mc[qq * 16];",
+    "    const double2 mv = mc[0];")])
+#: the entry point and the timed calls of each source's kernel
+ENTRY = {"hca_transform.cu": ("hca_transform", ("b3_ms", "b3_pns_ms")),
+         "mp2_synth.cu": ("mp2_synth", ("synth_ms",)),
+         "mp2_analysis.cu": ("mp2_analysis", ("k1_ms",))}
+#: the kernel (its name in the SASS) of each source
+KERNEL = {"hca_transform.cu": "hca_transform_kernel",
+          "mp2_synth.cu": "mp2_synth_kernel",
+          "mp2_analysis.cu": "mp2_analysis_kernel"}
 
 
-def build_variants(build, gen_dir: str, out_dir: str) -> dict:
-    """name -> ctypes library of each variant (all nvcc runs at once)."""
+def print_sass(base_so: str, libs: dict, sources) -> dict:
+    """Print and return the SASS counts of each source's kernel in the
+    baseline library and in each variant's."""
+    spec = importlib.util.spec_from_file_location(
+        "time_transform_synth",
+        os.path.join(REPO, "tools", "time_transform_synth.py"))
+    tts = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tts)
+    out = {}
+    for src in sources:
+        out[f"baseline {src}"] = tts.sass_counts(
+            base_so, names=(KERNEL[src],)).get(KERNEL[src])
+    for name, lib in libs.items():
+        src = VARIANTS[name][0]
+        out[name] = tts.sass_counts(lib._name, names=(KERNEL[src],)).get(
+            KERNEL[src])
+    for k, v in out.items():
+        print(f"sass {k}: {v}", flush=True)
+    return out
+
+
+def build_variants(build, gen_dir: str, out_dir: str, names) -> dict:
+    """name -> ctypes library of each named variant (all nvcc runs at
+    once)."""
     jobs = {}
-    for name, (src, subs) in VARIANTS.items():
+    for name in names:
+        src, subs = VARIANTS[name]
         with open(os.path.join(build.CSRC_DIR, src)) as f:
             text = f.read()
         for old, new in subs:
@@ -93,8 +175,7 @@ def build_variants(build, gen_dir: str, out_dir: str) -> dict:
         if proc.returncode:
             raise SystemExit(f"nvcc failed for {name}:\n{log}")
         lib = ctypes.CDLL(so)
-        fn = "hca_transform" if "hca_transform" in VARIANTS[name][0] \
-            else "mp2_synth"
+        fn = ENTRY[VARIANTS[name][0]][0]
         getattr(lib, fn).argtypes = build.SIGNATURES[fn]
         getattr(lib, fn).restype = ctypes.c_int
         libs[name] = lib
@@ -105,6 +186,11 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--source", choices=sorted(ENTRY),
+                    help="only this source's variants")
+    ap.add_argument("--sass", action="store_true",
+                    help="SASS instruction counts of the baseline's and "
+                         "each variant's kernel")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("time_kernel_variants: no CUDA GPU")
@@ -121,7 +207,12 @@ def main() -> None:
     card = S.card_line()
     base = _build.load()
     tmp = tempfile.mkdtemp(prefix="variants", dir=str(_build.BUILD_DIR))
-    libs = build_variants(_build, os.path.dirname(str(_build.build())), tmp)
+    names = [n for n, (src, _) in VARIANTS.items()
+             if args.source in (None, src)]
+    libs = build_variants(_build, os.path.dirname(str(_build.build())), tmp,
+                          names)
+    sass = print_sass(str(_build.build()), libs, [
+        s for s in ENTRY if args.source in (None, s)]) if args.sass else None
 
     with open(os.path.join(S.FIXTURES, S.BANK + ".hca"), "rb") as f:
         blob = f.read()
@@ -145,20 +236,27 @@ def main() -> None:
         torch.from_numpy(stack.reshape(Bs * Fs, fs_max)).to(dev), 1)
     bank = (codes.view(Bs, Fs, 1, 36, 32), levels.view(Bs, Fs, 1, 32),
             sfidx.view(Bs, Fs, 1, 3, 32))
+    pcm_bank = signals.ahx_bank_pcm()
+    x = np.zeros((S.BANK_STREAMS, 1, -(-pcm_bank.size // 1152) * 1152),
+                 np.int16)
+    x[:, 0, :pcm_bank.size] = pcm_bank
+    pcm = torch.from_numpy(x).to(dev)
     timed = {
         "b3_ms": lambda: K.hca_decode_transform_batched(*spec, hfr, **cfg),
         "b3_pns_ms": lambda: K.hca_decode_transform_batched(
             *rnd, hfr, noise=noise, **cfg),
         "synth_ms": lambda: cuda_kernels.mp2_synth(*bank),
+        "k1_ms": lambda: cuda_kernels.mp2_analysis(pcm),
     }
-    out = {"card": card, "runs": []}
+    if args.source:
+        timed = {k: timed[k] for k in ENTRY[args.source][1]}
+    out = {"card": card, "runs": [], "sass": sass}
     try:
         for rnd_i in range(args.rounds):
             for name, lib in [("baseline", base), *libs.items()]:
                 _build._lib = lib
-                src = VARIANTS[name][0] if name in VARIANTS else ""
-                keys = [k for k in timed if name == "baseline"
-                        or (k.startswith("b3") == (src == "hca_transform.cu"))]
+                keys = list(timed) if name == "baseline" else \
+                    list(ENTRY[VARIANTS[name][0]][1])
                 r = {k: S.cuda_ms(timed[k], args.reps) for k in keys}
                 out["runs"].append({"round": rnd_i, "variant": name, **r})
                 print(f"[{card}] round {rnd_i} {name}: "
