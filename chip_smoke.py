@@ -153,7 +153,18 @@ package's f64 host lane, the input PCM rebuilt by utils/signals.py):
    random tones, noise and level jumps (a silent tail, a full-scale square
    wave) for 12 configurations (every allocation table, mono, stereo,
    joint bounds 4-16, odd frame counts that end in half of K1's 72-row
-   tile, one frame) and the bank's PCM (256 x 192 frames); how many of
+   tile, one frame) and the bank's PCM (256 x 192 frames); K3 alone
+   against `pack_plain` on random legal K2 outputs K2 never produces (a
+   copy of the CPU tests' generator): stereo 32 kHz 384 kbps (1,728-byte
+   frames), joint bound 4, more frames than the persistent grid has warps
+   and a multiple of no grid of 1-6 CTAs an SM, one frame, and fields
+   past the frame end; each call into memory filled with 0xA5 (a freed
+   poisoned tensor for the wrapper's torch.empty, and the C entry into a
+   0xA5-filled output), so that every byte must be written; K3 from two
+   host threads that take turns, one with the larger frames and one with
+   the smaller of a channel count (1,728 and 627 bytes, 864 and 288), so
+   that no thread's launch lowers the kernel's shared-memory limit under
+   the other's; how many of
    the bank's peaks and of
    1,000,000 log-uniform values torch.log10 on the card gives otherwise
    than np.log10 on the host (need_db is numpy's on the host);
@@ -2243,6 +2254,215 @@ ENCODE_CASES = (
 )
 
 
+# (label, channels, sample rate, kbps, joint bound, streams, frames, fields
+# past the frame end) of K3's checks on random K2 outputs. "Past the grid":
+# more frames than K3's persistent grid has warps on an H100 (132 SMs of 2
+# CTAs of 8 warps for 1,728-byte stereo frames, 4 for mono), and a
+# multiple of no grid of 1-6 such CTAs an SM
+K3_RANDOM_CASES = (
+    ("MPEG-1 stereo 32 kHz 384 kbps (1,728-byte frames), past the grid",
+     2, 32000, 384, None, 2, 1601, False),
+    ("MPEG-1 stereo 32 kHz 384 kbps, one frame", 2, 32000, 384, None, 1, 1,
+     False),
+    ("MPEG-1 joint 4 44.1 kHz 192 kbps", 2, 44100, 192, 4, 3, 5, False),
+    ("LSF mono 22.05 kHz 96 kbps, past the grid", 1, 22050, 96, None, 3,
+     2117, False),
+    ("LSF mono 22.05 kHz 96 kbps, one frame", 1, 22050, 96, None, 1, 1,
+     False),
+    ("LSF mono 16 kHz 32 kbps, fields past the frame end", 1, 16000, 32,
+     None, 2, 9, True),
+    ("MPEG-1 joint 4 44.1 kHz 192 kbps, fields past the frame end", 2,
+     44100, 192, 4, 2, 7, True),
+)
+#: distinct random frames a K3 case draws (tiled over its B x F)
+K3_DRAWN = 257
+
+
+def k3_frame_bits(alloc, scfsi, cfg) -> int:
+    """The bits one frame's fields take ([C, 32] alloc and scfsi); a copy
+    of tests/test_torch_mp2_encode_warp.py's frame_bits."""
+    from pycricodecs_tpu_torch.ops import mp2_encode_device as E
+    gbits, ubits = E.class_bits(cfg)
+    bits = 32 + cfg.nbal_bits
+    for sb in range(cfg.sblimit):
+        for c in range(cfg.channels):
+            a = int(alloc[c, sb])
+            if a:
+                bits += 2 + 6 * (3, 2, 1, 2)[scfsi[c, sb]]
+                if c == 0 or sb < cfg.bound:
+                    bits += 12 * (gbits[sb, a] or 3 * ubits[sb, a])
+    return bits
+
+
+def k3_random_frames(rng, cfg, F, overflow=False):
+    """Random legal K2 outputs [F, ...] for cfg (a copy of
+    tests/test_torch_mp2_encode_warp.py's random_frames): allocations drawn
+    per subband's classes (the alloc as transmitted), dropped at random
+    until the frame's fields fit its smallest size, codes below their
+    class; with overflow, every slot allocated (a class from the upper
+    half of its subband's) and nothing dropped."""
+    C = cfg.channels
+    SB = cfg.sblimit
+    fs_bits = 8 * int(cfg.frame_plan(1)[1][0])
+    alloc = np.zeros((F, C, 32), np.uint8)
+    for sb in range(SB):
+        low = max(1, cfg.ncls[sb] // 2) if overflow else 0
+        alloc[:, :, sb] = rng.integers(low, cfg.ncls[sb], (F, C)) * \
+            (overflow | (rng.random((F, C)) < 0.6))
+    scfsi = rng.integers(0, 4, (F, C, 32)).astype(np.uint8)
+    for f in range(F):
+        if cfg.joint:
+            alloc[f, 1, cfg.bound:SB] = alloc[f, 0, cfg.bound:SB]
+        while not overflow and k3_frame_bits(alloc[f], scfsi[f], cfg) > \
+                fs_bits:
+            sb = rng.integers(0, SB)
+            alloc[f, :, sb] = 0 if sb >= cfg.bound else \
+                alloc[f, :, sb] * (rng.random(C) < 0.5)
+    sfidx = rng.integers(0, 63, (F, C, 3, 32)).astype(np.uint8)
+    lv = cfg.levels_tbl[np.arange(32), alloc.astype(np.int64)]   # [F, C, 32]
+    codes = (rng.random((F, C, 36, 32)) * np.maximum(lv, 1)[:, :, None, :]) \
+        .astype(np.uint16)
+    return alloc, scfsi, sfidx, codes
+
+
+def poisoned_free(n: int):
+    """Empty PyTorch's cache, fill a fresh CUDA tensor of n bytes with
+    0xA5 and free it, so that the next allocation of at most n bytes is
+    likely handed that memory; returns its (start, end) addresses."""
+    torch.cuda.empty_cache()
+    t = torch.full((n,), 0xA5, dtype=torch.uint8, device="cuda")
+    span = (t.data_ptr(), t.data_ptr() + n)
+    torch.cuda.synchronize()
+    del t
+    return span
+
+
+def k3_random_checks(dev, worst: dict) -> None:
+    """K3 alone against `pack_plain` on K3_RANDOM_CASES, through the
+    wrapper into freed poisoned memory and through the C entry into a
+    0xA5-filled output."""
+    from pycricodecs_tpu_torch import _build
+    from pycricodecs_tpu_torch.ops import cuda_kernels
+    from pycricodecs_tpu_torch.ops import mp2_encode_device as E
+    from pycricodecs_tpu_torch.ops import mp2_encode_host
+    rng = np.random.default_rng(17)
+    landed = 0
+    for label, C, rate, kbps, jb, B, F, overflow in K3_RANDOM_CASES:
+        cfg = mp2_encode_host.configure(C, rate, kbps, jb)
+        drawn = k3_random_frames(rng, cfg, min(B * F, K3_DRAWN), overflow)
+        alloc, scfsi, sfidx, codes = (
+            torch.from_numpy(np.resize(x, (B, F) + x.shape[1:])).to(dev)
+            for x in drawn)
+        pads, sizes, _ = cfg.frame_plan(F)
+        offs = E.frame_offsets(sizes)
+        need = max(k3_frame_bits(drawn[0][i], drawn[1][i], cfg)
+                   for i in range(len(drawn[0])))
+        if overflow and need <= 8 * int(sizes.min()):
+            raise AssertionError(f"K3 {label}: no field passes a frame end")
+        pads_d = torch.from_numpy(pads).to(dev)
+        offs_d = torch.from_numpy(offs).to(dev)
+        ctab = E.pack_tables(cfg, dev)
+        kw = dict(sblimit=cfg.sblimit, bound=cfg.bound,
+                  header_base=cfg.header_base, total=int(offs[-1]),
+                  max_frame=int(sizes.max()))
+        twin = E.pack_plain(alloc, scfsi, sfidx, codes, cfg, pads_d, sizes)
+        lo, hi = poisoned_free(twin.numel() + (1 << 16))
+        got = cuda_kernels.mp2_pack(alloc, scfsi, sfidx, codes, pads_d,
+                                    offs_d, ctab, **kw)
+        landed += lo <= got.data_ptr() and got.data_ptr() + got.numel() <= hi
+        filled = torch.full_like(twin, 0xA5)
+        rc = _build.load().mp2_pack(
+            cuda_kernels.ptr(alloc), cuda_kernels.ptr(scfsi),
+            cuda_kernels.ptr(sfidx), cuda_kernels.ptr(codes),
+            cuda_kernels.ptr(pads_d), cuda_kernels.ptr(offs_d), B, F, C,
+            cfg.sblimit, cfg.bound, cfg.header_base, cuda_kernels.ptr(ctab),
+            int(offs[-1]), int(sizes.max()), cuda_kernels.ptr(filled),
+            cuda_kernels.stream_ptr(filled))
+        if rc:
+            raise AssertionError(f"K3 {label}: the C entry returned {rc}")
+        worst["mp2_pack"] = max(worst["mp2_pack"], require_equal(
+            f"K3 {label}", [("frames (wrapper)", got, twin),
+                            ("frames (into 0xA5)", filled, twin)]))
+        log(f"K3 random {label}, {B} x {F} frames of {int(sizes.min())}-"
+            f"{int(sizes.max())} bytes (up to {need} bits of fields): "
+            f"byte-equal to the twin, into poisoned memory")
+    log(f"K3 random checks: {landed} of {len(K3_RANDOM_CASES)} wrapper "
+        f"outputs lay inside the freed 0xA5 tensor; every C-entry output "
+        f"was 0xA5-filled")
+
+
+#: (channels, sample rate, kbps, joint bound) pairs of one channel count
+#: and two frame sizes that K3_THREAD_ROUNDS of turns launch from two host
+#: threads: 1,728 and 626-627 bytes, stereo; 864 and 288 bytes, mono
+K3_THREAD_PAIRS = (((2, 32000, 384, None), (2, 44100, 192, 4)),
+                   ((1, 32000, 192, None), (1, 16000, 32, None)))
+K3_THREAD_ROUNDS = 4
+
+
+def k3_thread_checks(dev, worst: dict) -> None:
+    """K3 from two host threads that take turns, the first packing the
+    larger frames, the second the smaller ones of the same channel count:
+    the launch's shared-memory limit is the kernel's on the device for the
+    whole process, so one thread's launch must not lower it under the
+    other's. Each output is held to `pack_plain`."""
+    import threading
+    from pycricodecs_tpu_torch.ops import cuda_kernels
+    from pycricodecs_tpu_torch.ops import mp2_encode_device as E
+    from pycricodecs_tpu_torch.ops import mp2_encode_host
+    rng = np.random.default_rng(18)
+    for pair in K3_THREAD_PAIRS:
+        calls, twins = [], []
+        for args in pair:
+            cfg = mp2_encode_host.configure(*args)
+            side = tuple(torch.from_numpy(x.reshape((2, 3) + x.shape[1:]))
+                         .to(dev) for x in k3_random_frames(rng, cfg, 6))
+            pads, sizes, _ = cfg.frame_plan(3)
+            offs = E.frame_offsets(sizes)
+            pads_d = torch.from_numpy(pads).to(dev)
+            offs_d = torch.from_numpy(offs).to(dev)
+            kw = dict(sblimit=cfg.sblimit, bound=cfg.bound,
+                      header_base=cfg.header_base, total=int(offs[-1]),
+                      max_frame=int(sizes.max()))
+            ctab = E.pack_tables(cfg, dev)
+            twins.append(E.pack_plain(*side, cfg, pads_d, sizes))
+            calls.append(lambda side=side, pads_d=pads_d, offs_d=offs_d,
+                         ctab=ctab, kw=kw: cuda_kernels.mp2_pack(
+                             *side, pads_d, offs_d, ctab, **kw))
+        outs = ([], [])
+        errors = [None, None]
+        turns = threading.Barrier(2)
+
+        def run(k):
+            try:
+                torch.cuda.set_device(dev)
+                for _ in range(K3_THREAD_ROUNDS):
+                    for turn in range(2):
+                        if turn == k:
+                            outs[k].append(calls[k]())
+                            torch.cuda.synchronize()
+                        turns.wait()
+            except BaseException as e:         # the other thread stops too
+                errors[k] = e
+                turns.abort()
+
+        threads = [threading.Thread(target=run, args=(k,)) for k in (0, 1)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        first = next((e for e in errors
+                      if not isinstance(e, threading.BrokenBarrierError)),
+                     errors[0] or errors[1])
+        if first is not None:
+            raise AssertionError(f"K3 from two threads {pair}: {first!r}")
+        worst["mp2_pack"] = max(worst["mp2_pack"], require_equal(
+            f"K3 from two threads {pair}",
+            [(f"thread {k} call {i}", got, twins[k])
+             for k in (0, 1) for i, got in enumerate(outs[k])]))
+        log(f"K3 from two threads taking {K3_THREAD_ROUNDS} turns each, "
+            f"{pair}: byte-equal to the twin")
+
+
 def random_encode_pcm(rng, B, C, F) -> np.ndarray:
     """PCM16 [B, C, F * 1152] of tones, noise and level jumps at random
     loudness per stream and channel; stream 0 ends in silence and, where
@@ -2447,6 +2667,8 @@ def ahx_encode_phase(dev, card: str, worst: dict, launches: dict) -> dict:
         log(f"K1/K2/K3 random {label}, {B} x {F} frames (table "
             f"{cfg.hdr.table_id}, sblimit {cfg.sblimit}, bound {cfg.bound}):"
             f" bit- and byte-equal to the twins")
+    k3_random_checks(dev, worst)
+    k3_thread_checks(dev, worst)
 
     # -- the bank shape -----------------------------------------------------
     bank_name = signals.AHX_BANK
@@ -2554,10 +2776,17 @@ def ahx_encode_phase(dev, card: str, worst: dict, launches: dict) -> dict:
 
     abl = k2_ablation(k2, itab, bud)
     k2_ms = abl["whole"]
-    k3_ms = cuda_ms(lambda: cuda_kernels.mp2_pack(
-        *out, pads_d, offs_d, ctab, sblimit=cfg.sblimit, bound=cfg.bound,
-        header_base=cfg.header_base, total=int(offs[-1]),
-        max_frame=int(sizes.max())), 10)
+    def k3():
+        return cuda_kernels.mp2_pack(
+            *out, pads_d, offs_d, ctab, sblimit=cfg.sblimit,
+            bound=cfg.bound, header_base=cfg.header_base,
+            total=int(offs[-1]), max_frame=int(sizes.max()))
+
+    k3_ms = cuda_ms(k3, 10)
+    k3_b2b = cuda_ms(lambda: [k3() for _ in range(10)], 5) / 10
+    log(f"mp2_pack [{card}]: {k3_ms:.4f} ms a call through the wrapper "
+        f"(the host's enqueue included), {k3_b2b:.4f} ms a launch of 10 "
+        f"enqueued back to back")
 
     def k1_twins():
         S_p = MK.analyze_plain(pcm)

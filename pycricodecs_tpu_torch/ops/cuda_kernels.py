@@ -499,14 +499,17 @@ def mp2_allocate(S, part_peaks, need_db, budgets, itab, snr, *,
 def mp2_pack(alloc, scfsi, sfidx, codes, pads, offs, ctab, *, sblimit: int,
              bound: int, header_base: int, total: int,
              max_frame: int) -> torch.Tensor:
-    """Kernel K3: K2's outputs [B, F, ...], padding bits i32 [F], frame
-    byte offsets i64 [F + 1] and the class tables ctab i32 [1568] (levels,
-    group bits, code bits [32, 16], nbal [32]) (CUDA), with offs[F] =
-    total and the largest frame size max_frame -> the streams' bytes u8
-    [B, total]; every byte written."""
+    """Kernel K3: K2's outputs [B, F, ...] (codes, alloc, scfsi and sfidx
+    16-byte aligned: staged with 16-byte copies), padding bits i32 [F],
+    frame byte offsets i64 [F + 1] and the class tables ctab i32 [1568]
+    (levels, group bits, code bits [32, 16], nbal [32]) (CUDA), with
+    offs[F] = total and the largest frame size max_frame -> the streams'
+    bytes u8 [B, total]; every byte written."""
     global MP2_PACK_LAUNCHES
     B, F, C = alloc.shape[:3]
-    check_aligned(codes, "codes")
+    for t, name in ((codes, "codes"), (alloc, "alloc"), (scfsi, "scfsi"),
+                    (sfidx, "sfidx")):
+        check_aligned(t, name)
     check_cuda(codes, "codes", torch.uint16, (B, F, C, 36, 32))
     check_cuda(alloc, "alloc", torch.uint8, (B, F, C, 32))
     check_cuda(scfsi, "scfsi", torch.uint8, (B, F, C, 32))

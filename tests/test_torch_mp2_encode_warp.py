@@ -27,14 +27,29 @@ encode_mp2 call (recorded by a monkeypatch), packed by the twin, to that
 call's bytes; the butterfly alone is held to np.argmax on random gains
 full of ties and -inf.
 
-K3 gives each frame one warp, lane = subband: the header from lane 0, and
-each of the four sections laid out by one exclusive warp scan of the lanes'
-field widths (Hillis-Steele: 5 shuffle-up rounds), each field ORed into a
-zeroed big-endian 32-bit word buffer (split over two words where it
-crosses one), then the frame's bytes read out of the words. The model does
-exactly that and is held to the JAX package's `pack_frame` on random
-alloc/scfsi/sfidx/codes of every table and mode (mono, stereo, joint
-bounds 4-16), and so is the twin `pack_plain`.
+K3 is a persistent grid of warps, each walking frames w, w + warps, ...
+with (stream, frame) stepped incrementally; a warp packs its frame with
+lane = subband: the header from lane 0, the allocation laid out by a
+frame-independent warp scan, the scfsi, scalefactor and sample sections
+by one exclusive warp scan (Hillis-Steele, 5 shuffle-up rounds) of the
+lanes' three widths packed as 8, 11 and 12 bits. A lane builds its fields
+of a section as one run (a field that would pass the frame end dropped
+whole, and every later one with it); where the whole sample section fits
+the frame, a slot's fields of a granule are one value. The run goes into
+a zeroed big-endian word buffer: its first word and a last one it covers
+in part by OR, the words between (no other lane touches them) by plain
+stores. The frame goes out at its byte offset: the bytes before the first
+4-byte boundary and after the last one by lanes one at a time, the rest as
+aligned 4-byte stores built by a funnel shift and a byte swap. The model
+does exactly that (checking that no plainly stored word is touched by
+another lane, that no byte outside the frame is written and that the walk
+writes every byte of a 0xA5-poisoned batch once) and is held to the JAX
+package's `pack_frame` / `pack_frames` on random alloc/scfsi/sfidx/codes
+of every table and mode (mono, stereo, joint bounds 4-16, the 1,728-byte
+frames of 32 kHz 384 kbps stereo), and so is the twin `pack_plain`; on
+frames whose fields run past their end, model and twin agree, and hold
+pack_frame's bits up to the first field that does not fit and zeros
+after it.
 
 Tolerance: exact (bytes, indices).
 """
@@ -58,6 +73,7 @@ CONFIGS = [
     (1, 48000, 32, None), (2, 32000, 48, None), (2, 48000, 384, None),
     (1, 32000, 320, None), (2, 44100, 192, None), (2, 44100, 192, 4),
     (2, 48000, 256, 8), (2, 32000, 128, 12), (2, 44100, 320, 16),
+    (2, 32000, 384, None),      # 1,728-byte frames: Layer II's largest
 ]
 IDS = [f"{c}ch-{r}-{k}-j{j}" for c, r, k, j in CONFIGS]
 
@@ -283,83 +299,247 @@ def warp_scan(x: np.ndarray):
     return s - x, int(s[31])
 
 
-def k3_model(alloc, scfsi, sfidx, codes, cfg, pad, fs):
-    """One frame's bytes as K3's warp writes them."""
-    C = alloc.shape[0]
-    words = np.zeros(fs // 4 + 2, np.uint64)
-    fs_bits = fs * 8
+def word_count(max_frame: int) -> int:
+    """K3's word buffer a warp, in 32-bit words: the largest frame's and
+    one more, rounded up to 16 bytes (the launcher's nw4, times 4)."""
+    return 4 * (((max_frame + 3) // 4 + 1 + 3) // 4)
 
-    def put(pos, w, v):
-        if w <= 0 or pos + w > fs_bits:
+
+class Words:
+    """A warp's zeroed big-endian word buffer and who wrote each word: a
+    word a lane stores plainly must be one no other lane touches."""
+
+    def __init__(self, n: int):
+        self.w = [0] * n
+        self.plain = {}
+        self.ored = {}
+
+    def store(self, i: int, v: int, lane: int) -> None:
+        assert self.w[i] == 0 and i not in self.plain, (i, lane)
+        self.plain[i] = lane
+        self.w[i] = int(v)
+
+    def atomic_or(self, i: int, v: int, lane: int) -> None:
+        self.ored.setdefault(i, set()).add(lane)
+        self.w[i] |= int(v)
+
+    def check_owners(self) -> None:
+        for i, lane in self.plain.items():
+            assert i not in self.ored, (i, lane, self.ored[i])
+
+
+class Run:
+    """A lane's run of fields in one section: their bits, how many, where
+    the next field starts; a field that would pass fs_bits is dropped whole
+    (every later one then passes it too)."""
+
+    def __init__(self, pos: int, fs_bits: int):
+        self.bits, self.n, self.end, self.fs_bits = 0, 0, int(pos), fs_bits
+
+    def append(self, v: int, w: int) -> None:
+        w = int(w)
+        self.end += w
+        if self.end > self.fs_bits:
             return
-        v = int(v) & ((1 << w) - 1)
-        i, bit = pos >> 5, pos & 31
-        if bit + w <= 32:
-            words[i] |= np.uint64(v << (32 - bit - w))
-        else:
-            words[i] |= np.uint64(v >> (bit + w - 32))
-            words[i + 1] |= np.uint64((v << (64 - bit - w)) & 0xFFFFFFFF)
+        self.bits = (self.bits << w) | (int(v) & ((1 << w) - 1))
+        self.n += w
 
+
+def emit(words: Words, p: int, run: Run, max_words: int, lane: int) -> None:
+    """K3's emit: the run left-aligned in 128 bits at bit p % 32 of its
+    first word; its first word and a last one it covers in part ORed, the
+    words between stored."""
+    if run.n == 0:
+        return
+    p = int(p)
+    span = (p & 31) + run.n
+    assert span <= 32 * max_words <= 128, (span, max_words)
+    x = run.bits << (128 - span)
+    for j in range(max_words):
+        if 32 * j >= span:
+            break
+        wv = (x >> (96 - 32 * j)) & 0xFFFFFFFF
+        if j > 0 and 32 * j + 32 <= span:
+            words.store((p >> 5) + j, wv, lane)
+        else:
+            words.atomic_or((p >> 5) + j, wv, lane)
+
+
+def slot_bits(v, n, g, u) -> int:
+    """A slot's three codes of a granule as its fields' bits: one grouped
+    field of g bits, or three of u bits (each masked to its width; the
+    first two joined in 32 bits, then the third)."""
+    m = (1 << int(g or u)) - 1
+    if g:
+        return ((v[0] + int(n) * (v[1] + int(n) * v[2])) % (1 << 32)) & m
+    top = ((v[0] & m) << int(u)) | (v[1] & m)
+    assert top < 1 << 32
+    return (top << int(u)) | (v[2] & m)
+
+
+def k3_words(alloc, scfsi, sfidx, codes, cfg, pad, fs, n_words) -> list:
+    """One frame's word buffer as K3's warp builds it: the header by lane
+    0; the allocation laid out by the frame-independent scan, the scfsi,
+    scalefactor and sample sections by one warp scan of the lanes' three
+    widths packed as 8, 11 and 12 bits; a lane's fields of a section as one
+    run (a lane's channel slots in order) put in by `emit`; the samples
+    slot by slot where the whole section fits the frame, else field by
+    field."""
+    C = alloc.shape[0]
+    fs_bits = 8 * fs
+    words = Words(n_words)
     lanes = np.arange(32)
     live = lanes < cfg.sblimit
     nch = np.where(live, np.where(lanes < cfg.bound, C, 1), 0)
-    put(0, 32, cfg.header_base | (pad << 9))
+    a = np.where(live, alloc.astype(np.int64), 0)
+    s = scfsi.astype(np.int64)
+    if fs_bits >= 32:
+        words.store(0, cfg.header_base | (pad << 9), 0)
     nb = cfg.nbal.astype(np.int64)
-    off, tot = warp_scan(nb * nch)
-    for sb in range(32):
-        for c in range(nch[sb]):
-            put(32 + off[sb] + c * nb[sb], nb[sb], alloc[c, sb])
-    pos = 32 + tot
-    a = np.where(live, alloc, 0)
+    apos, atot = warp_scan(nb * nch)
     act = a > 0
-    off, tot = warp_scan(2 * act.sum(0))
+    nsf = np.where(act, np.array([3, 2, 1, 2])[s], 0)
+    gbits, ubits = E.class_bits(cfg)
+    n = np.zeros((C, 32), np.int64)
+    g = np.zeros((C, 32), np.int64)
+    u = np.zeros((C, 32), np.int64)
     for sb in range(32):
-        p = pos + off[sb]
+        for c in range(C):
+            if c < nch[sb]:
+                i = a[c, sb] & 15
+                n[c, sb] = cfg.levels_tbl[sb, i]
+                g[c, sb], u[c, sb] = gbits[sb, i], ubits[sb, i]
+    wq = np.where(n > 0, np.where(g > 0, g, 3 * u), 0)
+    ws, wf, wqs = 2 * act.sum(0), 6 * nsf.sum(0), wq.sum(0)
+    assert ws.sum() < 1 << 8 and wf.sum() < 1 << 11 and wqs.sum() < 1 << 12
+    off, tot = warp_scan(ws | wf << 8 | wqs << 19)
+    sf0 = 32 + atot + (tot & 0xFF)
+    pos = sf0 + ((tot >> 8) & 0x7FF)
+    gran, intra = tot >> 19, off >> 19
+    for sb in range(32):
+        run = Run(32 + apos[sb], fs_bits)
+        for c in range(C):
+            if c < nch[sb]:
+                run.append(a[c, sb], nb[sb])
+        emit(words, 32 + apos[sb], run, 2, sb)
+    for sb in range(32):
+        p = 32 + atot + (off[sb] & 0xFF)
+        run = Run(p, fs_bits)
         for c in range(C):
             if act[c, sb]:
-                put(p, 2, scfsi[c, sb])
-                p += 2
-    pos += tot
-    nsf = np.where(act, np.array([3, 2, 1, 2])[scfsi], 0)
-    off, tot = warp_scan(6 * nsf.sum(0))
+                run.append(s[c, sb], 2)
+        emit(words, p, run, 2, sb)
     for sb in range(32):
-        p = pos + off[sb]
+        p = sf0 + ((off[sb] >> 8) & 0x7FF)
+        run = Run(p, fs_bits)
         for c in range(C):
-            if not nsf[c, sb]:
-                continue
-            s = scfsi[c, sb]
-            put(p, 6, sfidx[c, 0, sb])
+            if nsf[c, sb]:
+                run.append(sfidx[c, 0, sb], 6)
             if nsf[c, sb] >= 2:
-                put(p + 6, 6, sfidx[c, 2 if s == 1 else 1, sb])
+                run.append(sfidx[c, 2 if s[c, sb] == 1 else 1, sb], 6)
             if nsf[c, sb] == 3:
-                put(p + 12, 6, sfidx[c, 2, sb])
-            p += 6 * nsf[c, sb]
-    pos += tot
-    gbits, ubits = E.class_bits(cfg)
-    n = np.zeros((2, 32), np.int64)
-    g = np.zeros((2, 32), np.int64)
-    u = np.zeros((2, 32), np.int64)
-    for sb in range(32):
-        for c in range(nch[sb]):
-            n[c, sb] = cfg.levels_tbl[sb, a[c, sb]]
-            g[c, sb] = gbits[sb, a[c, sb]]
-            u[c, sb] = ubits[sb, a[c, sb]]
-    wq = np.where(n > 0, np.where(g > 0, g, 3 * u), 0)
-    intra, gran = warp_scan(wq.sum(0))
+                run.append(sfidx[c, 2, sb], 6)
+        emit(words, p, run, 3, sb)
+    if pos + 12 * gran <= fs_bits:
+        # every field fits: a lane's slots of a granule as one run, each
+        # slot's fields as one value
+        for gr in range(12):
+            for sb in range(32):
+                p = pos + gr * gran + intra[sb]
+                run = Run(p, fs_bits)
+                for c in range(C):
+                    v = [int(codes[c, 3 * gr + k, sb]) for k in range(3)]
+                    run.bits = (run.bits << int(wq[c, sb])) | slot_bits(
+                        v, n[c, sb], g[c, sb], u[c, sb])
+                    run.n += int(wq[c, sb])
+                emit(words, p, run, 4 if C == 2 else 3, sb)
+        words.check_owners()
+        return words.w
     for gr in range(12):
         for sb in range(32):
-            o = pos + gr * gran + intra[sb]
-            for c in range(nch[sb]):
-                if n[c, sb]:
-                    v0, v1, v2 = (int(codes[c, 3 * gr + k, sb])
-                                  for k in range(3))
-                    if g[c, sb]:
-                        put(o, g[c, sb], v0 + n[c, sb] * (v1 + n[c, sb] * v2))
-                    else:
-                        for k, v in enumerate((v0, v1, v2)):
-                            put(o + k * u[c, sb], u[c, sb], v)
-                o += wq[c, sb]
-    return b"".join(int(w).to_bytes(4, "big") for w in words)[:fs]
+            p = pos + gr * gran + intra[sb]
+            run = Run(p, fs_bits)
+            for c in range(C):
+                if not n[c, sb]:
+                    continue
+                v0, v1, v2 = (int(codes[c, 3 * gr + k, sb]) for k in range(3))
+                if g[c, sb]:
+                    run.append(v0 + n[c, sb] * (v1 + n[c, sb] * v2),
+                               g[c, sb])
+                else:
+                    for v in (v0, v1, v2):
+                        run.append(v, u[c, sb])
+            assert run.n <= 48 * C
+            emit(words, p, run, 4 if C == 2 else 3, sb)
+    words.check_owners()
+    return words.w
+
+
+def k3_store(words: list, out: bytearray, dst: int, fs: int) -> None:
+    """K3's store of a frame's fs bytes at out[dst:]: the bytes before
+    dst's first 4-byte boundary and after the last one by lanes one at a
+    time, the rest as aligned 4-byte stores, each the funnel shift of two
+    words by 8 * (head bytes) and a byte swap (little-endian store)."""
+    h = min((4 - dst % 4) % 4, fs)
+    nw = (fs - h) >> 2
+    t0 = h + 4 * nw
+    assert h <= 32 and fs - t0 <= 32             # a lane a byte
+    byte = lambda i: (words[i >> 2] >> (24 - 8 * (i & 3))) & 0xFF  # noqa
+    for lane in range(h):
+        out[dst + lane] = byte(lane)
+    for lane in range(fs - t0):
+        out[dst + t0 + lane] = byte(t0 + lane)
+    for k in range(nw):
+        hi_lo = (words[k] << 32) | words[k + 1]
+        v = ((hi_lo << (8 * h)) >> 32) & 0xFFFFFFFF  # __funnelshift_l
+        at = dst + h + 4 * k
+        assert at % 4 == 0
+        swapped = int.from_bytes(v.to_bytes(4, "little"), "big")  # byte_perm
+        out[at:at + 4] = swapped.to_bytes(4, "little")
+
+
+def k3_model(alloc, scfsi, sfidx, codes, cfg, pad, fs, dst=0,
+             max_frame=None) -> bytes:
+    """One frame's bytes as K3's warp builds and stores them, at byte dst
+    of a 0xA5-poisoned buffer; checks that nothing outside the frame is
+    written."""
+    max_frame = fs if max_frame is None else max_frame
+    words = k3_words(alloc, scfsi, sfidx, codes, cfg, pad, fs,
+                     word_count(max_frame))
+    out = bytearray(b"\xa5" * (dst + fs + 8))
+    k3_store(words, out, dst, fs)
+    assert out[:dst] == b"\xa5" * dst and out[dst + fs:] == b"\xa5" * 8
+    return bytes(out[dst:dst + fs])
+
+
+def k3_walk(alloc, scfsi, sfidx, codes, cfg, pads, sizes, warps) -> bytes:
+    """A [B, F] batch as the persistent kernel walks it with `warps` warps
+    in its grid: warp w packs frames w, w + warps, ..., (b, f) stepped
+    incrementally, each frame stored at b * total + offs[f] of a
+    0xA5-poisoned [B, total] buffer."""
+    B, F = alloc.shape[:2]
+    offs = E.frame_offsets(sizes)
+    total = int(offs[-1])
+    n_words = word_count(int(np.max(sizes)))
+    out = bytearray(b"\xa5" * (B * total))
+    written = np.zeros(B * total, np.int64)
+    db, df = divmod(warps, F)
+    for w in range(min(warps, B * F)):
+        gid, (b, f) = w, divmod(w, F)
+        while gid < B * F:
+            assert (b, f) == divmod(gid, F)
+            fs = int(offs[f + 1] - offs[f])
+            words = k3_words(alloc[b, f], scfsi[b, f], sfidx[b, f],
+                             codes[b, f], cfg, int(pads[f]), fs, n_words)
+            dst = b * total + int(offs[f])
+            k3_store(words, out, dst, fs)
+            written[dst:dst + fs] += 1
+            gid += warps
+            b, f = b + db, f + df
+            if f >= F:
+                b, f = b + 1, f - F
+    assert (written == 1).all()
+    return bytes(out)
 
 
 def frame_bits(alloc, scfsi, cfg) -> int:
@@ -376,22 +556,26 @@ def frame_bits(alloc, scfsi, cfg) -> int:
     return bits
 
 
-def random_frames(rng, cfg, F):
+def random_frames(rng, cfg, F, overflow=False):
     """Random legal K2 outputs [F, ...] for cfg: allocations drawn per
     subband's classes (the alloc as transmitted), dropped at random until
-    the frame's fields fit its smallest size, codes below their class."""
+    the frame's fields fit its smallest size, codes below their class.
+    With overflow, every slot is allocated (a class from the upper half of
+    its subband's) and nothing is dropped: the fields run past the frame
+    end."""
     C = cfg.channels
     SB = cfg.sblimit
     fs_bits = 8 * int(cfg.frame_plan(1)[1][0])
     alloc = np.zeros((F, C, 32), np.uint8)
     for sb in range(SB):
-        alloc[:, :, sb] = rng.integers(0, cfg.ncls[sb], (F, C)) * \
-            (rng.random((F, C)) < 0.6)
+        low = max(1, cfg.ncls[sb] // 2) if overflow else 0
+        alloc[:, :, sb] = rng.integers(low, cfg.ncls[sb], (F, C)) * \
+            (overflow | (rng.random((F, C)) < 0.6))
     scfsi = rng.integers(0, 4, (F, C, 32)).astype(np.uint8)
     for f in range(F):
         if cfg.joint:
             alloc[f, 1, cfg.bound:SB] = alloc[f, 0, cfg.bound:SB]
-        while frame_bits(alloc[f], scfsi[f], cfg) > fs_bits:
+        while not overflow and frame_bits(alloc[f], scfsi[f], cfg) > fs_bits:
             sb = rng.integers(0, SB)
             alloc[f, :, sb] = 0 if sb >= cfg.bound else \
                 alloc[f, :, sb] * (rng.random(C) < 0.5)
@@ -418,8 +602,11 @@ def test_k3_model_and_twin_equal_pack_frame(cfg_key):
         want.append(jax_frame.pack_frame(
             hdr, cfg.bitrate_idx, cfg.sr_idx, alloc[f, :, :SB],
             scfsi[f, :, :SB], sfidx[f, :, :, :SB], codes[f, :, :, :SB]))
+        # at byte offsets 1..5: every head of 0-3 bytes before a 4-byte
+        # boundary
         assert k3_model(alloc[f], scfsi[f], sfidx[f], codes[f], cfg,
-                        int(pads[f]), int(sizes[f])) == want[f]
+                        int(pads[f]), int(sizes[f]), dst=f + 1,
+                        max_frame=int(sizes.max())) == want[f]
     twin = E.pack_plain(*(torch.from_numpy(x)[None] for x in
                           (alloc, scfsi, sfidx, codes)), cfg,
                         torch.from_numpy(pads), sizes)
@@ -428,6 +615,96 @@ def test_k3_model_and_twin_equal_pack_frame(cfg_key):
         jax_frame.parse_header(cfg.header_base.to_bytes(4, "big")),
         cfg.bitrate_idx, cfg.sr_idx, alloc[:, :, :SB], scfsi[:, :, :SB],
         sfidx[:, :, :, :SB], codes[:, :, :, :SB], pads, sizes)
+
+
+@pytest.mark.parametrize("warps", [5, 64])
+@pytest.mark.parametrize("cfg_key", CONFIGS, ids=IDS)
+def test_k3_walk_into_poisoned_streams_equals_pack_frames(cfg_key, warps):
+    """The persistent walk (5 warps: 21 frames, not a multiple; 64: more
+    warps than frames) fills every byte of a 0xA5-poisoned [B, total]
+    buffer with the twin's bytes and, stream by stream, pack_frames'."""
+    C, rate, kbps, jb = cfg_key
+    cfg = EH.configure(C, rate, kbps, jb)
+    rng = np.random.default_rng(kbps * 11 + C + warps)
+    B, F = 3, 7
+    pads, sizes, _ = cfg.frame_plan(F)
+    parts = [random_frames(rng, cfg, F) for _ in range(B)]
+    alloc, scfsi, sfidx, codes = (np.stack(x) for x in zip(*parts))
+    got = k3_walk(alloc, scfsi, sfidx, codes, cfg, pads, sizes, warps)
+    twin = E.pack_plain(*(torch.from_numpy(x) for x in
+                          (alloc, scfsi, sfidx, codes)), cfg,
+                        torch.from_numpy(pads), sizes)
+    assert got == twin.numpy().tobytes()
+    total = len(got) // B
+    SB = cfg.sblimit
+    for b in range(B):
+        assert got[b * total:(b + 1) * total] == jax_frame.pack_frames(
+            jax_frame.parse_header(cfg.header_base.to_bytes(4, "big")),
+            cfg.bitrate_idx, cfg.sr_idx, alloc[b, :, :, :SB],
+            scfsi[b, :, :, :SB], sfidx[b, :, :, :, :SB],
+            codes[b, :, :, :, :SB], pads, sizes)
+
+
+def field_widths(alloc, scfsi, cfg):
+    """The widths of one frame's fields in pack_frame's order."""
+    gbits, ubits = E.class_bits(cfg)
+    SB, bound, C = cfg.sblimit, cfg.bound, cfg.channels
+    slots = [(sb, c) for sb in range(SB) for c in range(C if sb < bound
+                                                        else 1)]
+    widths = [32] + [int(cfg.nbal[sb]) for sb, _ in slots]
+    act = [(sb, c) for sb in range(SB) for c in range(C) if alloc[c, sb]]
+    widths += [2] * len(act)
+    widths += [6] * sum((3, 2, 1, 2)[scfsi[c, sb]] for sb, c in act)
+    for _ in range(12):
+        for sb, c in slots:
+            a = int(alloc[c, sb])
+            if cfg.levels_tbl[sb, a]:
+                widths += [gbits[sb, a]] if gbits[sb, a] else [ubits[sb, a]] * 3
+    return widths
+
+
+@pytest.mark.parametrize("cfg_key", CONFIGS, ids=IDS)
+def test_k3_drops_fields_past_the_frame_end_whole(cfg_key):
+    """Frames whose fields run past their end: the model equals the twin;
+    both hold pack_frame's bits before the first field that does not fit
+    and zeros from there (that field and every later one dropped whole:
+    pack_frame's BitWriter, which keeps its position on a drop, may still
+    write a later, narrower field there; every frame the encoder makes
+    fits, where the three agree). Where even these allocations fit the
+    configuration's frames (its highest rates), the frames are cut to 3/4
+    of the bytes the fields take."""
+    C, rate, kbps, jb = cfg_key
+    cfg = EH.configure(C, rate, kbps, jb)
+    rng = np.random.default_rng(kbps * 13 + C)
+    F = 4
+    pads, sizes, _ = cfg.frame_plan(F)
+    alloc, scfsi, sfidx, codes = random_frames(rng, cfg, F, overflow=True)
+    need = np.array([sum(field_widths(alloc[f], scfsi[f], cfg))
+                     for f in range(F)])
+    sizes = np.where(need > 8 * sizes, sizes, 3 * need // 32)
+    twin = E.pack_plain(*(torch.from_numpy(x)[None] for x in
+                          (alloc, scfsi, sfidx, codes)), cfg,
+                        torch.from_numpy(pads), sizes).numpy()[0]
+    offs = E.frame_offsets(sizes)
+    SB = cfg.sblimit
+    for f in range(F):
+        fs = int(sizes[f])
+        got = k3_model(alloc[f], scfsi[f], sfidx[f], codes[f], cfg,
+                       int(pads[f]), fs, dst=3, max_frame=fs)
+        assert got == twin[offs[f]:offs[f + 1]].tobytes()
+        ends = np.cumsum(field_widths(alloc[f], scfsi[f], cfg))
+        first = int(np.argmax(ends > 8 * fs))
+        assert ends[-1] > 8 * fs and first > 0     # the drop branch runs
+        cut = int(ends[first - 1])                 # where the drop starts
+        hdr = jax_frame.parse_header(
+            (cfg.header_base | (int(pads[f]) << 9)).to_bytes(4, "big"))
+        ref = jax_frame.pack_frame(
+            hdr, cfg.bitrate_idx, cfg.sr_idx, alloc[f, :, :SB],
+            scfsi[f, :, :SB], sfidx[f, :, :, :SB], codes[f, :, :, :SB])
+        bits = np.unpackbits(np.frombuffer(got, np.uint8))
+        ref_bits = np.unpackbits(np.frombuffer(ref, np.uint8))
+        np.testing.assert_array_equal(bits[:cut], ref_bits[:cut])
+        assert not bits[cut:].any()
 
 
 def test_pack_frame_and_header_word_copies_equal_jax():

@@ -7,10 +7,10 @@ PCM with 16-byte copies, B10 `mp2_unpack` stages frames with 16-byte
 copies from 16-byte boundaries; of the Layer II encoder's kernels, K1
 `mp2_analysis` (which now gives the peaks beside the spectra) stages PCM
 in 16-byte chunks, K2 `mp2_allocate` streams S through its rings with
-16-byte copies and K3 `mp2_pack` stages a frame's codes with 16-byte
-loads. A view one element into a tensor is off those boundaries; the
-check runs before the device check, so it shows on CPU tensors too, and no
-launch is counted.
+16-byte copies and K3 `mp2_pack` stages a frame's codes and side info
+(alloc, scfsi, sfidx) with 16-byte copies. A view one element into a
+tensor is off those boundaries; the check runs before the device check,
+so it shows on CPU tensors too, and no launch is counted.
 
 Tolerance: exact (the error and the unchanged launch counts).
 """
@@ -99,6 +99,24 @@ def test_mp2_pack_refuses_misaligned_codes():
     with pytest.raises(ValueError, match="codes: data is not 16-byte"):
         K.mp2_pack(u8(1, 1, 2, 32), u8(1, 1, 2, 32), u8(1, 1, 2, 3, 32),
                    codes, torch.zeros(1, dtype=torch.int32),
+                   torch.tensor([0, 626]), torch.zeros(1568, dtype=torch.int32),
+                   sblimit=30, bound=30, header_base=0xFFF5A0C0, total=626,
+                   max_frame=626)
+    assert _counts() == before
+
+
+@pytest.mark.parametrize("name", ["alloc", "scfsi", "sfidx"])
+def test_mp2_pack_refuses_misaligned_side_info(name):
+    before = _counts()
+    shapes = {"alloc": (1, 1, 2, 32), "scfsi": (1, 1, 2, 32),
+              "sfidx": (1, 1, 2, 3, 32)}
+    side = {k: torch.zeros(v, dtype=torch.uint8) for k, v in shapes.items()}
+    n = side[name].numel()
+    side[name] = torch.zeros(n + 1, dtype=torch.uint8)[1:].view(shapes[name])
+    with pytest.raises(ValueError, match=f"{name}: data is not 16-byte"):
+        K.mp2_pack(side["alloc"], side["scfsi"], side["sfidx"],
+                   torch.zeros((1, 1, 2, 36, 32), dtype=torch.uint16),
+                   torch.zeros(1, dtype=torch.int32),
                    torch.tensor([0, 626]), torch.zeros(1568, dtype=torch.int32),
                    sblimit=30, bound=30, header_base=0xFFF5A0C0, total=626,
                    max_frame=626)

@@ -19,13 +19,25 @@ library; the baseline is the port's own build. Variants:
   `k1_matrix_only` (the last three off at once: the matrixing alone),
   `k1_matrix_y_regs` and `k1_matrix_m_regs` (that, with a q step's Y
   values, or its matrix values, from registers instead of shared memory:
-  what those loads cost the matrixing).
+  what those loads cost the matrixing);
+- K3 (`mp2_pack`): `k3_no_table` (the class table read by each lane from
+  global memory, no copy into shared memory and no CTA barrier for it),
+  `k3_no_stage` (no codes staged: the sample fields pack whatever the
+  staging buffer holds), `k3_no_samples` (no sample section),
+  `k3_no_store` (no frame bytes stored), `k3_skeleton` (the last three
+  off at once), `k3_bare` (the walk alone, no frame packed),
+  `k3_no_atomics` (each shared atomicOr a plain store), `k3_half_grid`
+  (half as many CTAs an SM).
 A variant's output is wrong by design; only its time is read. Shapes: B3 at
 the HCA bank chunk (the bank's real spectra, and random PNS maps), the
-synthesis at the AHX bank, as tools/time_transform_synth.py, K1 at the AHX
-encode bank (256 x 192 frames of the bank PCM). --source limits the run to
-the variants of one source file (and its kernel's baseline). Each variant
-is timed in --rounds rounds (median of --reps CUDA-event runs each), the
+synthesis at the AHX bank, as tools/time_transform_synth.py, K1 and K3 at
+the AHX encode bank (256 x 192 frames of the bank PCM; K3 packs K2's
+outputs). --source limits the run to the variants of one source file (and
+its kernel's baseline); --root takes the sources and the baseline library
+from the port under DIR (default: this checkout). Each variant
+is timed in --rounds rounds (median of --reps CUDA-event runs each; K3
+by the median of --reps kernel records of torch.profiler, its device time
+alone, since a K3 launch is shorter than the host's enqueue of one), the
 baseline first in every round. Prints one line per variant and round with
 the card's name and power limit, and last one JSON line. With --sass,
 also the static SASS instruction counts by opcode class (`cuobjdump
@@ -36,7 +48,8 @@ still counts) and whether it spilled. No CPU path.
 
 Run from the repository root:
     python3 tools/time_kernel_variants.py [--rounds N] [--reps N] [--sass]
-        [--source hca_transform.cu|mp2_synth.cu|mp2_analysis.cu]
+        [--root DIR] [--variants NAME,...]
+        [--source hca_transform.cu|mp2_synth.cu|mp2_analysis.cu|mp2_encode.cu]
 """
 import argparse
 import ctypes
@@ -44,7 +57,6 @@ import importlib.util
 import json
 import os
 import subprocess
-import sys
 import tempfile
 
 import numpy as np
@@ -117,14 +129,78 @@ VARIANTS["k1_matrix_m_regs"] = ("mp2_analysis.cu",
                                 VARIANTS["k1_matrix_only"][1] + [(
     "    const double2 mv = mc[qq * 16];",
     "    const double2 mv = mc[0];")])
+# K3: the persistent kernel (a CTA of 8 warps walking the frames, the class
+# table copied into shared memory once a CTA)
+K3 = {
+    "k3_no_table": [
+        ("  for (int i = threadIdx.x; i < 32 * kClasses; i += kPackWarps * 32)"
+         "\n    tab[i] = ctab[i] | ctab[kGbitsOff + i] << 17 | "
+         "ctab[kUbitsOff + i] << 21;\n  if (threadIdx.x < 32)\n"
+         "    tab[32 * kClasses + threadIdx.x] = ctab[kNbalOff + threadIdx.x];"
+         "\n  __syncthreads();", ""),
+        ("  const int nb = tab[32 * kClasses + sb];",
+         "  const int nb = __ldg(ctab + kNbalOff + sb);"),
+        ("  const int* trow = tab + sb * kClasses;",
+         "  const int* trow = ctab;"),
+        ("    const int e = c < nch ? trow[a[c] & (kClasses - 1)] : 0;",
+         "    const int i_ = sb * kClasses + (a[c] & (kClasses - 1));\n"
+         "    const int e = c < nch ? (__ldg(trow + i_) | __ldg(trow + "
+         "kGbitsOff + i_) << 17 | __ldg(trow + kUbitsOff + i_) << 21) : 0;")],
+    "k3_no_stage": [(
+        "    if (lane + 32 * k < C * kCodeChunks)\n      copy16(",
+        "    if (lane + 32 * k < C * kCodeChunks && gid < 0)\n"
+        "      copy16(")],
+    "k3_no_samples": [(        # both granule loops: the fast one and
+        "for (int gr = 0; gr < 12; ++gr) {",     # the field-by-field one
+        "for (int gr = 0; gr < (nb < 0 ? 12 : 0); ++gr) {")],
+    "k3_no_store": [(
+        "    store_frame(words, out + b * total + cur.off0, fs, lane);",
+        f"    if ({NEVER_SYNTH})\n"
+        "      store_frame(words, out + b * total + cur.off0, fs, lane);")],
+}
+# K3 with the staging, the samples and the store all off: what is left is
+# the walk, the side info's loads, the zeroing, the scans and the side
+# sections
+K3["k3_skeleton"] = [sub for name in ("k3_no_stage", "k3_no_samples",
+                                      "k3_no_store")
+                     for sub in K3[name]]
+for _name, _subs in K3.items():
+    VARIANTS[_name] = ("mp2_encode.cu", _subs)
+# the walk alone, no frame packed (`k3_bare`); each atomicOr a plain store
+# (`k3_no_atomics`, the words wrong: what the shared atomics cost); half as
+# many CTAs an SM, the same code (`k3_half_grid`: does the time follow the
+# warps, or a resource the SM shares?)
+VARIANTS["k3_bare"] = ("mp2_encode.cu", K3["k3_skeleton"] + [(
+    "    pack_words<C>(words,", f"    if ({NEVER_SYNTH})\n"
+    "    pack_words<C>(words,")])
+VARIANTS["k3_no_atomics"] = ("mp2_encode.cu", [
+    ("  atomicOr(w, xh >> b0);", "  w[0] = xh >> b0;"),
+    ("    atomicOr(w + 1, w1);", "    w[1] = w1;"),
+    ("    atomicOr(w + 2, xl << (32 - b0));", "    w[2] = xl << (32 - b0);"),
+    ("  atomicOr(w, wv[0]);", "  w[0] = wv[0];"),
+    ("      atomicOr(w + j, wv[j]);", "      w[j] = wv[j];")])
+VARIANTS["k3_half_grid"] = ("mp2_encode.cu", [(
+    "    held = per_sm * sms;", "    held = (per_sm / 2) * sms;")])
 #: the entry point and the timed calls of each source's kernel
 ENTRY = {"hca_transform.cu": ("hca_transform", ("b3_ms", "b3_pns_ms")),
          "mp2_synth.cu": ("mp2_synth", ("synth_ms",)),
-         "mp2_analysis.cu": ("mp2_analysis", ("k1_ms",))}
+         "mp2_analysis.cu": ("mp2_analysis", ("k1_ms",)),
+         "mp2_encode.cu": ("mp2_pack", ("k3_ms",))}
 #: the kernel (its name in the SASS) of each source
 KERNEL = {"hca_transform.cu": "hca_transform_kernel",
           "mp2_synth.cu": "mp2_synth_kernel",
-          "mp2_analysis.cu": "mp2_analysis_kernel"}
+          "mp2_analysis.cu": "mp2_analysis_kernel",
+          "mp2_encode.cu": "mp2_pack_kernel"}
+
+
+def substitute(name: str, text: str) -> str:
+    """The variant's source: its substitutions applied to `text`."""
+    for old, new in VARIANTS[name][1]:
+        if old not in text:
+            raise SystemExit(f"{name}: anchor not in {VARIANTS[name][0]}: "
+                             f"{old!r}")
+        text = text.replace(old, new)
+    return text
 
 
 def print_sass(base_so: str, libs: dict, sources) -> dict:
@@ -153,13 +229,9 @@ def build_variants(build, gen_dir: str, out_dir: str, names) -> dict:
     once)."""
     jobs = {}
     for name in names:
-        src, subs = VARIANTS[name]
+        src = VARIANTS[name][0]
         with open(os.path.join(build.CSRC_DIR, src)) as f:
-            text = f.read()
-        for old, new in subs:
-            if old not in text:
-                raise SystemExit(f"{name}: anchor not in {src}: {old!r}")
-            text = text.replace(old, new)
+            text = substitute(name, f.read())
         cu = os.path.join(out_dir, name + ".cu")
         with open(cu, "w") as f:
             f.write(text)
@@ -182,38 +254,23 @@ def build_variants(build, gen_dir: str, out_dir: str, names) -> dict:
     return libs
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--rounds", type=int, default=3)
-    ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--source", choices=sorted(ENTRY),
-                    help="only this source's variants")
-    ap.add_argument("--sass", action="store_true",
-                    help="SASS instruction counts of the baseline's and "
-                         "each variant's kernel")
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        raise SystemExit("time_kernel_variants: no CUDA GPU")
-    sys.path.insert(0, REPO)
-    import chip_smoke as S
-    from pycricodecs_tpu_torch import _build
-    from pycricodecs_tpu_torch.ops import cuda_kernels
+def load_tool(name: str):
+    """A module of this checkout by path (chip_smoke.py, a tool)."""
+    path = os.path.join(REPO, *name.split("/")) + ".py"
+    spec = importlib.util.spec_from_file_location(
+        os.path.basename(name), path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def hca_bank_calls(S, dev) -> dict:
+    """B3's timed calls at the HCA bank chunk (real spectra; random PNS
+    maps)."""
     from pycricodecs_tpu_torch.ops import hca_frame
     from pycricodecs_tpu_torch.ops import hca_kernels as K
     from pycricodecs_tpu_torch.ops import hca_unpack_device as U
     from pycricodecs_tpu_torch.parallel import pipeline as P
-    from pycricodecs_tpu_torch.utils import signals
-    dev = torch.device("cuda", 0)
-    card = S.card_line()
-    base = _build.load()
-    tmp = tempfile.mkdtemp(prefix="variants", dir=str(_build.BUILD_DIR))
-    names = [n for n, (src, _) in VARIANTS.items()
-             if args.source in (None, src)]
-    libs = build_variants(_build, os.path.dirname(str(_build.build())), tmp,
-                          names)
-    sass = print_sass(str(_build.build()), libs, [
-        s for s in ENTRY if args.source in (None, s)]) if args.sass else None
-
     with open(os.path.join(S.FIXTURES, S.BANK + ".hca"), "rb") as f:
         blob = f.read()
     hs = int.from_bytes(blob[6:8], "big")
@@ -228,6 +285,17 @@ def main() -> None:
     hfr, cfg = K.transform_config(info)
     rnd, noise = S.random_transform_inputs(
         torch.Generator().manual_seed(12), B, F, C, dev)
+    return {
+        "b3_ms": lambda: K.hca_decode_transform_batched(*spec, hfr, **cfg),
+        "b3_pns_ms": lambda: K.hca_decode_transform_batched(
+            *rnd, hfr, noise=noise, **cfg)}
+
+
+def synth_calls(S, dev) -> dict:
+    """`mp2_synth`'s timed call at the AHX bank."""
+    from pycricodecs_tpu_torch.ops import cuda_kernels
+    from pycricodecs_tpu_torch.parallel import pipeline as P
+    from pycricodecs_tpu_torch.utils import signals
     _, blobs = S.load_ahx_fixtures()
     stack = P._stack_mp2_frames(
         [P._parse_mp2(blobs[signals.AHX_BANK])[1]] * S.BANK_STREAMS)
@@ -236,30 +304,84 @@ def main() -> None:
         torch.from_numpy(stack.reshape(Bs * Fs, fs_max)).to(dev), 1)
     bank = (codes.view(Bs, Fs, 1, 36, 32), levels.view(Bs, Fs, 1, 32),
             sfidx.view(Bs, Fs, 1, 3, 32))
-    pcm_bank = signals.ahx_bank_pcm()
-    x = np.zeros((S.BANK_STREAMS, 1, -(-pcm_bank.size // 1152) * 1152),
-                 np.int16)
-    x[:, 0, :pcm_bank.size] = pcm_bank
-    pcm = torch.from_numpy(x).to(dev)
-    timed = {
-        "b3_ms": lambda: K.hca_decode_transform_batched(*spec, hfr, **cfg),
-        "b3_pns_ms": lambda: K.hca_decode_transform_batched(
-            *rnd, hfr, noise=noise, **cfg),
-        "synth_ms": lambda: cuda_kernels.mp2_synth(*bank),
-        "k1_ms": lambda: cuda_kernels.mp2_analysis(pcm),
-    }
-    if args.source:
-        timed = {k: timed[k] for k in ENTRY[args.source][1]}
-    out = {"card": card, "runs": [], "sass": sass}
+    return {"synth_ms": lambda: cuda_kernels.mp2_synth(*bank)}
+
+
+def encode_calls(S, dev) -> dict:
+    """K1's timed call at the AHX encode bank; K3's at K2's outputs of the
+    bank."""
+    from pycricodecs_tpu_torch.ops import cuda_kernels
+    x = load_tool("tools/time_mp2_encode").bank_inputs(dev)
+    return {"k1_ms": lambda: cuda_kernels.mp2_analysis(x["pcm"]),
+            "k3_ms": x["k3"]}
+
+
+def k3_device_ms(S, fn, reps: int) -> float:
+    """K3's device time (torch.profiler's kernel records): a K3 launch is
+    shorter than the host's enqueue of one, so CUDA events around calls
+    would time the host."""
+    return load_tool("tools/time_mp2_encode").device_ms(
+        fn, "mp2_pack_kernel", reps)
+
+
+#: how a timed call is timed, where not by CUDA events (`chip_smoke.cuda_ms`)
+TIMER = {"k3_ms": k3_device_ms}
+
+
+#: the builder of each source's timed calls
+CALLS = {"hca_transform.cu": hca_bank_calls, "mp2_synth.cu": synth_calls,
+         "mp2_analysis.cu": encode_calls, "mp2_encode.cu": encode_calls}
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--root", default=REPO,
+                    help="directory holding the pycricodecs_tpu_torch whose "
+                         "sources and build to ablate")
+    ap.add_argument("--source", choices=sorted(ENTRY),
+                    help="only this source's variants")
+    ap.add_argument("--variants",
+                    help="only these variants (comma-separated names)")
+    ap.add_argument("--sass", action="store_true",
+                    help="SASS instruction counts of the baseline's and "
+                         "each variant's kernel")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("time_kernel_variants: no CUDA GPU")
+    root = os.path.abspath(args.root)
+    load_tool("tools/time_mp2_encode").import_port(root)
+    from pycricodecs_tpu_torch import _build
+    S = load_tool("chip_smoke")
+    dev = torch.device("cuda", 0)
+    card = S.card_line()
+    base = _build.load()
+    tmp = tempfile.mkdtemp(prefix="variants", dir=str(_build.BUILD_DIR))
+    sources = [s for s in ENTRY if args.source in (None, s)]
+    names = [n for n, (src, _) in VARIANTS.items() if src in sources]
+    if args.variants:
+        names = [n for n in args.variants.split(",") if n in names]
+    libs = build_variants(_build, os.path.dirname(str(_build.build())), tmp,
+                          names)
+    sass = print_sass(str(_build.build()), libs, sources) if args.sass \
+        else None
+    timed = {}
+    for builder in dict.fromkeys(CALLS[s] for s in sources):
+        timed.update(builder(S, dev))
+    timed = {k: timed[k] for s in sources for k in ENTRY[s][1]}
+    out = {"root": os.path.relpath(root, REPO), "card": card, "runs": [],
+           "sass": sass}
     try:
         for rnd_i in range(args.rounds):
             for name, lib in [("baseline", base), *libs.items()]:
                 _build._lib = lib
                 keys = list(timed) if name == "baseline" else \
                     list(ENTRY[VARIANTS[name][0]][1])
-                r = {k: S.cuda_ms(timed[k], args.reps) for k in keys}
+                r = {k: TIMER.get(k, lambda S, fn, n: S.cuda_ms(fn, n))(
+                    S, timed[k], args.reps) for k in keys}
                 out["runs"].append({"round": rnd_i, "variant": name, **r})
-                print(f"[{card}] round {rnd_i} {name}: "
+                print(f"[{card}] ({out['root']}) round {rnd_i} {name}: "
                       + ", ".join(f"{k} {v:.4f}" for k, v in r.items()),
                       flush=True)
     finally:
