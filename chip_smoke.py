@@ -199,7 +199,23 @@ values from the JAX package):
    (`__graft_entry_torch__.entry`): its fn's pcm equal to the JAX entry's,
    err all false, B1-B3 launched.
 
-Prints one compact JSON line of every bank call's and phase 17's timings
+The sharded paths and the CriCodecs module:
+18. every sharded entry point (`decode_batch` of 191 copies of the 10 s
+   bank stream, one enciphered copy under the test key and 63 copies of
+   the v3 PNS fixture; `decode_awb` of subkey.awb; `decode_acb` of
+   mixed.acb; `adx_decode_batch` of the ADX bank stream and, with
+   wrap=True, of three 1 s fixtures; `adx_encode_batch`,
+   `ahx_decode_batch`, `hca_encode_batch` and `ahx_encode_batch` of the
+   banks' inputs; 255 streams a bank, an odd count) over `make_mesh()`
+   (every visible card) and over cuda:0 four times as (2, 2) and (1, 4):
+   every output equal to the unsharded call's, each path's kernels
+   launched, the medians of 3 beside the unsharded one's;
+   `dryrun_multichip(4, devices=[cuda:0] * 4)`; the seven `cricodecs`
+   functions against the port calls they map to; K3 through its wrapper
+   with and without the launch device guard (turns: guarded, bare, bare,
+   guarded) and the guard's host time.
+
+Prints one compact JSON line of every bank call's and phases 17-18's timings
 (`banks`), then a JSON line of per-kernel results (launches on the main paths, max
 |kernel - twin|, kernel/twin ms, the bound from the bytes and operations of
 the timed call, and for B7 (each instance) and B8 from their dependent
@@ -3038,6 +3054,249 @@ def surfaces_phase(dev, card: str) -> None:
                   "hca_imdct_ola", "mp2_unpack", "mp2_synth")}
 
 
+# ---------------------------------------------------------------------------
+# The sharded paths and the CriCodecs module (phase 18)
+# ---------------------------------------------------------------------------
+
+#: streams of each bank case: an odd count, so the last shards are padded
+MESH_STREAMS = BANK_STREAMS - 1
+PNS_MESH_STREAMS = 63
+#: the meshes of cuda:0 repeated (the port's stand-in for the JAX tests'
+#: virtual devices): streams over dp and frames over sp, then sp alone
+REPEATED_SHAPES = ((2, 2), (1, 4))
+
+
+def mesh_cases(dev) -> list:
+    """(name, own kernels, fn(**where) -> outputs) of every sharded entry
+    point at the banks' widths; where is device=dev or mesh=m."""
+    import pycricodecs_tpu_torch as port
+    from pycricodecs_tpu_torch.models import hca as hca_model
+    from pycricodecs_tpu_torch.utils import signals
+    from pycricodecs_tpu_torch.utils.wav import write_wav
+
+    def read(*parts):
+        with open(os.path.join(*parts), "rb") as f:
+            return f.read()
+
+    hca = read(FIXTURES, BANK + ".hca")
+    hs = int.from_bytes(hca[6:8], "big")
+    keyed = hca_model.crypt(hca, True, hs, 56, KEY)
+    pns = read(FIXTURES, signals.HCA_PNS + ".hca")
+    hca_in = ([hca] * (MESH_STREAMS - PNS_MESH_STREAMS - 1) + [keyed]
+              + [pns] * PNS_MESH_STREAMS)
+    with open(os.path.join(BANK_FIXTURES, "expected.json")) as f:
+        bank_expected = json.load(f)
+    mixed = read(BANK_FIXTURES, bank_expected["mixed"]["file"])
+    subkey = read(BANK_FIXTURES, bank_expected["subkey"]["file"])
+    sub_key = bank_expected["subkey"]["key"]
+    adx = read(ADX_FIXTURES, signals.ADX_BANK + ".adx")
+    adx_small = [read(ADX_FIXTURES, n + ".adx") for n in
+                 ("adx_m2_f2_stereo_1s", "adx_m4_stereo_1s", "adx_6ch_1s")]
+    adx_wav = signals.adx_wav(signals.ADX_BANK, write_wav)
+    ahx = read(AHX_FIXTURES, signals.AHX_BANK + ".ahx")
+    hca_wav = signals.hca_wav(BANK, write_wav)
+    ahx_wav = write_wav(signals.ahx_bank_pcm(), 1, 22050)
+    adx_kernel = ["adx_decode_host"]
+    return [
+        ("decode_batch", HCA_KERNELS, lambda **w: port.decode_batch(
+            hca_in, KEY, **w)),
+        ("decode_awb subkey.awb", HCA_KERNELS, lambda **w: port.decode_awb(
+            subkey, sub_key, **w)),
+        ("decode_acb mixed.acb", (*HCA_KERNELS, *adx_kernel, "mp2_unpack",
+                                  "mp2_synth"),
+         lambda **w: port.decode_acb(mixed, 0, **w)),
+        ("adx_decode_batch", adx_kernel, lambda **w: port.adx_decode_batch(
+            [adx] * MESH_STREAMS, **w)),
+        ("adx_decode_batch(wrap=True)", ["adx_decode"],
+         lambda **w: port.adx_decode_batch(adx_small, wrap=True, **w)),
+        ("adx_encode_batch", ["adx_encode"], lambda **w: port.adx_encode_batch(
+            [adx_wav] * MESH_STREAMS, **w)),
+        ("ahx_decode_batch", ("mp2_unpack", "mp2_synth"),
+         lambda **w: port.ahx_decode_batch([ahx] * MESH_STREAMS, **w)),
+        ("hca_encode_batch", ("hca_mdct", "hca_pack"),
+         lambda **w: port.hca_encode_batch([hca_wav] * MESH_STREAMS, 2,
+                                           **w)),
+        ("ahx_encode_batch", ENCODE_KERNELS,
+         lambda **w: port.ahx_encode_batch([ahx_wav] * MESH_STREAMS, 96,
+                                           **w)),
+    ]
+
+
+def guard_cost(dev, card: str) -> dict:
+    """K3 through its wrapper at the AHX encode bank shape with the launch
+    device guard and without it (cuda_kernels.launch patched to a bare
+    call), in turns: guarded, bare, bare, guarded; and the guard's own
+    host time."""
+    from pycricodecs_tpu_torch import _build
+    from pycricodecs_tpu_torch.ops import cuda_kernels
+    from pycricodecs_tpu_torch.ops import mp2_encode_device as E
+    from pycricodecs_tpu_torch.ops import mp2_encode_host
+    from pycricodecs_tpu_torch.utils import signals
+
+    bank_pcm = signals.ahx_bank_pcm()
+    F = -(-bank_pcm.size // 1152)
+    cfg = mp2_encode_host.configure(1, 22050, 96)
+    x = np.zeros((BANK_STREAMS, 1, F * 1152), np.int16)
+    x[:, 0, :bank_pcm.size] = bank_pcm
+    S, part, frame = E.analysis(torch.from_numpy(x).to(dev))
+    pads, sizes, budgets = cfg.frame_plan(F)
+    out = E.allocate(S, part, E.need_db_host(frame),
+                     torch.from_numpy(budgets).to(dev), cfg)
+    offs = E.frame_offsets(sizes)
+    pads_d, offs_d = (torch.from_numpy(a).to(dev) for a in (pads, offs))
+    ctab = E.pack_tables(cfg, dev)
+
+    def k3():
+        return cuda_kernels.mp2_pack(
+            *out, pads_d, offs_d, ctab, sblimit=cfg.sblimit,
+            bound=cfg.bound, header_base=cfg.header_base,
+            total=int(offs[-1]), max_frame=int(sizes.max()))
+
+    guarded = cuda_kernels.launch
+    want = k3().cpu()
+
+    def bare(kernel, t, *args):
+        rc = getattr(_build.load(), kernel)(*args,
+                                            cuda_kernels.stream_ptr(t))
+        if rc:
+            raise cuda_kernels.launch_failed(kernel, rc)
+
+    times = {"guarded": [], "bare": []}
+    try:
+        for which in ("guarded", "bare", "bare", "guarded"):
+            cuda_kernels.launch = guarded if which == "guarded" else bare
+            if not torch.equal(k3().cpu(), want):
+                raise AssertionError("K3 without the guard differs")
+            times[which].append((cuda_ms(k3, 10), cuda_ms(
+                lambda: [k3() for _ in range(10)], 5) / 10))
+    finally:
+        cuda_kernels.launch = guarded
+    t = torch.empty(1, device=dev)
+    n = 10000
+
+    def context_manager():
+        with torch.cuda.device(t.device):
+            pass
+
+    def exchange():                      # the guard in cuda_kernels.launch
+        prev = torch._C._cuda_exchangeDevice(t.get_device())
+        torch._C._cuda_maybeExchangeDevice(prev)
+
+    res = {k: {"wrapper_ms": [round(a, 4) for a, _ in v],
+               "back_to_back_ms": [round(b, 4) for _, b in v]}
+           for k, v in times.items()}
+    for name, fn in (("guard_host_us", exchange),
+                     ("context_manager_host_us", context_manager)):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        res[name] = (time.perf_counter() - t0) / n * 1e6
+    log(f"the launch device guard [{card}]: K3 through its wrapper at the "
+        f"AHX encode bank shape, guarded {res['guarded']['wrapper_ms']} ms, "
+        f"bare {res['bare']['wrapper_ms']} ms (turns: guarded, bare, bare, "
+        f"guarded); back to back guarded {res['guarded']['back_to_back_ms']}"
+        f", bare {res['bare']['back_to_back_ms']} ms a launch; the guard "
+        f"alone {res['guard_host_us']:.2f} us on the host, "
+        f"torch.cuda.device's context manager "
+        f"{res['context_manager_host_us']:.2f} us")
+    return res
+
+
+def mesh_phase(dev, card: str) -> None:
+    """Phase 18: every sharded entry point over a mesh of every visible
+    card and over meshes of cuda:0 repeated, byte-equal to its unsharded
+    call, with the kernels launched and the medians beside the unsharded
+    ones; dryrun_multichip on four repeats of cuda:0; the CriCodecs module
+    against the port calls it maps to; the launch device guard's cost."""
+    import __graft_entry_torch__ as graft
+    import pycricodecs_tpu_torch as port
+    from pycricodecs_tpu_torch import cricodecs as CC
+    from pycricodecs_tpu_torch.models import adx as adx_model
+    from pycricodecs_tpu_torch.models import crilayla
+    from pycricodecs_tpu_torch.models import hca as hca_model
+    from pycricodecs_tpu_torch.parallel import make_mesh
+    from pycricodecs_tpu_torch.utils import signals
+    from pycricodecs_tpu_torch.utils.wav import write_wav
+
+    real = make_mesh()
+    log(f"(a) make_mesh(): shape {real.shape} over "
+        f"{[str(d) for d in real.devices.flat]}")
+    meshes = [("every card " + str(real.shape), real)] + [
+        (f"cuda:0 x 4 as {shape}",
+         make_mesh(shape, devices=[torch.device("cuda", 0)] * 4))
+        for shape in REPEATED_SHAPES]
+    timings = {}
+    for name, own, fn in mesh_cases(dev):
+        want = fn(device=dev)
+        for label, m in meshes:
+            got, _ = drive(f"{name} over {label}", own,
+                           lambda: fn(mesh=m))
+            if [sha(g) for g in got] != [sha(w) for w in want]:
+                bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+                raise AssertionError(f"{name} over {label} differs from the "
+                                     f"unsharded call: outputs {bad[:8]}")
+            del got
+        log(f"{name}: {len(want)} outputs, byte-equal to the unsharded call "
+            f"over {[label for label, _ in meshes]}")
+        del want
+        walls = {"unsharded": median_wall(lambda: fn(device=dev))}
+        for label, m in meshes[1:]:
+            walls[label] = median_wall(lambda: fn(mesh=m))
+        timings[name] = {k: round(w, 4) for k, (w, _) in walls.items()}
+        log(f"{name} [{card}]: median of 3 " + "; ".join(
+            f"{k} {w:.4f} s (runs {[round(r, 4) for r in runs]})"
+            for k, (w, runs) in walls.items())
+            + " - four shards on one card share its SMs: not a gain")
+    BANKS["phase18_s"] = timings
+
+    # -- (c) dryrun_multichip on cuda:0 four times -------------------------
+    drive("dryrun_multichip(4, cuda:0 x 4)", (
+        *HCA_KERNELS, "adx_decode_host", "adx_encode", "mp2_unpack",
+        "mp2_synth", "hca_mdct", "hca_pack", *ENCODE_KERNELS),
+        lambda: graft.dryrun_multichip(
+            4, devices=[torch.device("cuda", 0)] * 4))
+
+    # -- (d) the CriCodecs module --------------------------------------------
+    def read(*parts):
+        with open(os.path.join(*parts), "rb") as f:
+            return f.read()
+
+    plain = read(FIXTURES, "q4_stereo_48k_1s.hca")
+    hs = int.from_bytes(plain[6:8], "big")
+    keyed = CC.HcaCrypt(plain, 1, hs, 56, KEY, 0x1234)
+    adx = read(ADX_FIXTURES, "adx_m4_stereo_1s.adx")
+    adx_wav = signals.adx_wav("adx_m4_stereo_1s", write_wav)
+    hca_wav = signals.hca_wav("q4_stereo_48k_1s", write_wav)
+    text = b"".join(b"bank %d: the quick brown fox. " % (i % 7)
+                    for i in range(400))
+    checks = [
+        ("AdxDecode", CC.AdxDecode(adx, device=dev),
+         adx_model.decode(adx, device=dev)),
+        ("AdxEncode", CC.AdxEncode(adx_wav, 4, 0x12, 4, 0x1F4, 0, 4, False,
+                                   device=dev),
+         adx_model.encode(adx_wav, encoding_mode=4, device=dev)),
+        ("HcaDecode", CC.HcaDecode(keyed, hs, KEY, 0x1234, device=dev),
+         hca_model.decode(keyed, KEY, 0x1234, device=dev)),
+        ("HcaEncode", CC.HcaEncode(hca_wav, 0, 4, device=dev),
+         port.hca_encode_batch([hca_wav], 4, device=dev)[0]),
+        ("HcaCrypt", CC.HcaCrypt(keyed, 0, hs, 56, KEY, 0x1234),
+         hca_model.crypt(keyed, False, hs, 56, KEY, 0x1234)),
+        ("CriLaylaCompress", CC.CriLaylaCompress(text),
+         crilayla.compress(text)),
+        ("CriLaylaDecompress", CC.CriLaylaDecompress(crilayla.compress(text)),
+         text),
+    ]
+    for name, got, want in checks:
+        if not isinstance(got, bytes) or got != want:
+            raise AssertionError(f"CriCodecs.{name} differs from the port "
+                                 f"call it maps to")
+    if checks[4][1] != plain:
+        raise AssertionError("CriCodecs.HcaCrypt did not decipher back")
+    log(f"(d) CriCodecs: {[c[0] for c in checks]} equal to the port calls "
+        f"they map to")
+    BANKS["phase18_guard"] = guard_cost(dev, card)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -3320,6 +3579,9 @@ def main() -> None:
 
     # -- phase 17: the remaining single-device surfaces ------------------------
     surfaces_phase(dev, card)
+
+    # -- phase 18: the sharded paths and the CriCodecs module ------------------
+    mesh_phase(dev, card)
 
     report = []
     for name, (ms, plain_ms, bd, *library) in results.items():

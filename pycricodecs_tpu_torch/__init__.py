@@ -8,8 +8,10 @@ that a CPU tensor runs instead. The single-file surfaces (ADX, HCA, AHX),
 the frame-range decode (models.hca.decode_range), the single-frame key test
 (ops.hca_frame.test_block), the Layer II decode (models.ahx.decode_mp2)
 and the command line (`python -m pycricodecs_tpu_torch`) run through the
-same kernels; the container readers (UTF, AWB, ACB) and builders
-(UTFBuilder, AWBBuilder, ACBBuilder) are host code. Output is byte-equal to the JAX package. This package never imports jax or
+same kernels; the batch entry points also shard over a mesh of devices
+(`parallel.make_mesh`, `mesh=`); the container readers (UTF, AWB, ACB),
+builders (UTFBuilder, AWBBuilder, ACBBuilder) and CRILAYLA are host code,
+and `cricodecs` is the CriCodecs drop-in module. Output is byte-equal to the JAX package. This package never imports jax or
 pycricodecs_tpu.
 """
 from .containers.acb import ACB, ACBBuilder

@@ -17,8 +17,9 @@ part and frame peaks), K2 `mp2_allocate` and K3 `mp2_pack`
 the encode (no Pallas kernel).
 The unpack kernels B1/B2 are wrapped in
 hca_unpack_device.py with the helpers below. A wrapper checks its inputs,
-allocates the outputs, launches on the current stream, raises if the launch
-failed and counts the launch.
+allocates the outputs, launches on the current stream of its input's
+device with that device current (`launch`), raises if the launch failed and
+counts the launch.
 """
 from __future__ import annotations
 
@@ -54,6 +55,27 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
 def host_ptr(a: np.ndarray) -> ctypes.c_void_p:
     """Host pointer of a contiguous numpy array (kept alive by the caller)."""
     return ctypes.c_void_p(a.ctypes.data)
+
+
+def launch(kernel: str, t: torch.Tensor, *args) -> None:
+    """Call the built library's launcher `kernel` with args and the current
+    stream of t's device, with t's device current on this host thread: the
+    launchers read their device's attributes (SM count, shared-memory
+    limits, occupancy) through cudaGetDevice, and a shard on a second card
+    may be enqueued from a thread whose current device is another. Raises
+    if the launch failed.
+
+    The guard is the one `torch.cuda.device` makes (exchange the current
+    device, exchange it back) without the context manager's Python layers:
+    PyTorch's private API, checked on torch 2.11.0+cu128."""
+    fn = getattr(_build.load(), kernel)
+    prev = torch._C._cuda_exchangeDevice(t.get_device())
+    try:
+        rc = fn(*args, stream_ptr(t))
+    finally:
+        torch._C._cuda_maybeExchangeDevice(prev)
+    if rc:
+        raise launch_failed(kernel, rc)
 
 
 def stream_ptr(t: torch.Tensor) -> ctypes.c_void_p:
@@ -116,14 +138,12 @@ def hca_transform(qc, sf, res, inten, hfr_map, *, base_band, total_band,
     hfr_is = np.ascontiguousarray(hfr_map.band_is_hfr, dtype=np.int32)
     hfr_src = np.ascontiguousarray(hfr_map.src_band, dtype=np.int32)
     hfr_group = np.ascontiguousarray(hfr_map.group_of, dtype=np.int32)
-    rc = _build.load().hca_transform(
-        ptr(qc), ptr(sf), ptr(res), ptr(inten), *noise_ptrs, B, F, C,
-        int(base_band), int(total_band), int(bool(apply_hfr)),
-        int(hfr_group_count), int(hfr_map.zero_band) if apply_hfr else -1,
-        host_ptr(partner), host_ptr(hfr_is), host_ptr(hfr_src),
-        host_ptr(hfr_group), ptr(out), stream_ptr(qc))
-    if rc:
-        raise launch_failed("hca_transform", rc)
+    launch("hca_transform", qc,
+           ptr(qc), ptr(sf), ptr(res), ptr(inten), *noise_ptrs, B, F, C,
+           int(base_band), int(total_band), int(bool(apply_hfr)),
+           int(hfr_group_count), int(hfr_map.zero_band) if apply_hfr else -1,
+           host_ptr(partner), host_ptr(hfr_is), host_ptr(hfr_src),
+           host_ptr(hfr_group), ptr(out))
     TRANSFORM_LAUNCHES += 1
     return out
 
@@ -161,12 +181,10 @@ def adx_decode(payload, h1, h2, c0, c1, *, bit_depth, encoding_mode,
     if L * nb == 0:
         return out
     static = np.ascontiguousarray(STATIC_COEFFICIENTS, dtype=np.int32)
-    rc = _build.load().adx_decode(
-        ptr(payload), ptr(h1), ptr(h2), ptr(c0), ptr(c1), L, nb, bs,
-        int(bit_depth), int(encoding_mode), int(bool(wrap)), host_ptr(static),
-        ptr(out), stream_ptr(payload))
-    if rc:
-        raise launch_failed("adx_decode", rc)
+    launch("adx_decode", payload,
+           ptr(payload), ptr(h1), ptr(h2), ptr(c0), ptr(c1), L, nb, bs,
+           int(bit_depth), int(encoding_mode), int(bool(wrap)),
+           host_ptr(static), ptr(out))
     if wrap:
         ADX_DECODE_LAUNCHES += 1
     else:
@@ -189,13 +207,11 @@ def adx_encode(pcm, c0, c1, h1, h2, *, block_size, bit_depth, encoding_mode,
                       device=pcm.device)
     if L * nb == 0:
         return out
-    rc = _build.load().adx_encode(
-        ptr(pcm), ptr(c0), ptr(c1), ptr(h1), ptr(h2),
-        ptr(_divisor_table(pcm.device)), L, nb, int(block_size),
-        int(bit_depth), int(encoding_mode), int(filter_), int(bool(scale_fix)),
-        ptr(out), stream_ptr(pcm))
-    if rc:
-        raise launch_failed("adx_encode", rc)
+    launch("adx_encode", pcm,
+           ptr(pcm), ptr(c0), ptr(c1), ptr(h1), ptr(h2),
+           ptr(_divisor_table(pcm.device)), L, nb, int(block_size),
+           int(bit_depth), int(encoding_mode), int(filter_),
+           int(bool(scale_fix)), ptr(out))
     ADX_ENCODE_LAUNCHES += 1
     return out
 
@@ -251,10 +267,7 @@ def hca_mdct(pcm) -> torch.Tensor:
                       device=pcm.device)
     if B * C * Tn == 0:
         return out
-    rc = _build.load().hca_mdct(ptr(pcm), B * C * Tn, Tn, ptr(out),
-                                stream_ptr(pcm))
-    if rc:
-        raise launch_failed("hca_mdct", rc)
+    launch("hca_mdct", pcm, ptr(pcm), B * C * Tn, Tn, ptr(out))
     MDCT_LAUNCHES += 1
     return out
 
@@ -285,11 +298,8 @@ def mp2_unpack(frames, channels: int):
     levels = parts[1].view(torch.int32).view(N, C, 32)
     sfidx = parts[2].view(N, C, 3, 32)
     err = parts[3].view(torch.bool)
-    rc = _build.load().mp2_unpack(ptr(frames), N, W, C, ptr(codes),
-                                  ptr(levels), ptr(sfidx), ptr(err),
-                                  stream_ptr(frames))
-    if rc:
-        raise launch_failed("mp2_unpack", rc)
+    launch("mp2_unpack", frames, ptr(frames), N, W, C, ptr(codes),
+           ptr(levels), ptr(sfidx), ptr(err))
     MP2_UNPACK_LAUNCHES += 1
     return codes, levels, sfidx, err
 
@@ -311,10 +321,8 @@ def mp2_synth(codes, levels, sfidx) -> torch.Tensor:
                       device=codes.device)
     if B * F * C == 0:
         return out
-    rc = _build.load().mp2_synth(ptr(codes), ptr(levels), ptr(sfidx), B, F,
-                                 C, ptr(out), stream_ptr(codes))
-    if rc:
-        raise launch_failed("mp2_synth", rc)
+    launch("mp2_synth", codes, ptr(codes), ptr(levels), ptr(sfidx), B, F,
+           C, ptr(out))
     MP2_SYNTH_LAUNCHES += 1
     return out
 
@@ -355,13 +363,11 @@ def hca_pack(level, boundary, sf, res, intensity, hfr_scales, delta_bits,
     # frame sizes under 8 have no mask table: the launch refuses them
     masks = (ptr(_crc_masks(int(frame_size), level.device))
              if frame_size >= 8 else None)
-    rc = _build.load().hca_pack(
-        ptr(level), ptr(boundary), ptr(sf), ptr(res), ptr(intensity),
-        ptr(hfr_scales), ptr(delta_bits), ptr(quant), masks, B * F, C, Gp,
-        int(hfr_group_count), int(frame_size), host_ptr(coded),
-        host_ptr(ctype), ptr(out), stream_ptr(level))
-    if rc:
-        raise launch_failed("hca_pack", rc)
+    launch("hca_pack", level,
+           ptr(level), ptr(boundary), ptr(sf), ptr(res), ptr(intensity),
+           ptr(hfr_scales), ptr(delta_bits), ptr(quant), masks, B * F, C, Gp,
+           int(hfr_group_count), int(frame_size), host_ptr(coded),
+           host_ptr(ctype), ptr(out))
     PACK_LAUNCHES += 1
     return out
 
@@ -396,10 +402,7 @@ def hca_imdct_ola(spec_t) -> torch.Tensor:
                       device=spec_t.device)
     if R * Tn == 0:
         return out
-    rc = _build.load().hca_imdct_ola(ptr(spec_t), R, Tn, ptr(out),
-                                     stream_ptr(spec_t))
-    if rc:
-        raise launch_failed("hca_imdct_ola", rc)
+    launch("hca_imdct_ola", spec_t, ptr(spec_t), R, Tn, ptr(out))
     IMDCT_OLA_LAUNCHES += 1
     return out
 
@@ -417,10 +420,7 @@ def hca_imdct(spec) -> torch.Tensor:
     rows = spec.numel() // 128
     if rows == 0:
         return out
-    rc = _build.load().hca_imdct(ptr(spec), rows, ptr(out),
-                                 stream_ptr(spec))
-    if rc:
-        raise launch_failed("hca_imdct", rc)
+    launch("hca_imdct", spec, ptr(spec), rows, ptr(out))
     IMDCT_LAUNCHES += 1
     return out
 
@@ -444,10 +444,8 @@ def mp2_analysis(pcm):
     frame = torch.empty((B, F, C, 32), dtype=torch.float64, device=dev)
     if B * C * F == 0:
         return S, part, frame
-    rc = _build.load().mp2_analysis(ptr(pcm), B, C, F * 36, ptr(S),
-                                    ptr(part), ptr(frame), stream_ptr(pcm))
-    if rc:
-        raise launch_failed("mp2_analysis", rc)
+    launch("mp2_analysis", pcm, ptr(pcm), B, C, F * 36, ptr(S),
+           ptr(part), ptr(frame))
     MP2_ANALYSIS_LAUNCHES += 1
     return S, part, frame
 
@@ -486,12 +484,10 @@ def mp2_allocate(S, part_peaks, need_db, budgets, itab, snr, *,
     codes = torch.empty((B, F, C, 36, 32), dtype=torch.uint16, device=dev)
     if B * F == 0:
         return alloc, scfsi, sfidx, codes
-    rc = _build.load().mp2_allocate(
-        ptr(S), ptr(part_peaks), B, F, C, int(sblimit), int(bound),
-        int(bool(joint)), ptr(need_db), ptr(budgets), ptr(itab), ptr(snr),
-        ptr(alloc), ptr(scfsi), ptr(sfidx), ptr(codes), stream_ptr(S))
-    if rc:
-        raise launch_failed("mp2_allocate", rc)
+    launch("mp2_allocate", S,
+           ptr(S), ptr(part_peaks), B, F, C, int(sblimit), int(bound),
+           int(bool(joint)), ptr(need_db), ptr(budgets), ptr(itab), ptr(snr),
+           ptr(alloc), ptr(scfsi), ptr(sfidx), ptr(codes))
     MP2_ALLOCATE_LAUNCHES += 1
     return alloc, scfsi, sfidx, codes
 
@@ -526,11 +522,9 @@ def mp2_pack(alloc, scfsi, sfidx, codes, pads, offs, ctab, *, sblimit: int,
     out = torch.empty((B, total), dtype=torch.uint8, device=alloc.device)
     if B * F == 0:
         return out
-    rc = _build.load().mp2_pack(
-        ptr(alloc), ptr(scfsi), ptr(sfidx), ptr(codes), ptr(pads), ptr(offs),
-        B, F, C, int(sblimit), int(bound), int(header_base), ptr(ctab),
-        int(total), int(max_frame), ptr(out), stream_ptr(alloc))
-    if rc:
-        raise launch_failed("mp2_pack", rc)
+    launch("mp2_pack", alloc,
+           ptr(alloc), ptr(scfsi), ptr(sfidx), ptr(codes), ptr(pads),
+           ptr(offs), B, F, C, int(sblimit), int(bound), int(header_base),
+           ptr(ctab), int(total), int(max_frame), ptr(out))
     MP2_PACK_LAUNCHES += 1
     return out

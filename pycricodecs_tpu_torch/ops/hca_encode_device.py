@@ -578,17 +578,25 @@ def assemble(cfgs, frames: np.ndarray) -> List[bytes]:
 
 def encode_batch_device(wavs: Sequence, quality: int = 1,
                         force_not_looping: bool = False, *,
-                        device="cuda") -> List[bytes]:
+                        device="cuda", devices=None) -> List[bytes]:
     """Encode parsed WAVs (utils.wav.WavFile) that share (channels,
     sample_rate), as hca_encode_batch groups them, to HCA v2.0 bytes on
-    `device`.
+    `device`, or over `devices` (a mesh's dp axis): the streams shard in
+    order, one equal shard a device, silent streams padding the last ones
+    (as the JAX function pads its stream axis to the mesh), and every
+    shard's kernels are enqueued before the first fetch.
 
     Byte-equal to the JAX package's encode_batch_device and
     hca_encode_host.encode. Streams of different lengths are frame-padded;
     only the packed frames come back from the device."""
-    device = torch.device(device)
+    from ..parallel.mesh import shard_rows
+
+    devices = [torch.device(device)] if devices is None else list(devices)
     cfgs = [H.init_encode(w, quality, w.looping and not force_not_looping)
             for w in wavs]
-    pcm = torch.from_numpy(stack_timelines(cfgs, wavs)).to(device)
-    frames = hca_encode_frames(pcm, **encode_config(cfgs[0].info, cfgs[0]))
-    return assemble(cfgs, frames.cpu().numpy())
+    kw = encode_config(cfgs[0].info, cfgs[0])
+    pcm = stack_timelines(cfgs, wavs)
+    frames = [hca_encode_frames(torch.from_numpy(p).to(d), **kw)
+              for d, p in zip(devices, shard_rows(pcm, len(devices)))]
+    host = [f.cpu().numpy() for f in frames]
+    return assemble(cfgs, host[0] if len(host) == 1 else np.concatenate(host))

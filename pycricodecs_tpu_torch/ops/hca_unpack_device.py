@@ -43,7 +43,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import _build
 from . import cuda_kernels as ck
 from . import hca_tables as T
 from .hca_frame import HcaError
@@ -276,12 +275,10 @@ class DeviceUnpacker:
         buf = torch.empty(offsets[-1], dtype=torch.uint8, device=dec.device)
         if N:
             p = buf.data_ptr()
-            rc = _build.load().hca_side_info(
-                dec.data_ptr(), N, self._side_info_cfg_ptr, p,
-                p + offsets[1], p + offsets[2], p + offsets[3],
-                p + offsets[4], ck.stream_ptr(dec))
-            if rc:
-                raise ck.launch_failed("hca_side_info", rc)
+            ck.launch("hca_side_info", dec,
+                      dec.data_ptr(), N, self._side_info_cfg_ptr, p,
+                      p + offsets[1], p + offsets[2], p + offsets[3],
+                      p + offsets[4])
             SIDE_INFO_LAUNCHES += 1
         # the views are made while the kernel runs
         return self.side_info_views(buf, N, offsets)
@@ -422,8 +419,27 @@ class DeviceUnpacker:
 
     # -- v3 PNS noise maps --------------------------------------------------
 
+    def _noise_bands(self, sf: torch.Tensor, res: torch.Tensor):
+        """(sf i64, noise bands, valid bands, their counts nc and vc) of
+        frames' sf/res u8 [N, C, 128]: a coded band with a scalefactor is
+        noise-filled at resolution 0 and valid (a fill source) above."""
+        k = torch.arange(128, device=sf.device)
+        coded = torch.tensor(self.coded, device=sf.device)[None, :, None]
+        sf_i = sf.long()
+        active = (sf_i > 0) & (k < coded)
+        noise_f = active & (res < 1)
+        valid_f = active & (res >= 1)
+        return sf_i, noise_f, valid_f, noise_f.sum(-1), valid_f.sum(-1)
+
+    def frame_draws(self, sf: torch.Tensor, res: torch.Tensor) -> torch.Tensor:
+        """The noise LCG's draws in each frame of sf/res u8 [N, C, 128],
+        i64 [N]: per subframe, nc for each channel with nc noise bands and
+        a valid band (`noise_maps`'s count, every frame live)."""
+        _, _, _, nc, vc = self._noise_bands(sf, res)
+        return 8 * torch.where((nc > 0) & (vc > 0), nc, 0).sum(-1)
+
     def noise_maps(self, sf: torch.Tensor, res: torch.Tensor, B: int,
-                   live=None, seed: int = 1):
+                   live=None, seed: int = 1, draws_before=None):
         """PNS noise fill maps (reconstruct_noise, hca.cpp:1602-1635) of the
         frames of B streams: sf/res u8 [N, C, 128], N = B * F frame-major
         per stream -> (src u8, sci u8, mask bool), each [N, C, 8, 128], on
@@ -432,7 +448,10 @@ class DeviceUnpacker:
         None for all): a frame not live draws nothing and gets no mask, so
         each stream's (or each key's) LCG advances only across its live
         frames, in frame order (the key search's rule, JAX
-        pipeline.py:1147-1166).
+        pipeline.py:1147-1166). `draws_before` (i64 [B], or None for
+        zeros): each stream's draws before its first frame here, so that a
+        shard of a stream's frames continues its LCG where the frames
+        before it left off (`frame_draws` counts them).
 
         The draw order is subframe-major, then channel, then noise slot; a
         (subframe, channel) with nc noise bands and vc > 0 valid bands takes
@@ -445,15 +464,9 @@ class DeviceUnpacker:
         computes these maps in XLA, outside its kernels."""
         N, C, dev = sf.shape[0], self.C, sf.device
         k = torch.arange(128, device=dev)
-        coded = torch.tensor(self.coded, device=dev)[None, :, None]
-        sf_i = sf.long()
-        active = (sf_i > 0) & (k < coded)
-        noise_f = active & (res < 1)
-        valid_f = active & (res >= 1)
+        sf_i, noise_f, valid_f, nc, vc = self._noise_bands(sf, res)
         nrank = noise_f.long().cumsum(-1) - 1                  # [N, C, 128]
         vrank = valid_f.long().cumsum(-1) - 1
-        nc = noise_f.sum(-1)                                   # [N, C]
-        vc = valid_f.sum(-1)
         draws = (nc > 0) & (vc > 0)
         if live is not None:
             draws = draws & live[:, None]
@@ -461,7 +474,10 @@ class DeviceUnpacker:
         NC = nc_eff.sum(-1)                                    # [N]
         pre_c = nc_eff.cumsum(-1) - nc_eff                     # exclusive
         per_frame = (8 * NC).view(B, -1)
-        before = (per_frame.cumsum(1) - per_frame).view(N)
+        before = per_frame.cumsum(1) - per_frame
+        if draws_before is not None:
+            before = before + draws_before.to(dev).long()[:, None]
+        before = before.reshape(N)
         s8 = torch.arange(8, device=dev)
         ordinal = (before[:, None, None, None]
                    + s8[None, None, :, None] * NC[:, None, None, None]
@@ -521,12 +537,10 @@ class DeviceUnpacker:
         end = torch.empty((N,), dtype=torch.int32, device=dec.device)
         if N == 0:
             return qc, end
-        rc = _build.load().hca_coefficients(
-            ck.ptr(dec), ck.ptr(res), ck.ptr(cur), N, self.fs, C,
-            ck.host_ptr(self._coded), ck.ptr(qc) if want_qc else None,
-            ck.ptr(end), ck.stream_ptr(dec))
-        if rc:
-            raise ck.launch_failed("hca_coefficients", rc)
+        ck.launch("hca_coefficients", dec,
+                  ck.ptr(dec), ck.ptr(res), ck.ptr(cur), N, self.fs, C,
+                  ck.host_ptr(self._coded), ck.ptr(qc) if want_qc else None,
+                  ck.ptr(end))
         COEFF_LAUNCHES += 1
         return qc, end
 

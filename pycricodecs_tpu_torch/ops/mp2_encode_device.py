@@ -355,9 +355,6 @@ def encode_from_spectra(S: torch.Tensor, cfg: EncodeConfig,
     take them from K1 (`encode_streams`), never from a plain reduction."""
     B, C, Tn, _ = S.shape
     F = Tn // ROWS
-    frames = [F] * B if frames is None else list(frames)
-    pads, frame_sizes, budgets = cfg.frame_plan(F)
-    offs = frame_offsets(frame_sizes)
     if B * F == 0:
         return [b""] * B
     if peaks is None:
@@ -365,10 +362,28 @@ def encode_from_spectra(S: torch.Tensor, cfg: EncodeConfig,
             raise ValueError("encode_from_spectra: spectra on the card need "
                              "their peaks from kernel K1 (mp2_analysis)")
         peaks = (part_peaks_plain(S), frame_peaks_plain(S))
+    data = _allocate_and_pack(S, cfg, peaks).cpu().numpy()
+    return _cut(data, cfg, F, frames)
+
+
+def _allocate_and_pack(S: torch.Tensor, cfg: EncodeConfig,
+                       peaks: tuple) -> torch.Tensor:
+    """Stages 2-4 on S and its (part, frame) peaks: the streams' bytes u8
+    [B, total] on S's device (the need_db round trip to the host
+    synchronises S's device)."""
+    pads, frame_sizes, budgets = cfg.frame_plan(S.shape[2] // ROWS)
     part, frame = peaks
     need = need_db_host(frame)
     out = allocate(S, part, need, torch.from_numpy(budgets).to(S.device), cfg)
-    data = pack(*out, cfg, pads, frame_sizes).cpu().numpy()
+    return pack(*out, cfg, pads, frame_sizes)
+
+
+def _cut(data: np.ndarray, cfg: EncodeConfig, F: int,
+         frames: Optional[Sequence[int]]) -> List[bytes]:
+    """Stage 5: rows of stream bytes u8 [>= B, total] of F frames each ->
+    stream b cut to frames[b] frames (default F), for each b."""
+    offs = frame_offsets(cfg.frame_plan(F)[1])
+    frames = [F] * data.shape[0] if frames is None else list(frames)
     return [data[b, :offs[f]].tobytes() for b, f in enumerate(frames)]
 
 
@@ -377,5 +392,24 @@ def encode_streams(pcm: torch.Tensor, cfg: EncodeConfig,
     """PCM16 i16 [B, C, F*1152] (each stream's tail zero-padded, on the
     device the work runs on) -> one Layer II stream per row, cut to
     `frames[b]` frames (default all F)."""
-    S, part, frame = analysis(pcm)
-    return encode_from_spectra(S, cfg, frames, peaks=(part, frame))
+    return encode_streams_sharded([pcm], cfg, frames)
+
+
+def encode_streams_sharded(shards: Sequence[torch.Tensor], cfg: EncodeConfig,
+                           frames: Optional[Sequence[int]] = None
+                           ) -> List[bytes]:
+    """encode_streams over stream shards: PCM16 i16 [Bs, C, F*1152] on
+    each shard's own device, the shards' rows in stream order -> one
+    Layer II stream per entry of frames (rows past them are padding,
+    dropped; default: every row, all F frames). Every shard's K1 is
+    enqueued before the first need_db fetch, and every shard's K2 and K3
+    before the first fetch of frames."""
+    B, F = sum(p.shape[0] for p in shards), shards[0].shape[2] // (ROWS * 32)
+    if B * F == 0:
+        return [b""] * (B if frames is None else len(frames))
+    spectra = [analysis(pcm) for pcm in shards]
+    data = [_allocate_and_pack(S, cfg, (part, frame))
+            for S, part, frame in spectra]
+    data = [d.cpu().numpy() for d in data]
+    return _cut(data[0] if len(data) == 1 else np.concatenate(data), cfg, F,
+                frames)

@@ -1,4 +1,5 @@
-"""Batched HCA, ADX and AHX bank decode and encode on one device.
+"""Batched HCA, ADX and AHX bank decode and encode on one device, or
+sharded over a mesh of devices (`mesh.py`).
 
 HCA: counterpart of the device engine of pycricodecs_tpu/parallel/pipeline.py
 (`decode_batch`, `_decode_group`, `_decode_group_inner`):
@@ -71,6 +72,15 @@ members through one ahx_decode_batch call, and all ADX members through one
 launch of B7 per geometry in the JAX host decoders' arithmetic; a member
 that does not parse comes back raw.
 
+Sharding (`mesh=` on decode_batch, decode_awb, decode_acb, adx_decode_batch,
+adx_encode_batch, ahx_decode_batch, hca_encode_batch and ahx_encode_batch,
+the JAX functions' counterpart): one process enqueues each shard's work on
+its own device of a `parallel.Mesh` and returns the whole batch, as the
+JAX package's single controller does. Streams shard over dp; the HCA
+decode also splits frames over sp with a one-frame halo; the ADX lanes
+shard over every device of the mesh. Each sharded call is byte-equal to
+the meshless one.
+
 Observability: `trace(log_dir)` records a torch.profiler Chrome trace of
 the calls it wraps, and `measure_d2h_bandwidth` times one device-to-host
 copy.
@@ -96,6 +106,7 @@ from ..ops import (adx_kernels, hca_encode_device, hca_frame, hca_kernels,
 from ..utils import hca_crypt
 from ..utils import wav as wavmod
 from ..utils.crc import crc16_batch
+from .mesh import Mesh, check_mesh, shard_rows
 
 SAMPLES_PER_FRAME = hca_model.SAMPLES_PER_FRAME
 CHUNK_STREAMS = 64
@@ -192,20 +203,32 @@ def _config_key(info: hca_frame.HcaInfo) -> tuple:
 
 def decode_batch(blobs: Sequence[bytes], key: int = 0, subkey: int = 0,
                  subkeys: Optional[Sequence[int]] = None, *,
-                 device="cuda", return_arrays: bool = False,
-                 on_error: str = "raise",
+                 device="cuda", mesh: Optional[Mesh] = None,
+                 return_arrays: bool = False, on_error: str = "raise",
                  stats: Optional[DecodeStats] = None) -> List:
     """Decode many HCA streams on `device` in batches.
+
+    mesh (parallel.make_mesh; it replaces `device`): streams shard over
+    its dp axis, frames over its sp axis. Shard (d, s) gets its own
+    unpacker on its device and the H2D of its own frames; shard s > 0 also
+    takes shard s-1's last frame ahead of its own (a device-to-device copy,
+    the JAX package's ppermute halo), decodes it for the overlap-add carry
+    and drops its PCM. v3 PNS streams keep their kernels under sp: each
+    shard continues each stream's noise LCG from the draws of the shards
+    before it (an exclusive scan of the shards' draw totals, on the host).
+    Every shard's kernels are enqueued before the first PCM fetch.
 
     on_error: "raise" aborts the batch on any corrupt stream; "isolate"
     keeps going, and a failed stream comes back as its exception object.
 
     Returns WAV bytes per stream, or (pcm16 [samples, C], HcaInfo) pairs
-    when return_arrays. Byte-equal to pycricodecs_tpu.parallel.decode_batch.
+    when return_arrays. Byte-equal to pycricodecs_tpu.parallel.decode_batch,
+    with or without a mesh.
     """
     if on_error not in ("raise", "isolate"):
         raise ValueError("on_error must be 'raise' or 'isolate'")
-    device = torch.device(device)
+    devices = ([torch.device(device)] if mesh is None
+               else list(dict.fromkeys(check_mesh(mesh).flat_devices())))
     t_start = time.perf_counter()
     infos: List = []
     failures: dict = {}
@@ -239,8 +262,9 @@ def decode_batch(blobs: Sequence[bytes], key: int = 0, subkey: int = 0,
     unpackers = {}
     for gk, group in groups.items():
         try:
-            unpackers[gk] = hca_unpack_device.DeviceUnpacker(
-                infos[group[0]][0], device)
+            # one unpacker a device of the mesh (or the one device)
+            unpackers[gk] = {d: hca_unpack_device.DeviceUnpacker(
+                infos[group[0]][0], d) for d in devices}
         except hca_frame.HcaError as exc:
             if on_error == "raise":
                 raise
@@ -248,20 +272,20 @@ def decode_batch(blobs: Sequence[bytes], key: int = 0, subkey: int = 0,
 
     results: List = [None] * len(blobs)
     for gk, group in groups.items():
-        up = unpackers.get(gk)
-        if up is None:
+        ups = unpackers.get(gk)
+        if ups is None:
             continue
         if on_error == "raise":
-            _decode_group(up, group, infos, results, stats)
+            _decode_group(ups, group, infos, results, stats, mesh)
             continue
         try:
-            _decode_group(up, group, infos, results, stats)
+            _decode_group(ups, group, infos, results, stats, mesh)
         except hca_frame.HcaError:
             # a stream in this group is corrupt: decode one by one so one
             # bad member doesn't take down its group
             for idx in group:
                 try:
-                    _decode_group(up, [idx], infos, results, stats)
+                    _decode_group(ups, [idx], infos, results, stats, mesh)
                 except hca_frame.HcaError as exc:
                     failures[idx] = exc
 
@@ -300,35 +324,112 @@ def decode_rows(up: hca_unpack_device.DeviceUnpacker, frames: torch.Tensor,
     then kernel B3; each stream's first frame has a zero overlap carry
     (the JAX fused decode's `core`, pipeline.py:461-485)."""
     B, F, fs = frames.shape
-    C = up.C
     qc, sf, res, inten, err = up(frames.reshape(B * F, fs))
+    pcm = transform_rows(up, info, (qc, sf, res, inten), B, seed=seed)
+    return pcm, err.view(B, F)
+
+
+def transform_rows(up: hca_unpack_device.DeviceUnpacker, info, rows, B: int,
+                   seed: int = 1, draws_before=None) -> torch.Tensor:
+    """The second half of decode_rows: the unpacked rows (qc, sf, res,
+    inten) of B streams' F frames each, frame-major per stream, through
+    the PNS noise maps (min_resolution 0; each stream's LCG from `seed`,
+    past draws_before i64 [B] draws where given) and kernel B3 ->
+    interleaved PCM16 [B, F * 1024, C]."""
+    qc, sf, res, inten = rows
+    C = up.C
+    F = qc.shape[0] // B
     noise = None
     if info.min_resolution == 0:
         # v3 PNS: the fill applies whenever min_resolution is 0, as in the
         # JAX fused device path (apply_noise=up.need_noise)
-        noise = tuple(m.view(B, F, C, 8, 128)
-                      for m in up.noise_maps(sf, res, B, seed=seed))
+        noise = tuple(m.view(B, F, C, 8, 128) for m in up.noise_maps(
+            sf, res, B, seed=seed, draws_before=draws_before))
     hfr, cfg = hca_kernels.transform_config(info)
     pcm = hca_kernels.hca_decode_transform_batched(
         qc.view(B, F, C, 8, 128), sf.view(B, F, C, 128),
         res.view(B, F, C, 128), inten.view(B, F, C, 8), hfr, noise=noise,
         **cfg)
-    return pcm.view(B, F * SAMPLES_PER_FRAME, C), err.view(B, F)
+    return pcm.view(B, F * SAMPLES_PER_FRAME, C)
 
 
-def _decode_group(up: hca_unpack_device.DeviceUnpacker, group, infos,
-                  results, stats: Optional[DecodeStats] = None) -> None:
+def _decode_sharded(ups: dict, frames_np: np.ndarray, info, mesh: Mesh):
+    """decode_rows over the (dp, sp) grid of `mesh`: enciphered frames u8
+    [Bp, Fp, fs] on the host (Bp a multiple of dp, Fp of sp) -> (PCM16
+    [Bp, Fp * 1024, C], error flags bool [Bp, Fp]) on the host."""
+    dp, sp = mesh.dp, mesh.sp
+    grid = mesh.devices.reshape(dp, sp)
+    Bp, Fp, fs = frames_np.shape
+    Bs, Fs = Bp // dp, Fp // sp
+    # each shard's own frames, copied to its device
+    own = [[torch.from_numpy(np.ascontiguousarray(
+        frames_np[d * Bs:(d + 1) * Bs, s * Fs:(s + 1) * Fs])).to(grid[d, s])
+        for s in range(sp)] for d in range(dp)]
+    # the halo: shard s > 0 decodes shard s-1's last frame ahead of its own
+    # for the overlap-add carry into its first frame; shard 0 keeps the
+    # zero carry of a stream's head
+    frames = [[own[d][0]] + [torch.cat(
+        [own[d][s - 1][:, -1:].to(grid[d, s]), own[d][s]], dim=1)
+        for s in range(1, sp)] for d in range(dp)]
+    unpacked = [[ups[grid[d, s]](frames[d][s].reshape(-1, fs))
+                 for s in range(sp)] for d in range(dp)]
+    halo = [0] + [1] * (sp - 1)
+    draws_before = [[None] * sp for _ in range(dp)]
+    if info.min_resolution == 0 and sp > 1:
+        # v3 PNS: a stream's noise LCG runs on across its frames, so shard
+        # s starts after the draws of shards 0..s-1 (an exclusive scan of
+        # the shards' totals); its halo frame's draws are its left
+        # neighbour's, and it draws them again from there
+        for d in range(dp):
+            per_frame = [ups[grid[d, s]].frame_draws(*unpacked[d][s][1:3])
+                         .view(Bs, -1).cpu().numpy() for s in range(sp)]
+            done = np.zeros(Bs, np.int64)
+            for s in range(sp):
+                draws_before[d][s] = torch.from_numpy(
+                    done - per_frame[s][:, :halo[s]].sum(1))
+                done = done + per_frame[s][:, halo[s]:].sum(1)
+    pcm, err = [], []
+    for d in range(dp):
+        for s in range(sp):
+            qc, sf, res, inten, e = unpacked[d][s]
+            p = transform_rows(ups[grid[d, s]], info, (qc, sf, res, inten),
+                               Bs, draws_before=draws_before[d][s])
+            pcm.append(p[:, halo[s] * SAMPLES_PER_FRAME:])
+            err.append(e.view(Bs, -1)[:, halo[s]:])
+    # every shard is enqueued: now the fetches
+    pcm = [p.cpu().numpy() for p in pcm]
+    err = [e.cpu().numpy() for e in err]
+    return (np.concatenate([np.concatenate(pcm[d * sp:(d + 1) * sp], 1)
+                            for d in range(dp)]),
+            np.concatenate([np.concatenate(err[d * sp:(d + 1) * sp], 1)
+                            for d in range(dp)]))
+
+
+def _decode_group(ups: dict, group, infos, results,
+                  stats: Optional[DecodeStats] = None,
+                  mesh: Optional[Mesh] = None) -> None:
     """Decode one (config, sample rate, cipher) group, CHUNK_STREAMS streams
-    per device batch, into results[idx] (pcm16 [samples, C])."""
+    per device batch, into results[idx] (pcm16 [samples, C]); ups holds
+    the group's unpacker on each device. With a mesh, the chunk is a
+    multiple of dp and the frame count one of sp, so that the shards are
+    equal; the padded rows and frames are zero frames, dropped. (The JAX
+    package rounds the frame count to 32 x sp to bound its compiled
+    shapes; the port compiles nothing per shape, and a padded frame is
+    work: 5 times the frames of a 1 s stream under sp = 8.)"""
     info0 = infos[group[0]][0]
     fs = info0.frame_size
     fmax = max(infos[i][0].frame_count for i in group)
+    chunk = CHUNK_STREAMS
+    if mesh is not None:
+        fmax = -(-fmax // mesh.sp) * mesh.sp
+        chunk = -(-chunk // mesh.dp) * mesh.dp
     t_unpack = t_device = t_fetch = 0.0
-    for start in range(0, len(group), CHUNK_STREAMS):
-        members = group[start:start + CHUNK_STREAMS]
+    for start in range(0, len(group), chunk):
+        members = group[start:start + chunk]
         Bc = len(members)
+        Bp = Bc if mesh is None else -(-Bc // mesh.dp) * mesh.dp
         t0 = time.perf_counter()
-        frames_np = np.zeros((Bc, fmax, fs), dtype=np.uint8)
+        frames_np = np.zeros((Bp, fmax, fs), dtype=np.uint8)
         real_frames = []
         for b, idx in enumerate(members):
             info, blob, hs = infos[idx]
@@ -343,11 +444,19 @@ def _decode_group(up: hca_unpack_device.DeviceUnpacker, group, infos,
         if crc16_batch(frames_np.reshape(-1, fs)).any():
             raise hca_frame.HcaError("Frame checksum mismatch")
         t1 = time.perf_counter()
-        pcm, err = decode_rows(up, torch.from_numpy(frames_np), info0)
-        t2 = time.perf_counter()
-        if bool(err.any()):
-            raise hca_frame.HcaError("Unpack error (device)")
-        out = pcm.cpu().numpy()
+        if mesh is None:
+            up, = ups.values()
+            pcm, err = decode_rows(up, torch.from_numpy(frames_np), info0)
+            t2 = time.perf_counter()
+            if bool(err.any()):
+                raise hca_frame.HcaError("Unpack error (device)")
+            out = pcm.cpu().numpy()
+        else:
+            # enqueue and fetch are one step here (t2 = t1)
+            t2 = t1
+            out, err = _decode_sharded(ups, frames_np, info0, mesh)
+            if err.any():
+                raise hca_frame.HcaError("Unpack error (device)")
         for b, idx in enumerate(members):
             info = infos[idx][0]
             samples = (info.frame_count * SAMPLES_PER_FRAME
@@ -651,6 +760,7 @@ def _interleave(pcm: np.ndarray, lane0: int, h, n: int) -> np.ndarray:
 
 
 def adx_decode_batch(blobs: Sequence[bytes], *, device="cuda",
+                     mesh: Optional[Mesh] = None,
                      strict_cri_check: bool = True,
                      wrap: bool = False) -> List[bytes]:
     """Decode many ADX streams on `device`; returns WAV bytes per stream.
@@ -667,13 +777,40 @@ def adx_decode_batch(blobs: Sequence[bytes], *, device="cuda",
     Streams are grouped by (encoding_mode, bit_depth, block_size); each
     group is one launch of kernel B7 with per-lane history and
     coefficients, so sample rates, highpass values and versions mix freely.
-    A bad header raises before anything is decoded."""
+    A bad header raises before anything is decoded.
+
+    mesh (parallel.make_mesh; it replaces `device`): the lanes (streams x
+    channels) shard over every device of the mesh, dp x sp flattened,
+    padded with silent lanes to a multiple of that count; each shard is one
+    launch of B7 on its device, and the blocks are not split. B7 runs each
+    lane's AR(2) chain serially, so a device holding a chain's later blocks
+    would only wait for its left neighbour's final history; the JAX
+    package splits blocks over sp because its meshed engine is a block-
+    parallel fixpoint, which the port does not carry. The bytes are the
+    same either way, and a mesh does not change the arithmetic: the JAX
+    meshed call is its device engine, whose answer is wrap=True's."""
     parsed = [_parse_adx(bytes(b), strict_cri_check) for b in blobs]
-    return _adx_decode_parsed(parsed, torch.device(device), wrap)
+    return _adx_decode_parsed(parsed, torch.device(device), wrap, mesh)
 
 
-def _adx_decode_parsed(parsed, device, wrap: bool) -> List[bytes]:
+def _fetch_rows(parts) -> np.ndarray:
+    """The shards' device outputs on the host, joined along their rows
+    (one shard: its own array, not a copy)."""
+    host = [p.cpu().numpy() for p in parts]
+    return host[0] if len(host) == 1 else np.concatenate(host)
+
+
+def _lane_shards(devices, *arrays) -> list:
+    """Per device, its equal share of each array's rows (lanes), zero
+    lanes added to the last shards: [(device, [shard arrays...]), ...]."""
+    shards = [shard_rows(a, len(devices)) for a in arrays]
+    return [(dev, [sh[i] for sh in shards]) for i, dev in enumerate(devices)]
+
+
+def _adx_decode_parsed(parsed, device, wrap: bool,
+                       mesh: Optional[Mesh] = None) -> List[bytes]:
     """WAV bytes of the streams parsed by _parse_adx (adx_decode_batch)."""
+    devices = [device] if mesh is None else check_mesh(mesh).flat_devices()
     groups: dict = {}
     for idx, (h, *_) in enumerate(parsed):
         groups.setdefault((h.encoding_mode, h.bit_depth, h.block_size),
@@ -685,11 +822,14 @@ def _adx_decode_parsed(parsed, device, wrap: bool) -> List[bytes]:
         L, nb, bs = lanes.shape
         spb = adx_model.samples_per_block(bs, bit_depth)
         if nb:
-            payload = torch.from_numpy(lanes).to(device)
-            pcm_dev = adx_kernels.adx_decode_device(
-                payload, *_lane_tensors(device, h1, h2, c0, c1),
-                bit_depth=bit_depth, encoding_mode=mode, wrap=wrap)
-            pcm = pcm_dev.cpu().numpy().reshape(L, nb * spb)
+            pcm_dev = []
+            for dev, (pl, *lane_args) in _lane_shards(
+                    devices, lanes, h1, h2, c0, c1):
+                pcm_dev.append(adx_kernels.adx_decode_device(
+                    torch.from_numpy(pl).to(dev),
+                    *_lane_tensors(dev, *lane_args), bit_depth=bit_depth,
+                    encoding_mode=mode, wrap=wrap))
+            pcm = _fetch_rows(pcm_dev)[:L].reshape(L, nb * spb)
         else:
             pcm = np.zeros((L, 0), dtype=np.int16)
         for idx, lane0, _, nblk in spans:
@@ -731,7 +871,8 @@ def adx_encode_batch(wav_blobs: Sequence[bytes], *, bit_depth: int = 4,
                      block_size: int = 0x12, encoding_mode: int = 3,
                      highpass_frequency: int = 0x1F4, filter_: int = 0,
                      version: int = 4, force_not_looping: bool = False,
-                     scale_fix: bool = False, device="cuda") -> List[bytes]:
+                     scale_fix: bool = False, device="cuda",
+                     mesh: Optional[Mesh] = None) -> List[bytes]:
     """Encode many WAVs to ADX on `device`; returns ADX bytes per WAV,
     byte-equal to pycricodecs_tpu.parallel.adx_encode_batch and
     pycricodecs_tpu.models.adx.encode with the same keywords.
@@ -739,8 +880,14 @@ def adx_encode_batch(wav_blobs: Sequence[bytes], *, bit_depth: int = 4,
     Every stream with at least one block goes into one launch of kernel B8
     (per-lane coefficients, so sample rates mix); a WAV shorter than one
     block gets a header and EOF block only. A WAV the encoder refuses
-    raises before anything is encoded."""
-    device = torch.device(device)
+    raises before anything is encoded.
+
+    mesh (parallel.make_mesh; it replaces `device`): as adx_decode_batch's,
+    the lanes shard over every device of the mesh (one B8 launch each,
+    silent lanes padding the last shards) and the blocks are not split:
+    B8's chains are serial per lane. The bytes are the meshless call's."""
+    devices = ([torch.device(device)] if mesh is None
+               else check_mesh(mesh).flat_devices())
     preps = [adx_model._encode_prep(
         bytes(b), bit_depth=bit_depth, block_size=block_size,
         encoding_mode=encoding_mode, highpass_frequency=highpass_frequency,
@@ -762,12 +909,13 @@ def adx_encode_batch(wav_blobs: Sequence[bytes], *, bit_depth: int = 4,
         return results
     spb = adx_model.samples_per_block(block_size, bit_depth)
     pcm, c0, c1, h1, h2, spans = _stack_adx_pcm(preps, members, spb)
-    blocks_dev = adx_kernels.adx_encode_device(
-        torch.from_numpy(pcm).to(device),
-        *_lane_tensors(device, c0, c1, h1, h2), block_size=block_size,
-        bit_depth=bit_depth, encoding_mode=encoding_mode, filter_=filter_,
-        scale_fix=scale_fix)
-    blocks = blocks_dev.cpu().numpy()
+    blocks_dev = [adx_kernels.adx_encode_device(
+        torch.from_numpy(lanes).to(dev), *_lane_tensors(dev, *lane_args),
+        block_size=block_size, bit_depth=bit_depth,
+        encoding_mode=encoding_mode, filter_=filter_, scale_fix=scale_fix)
+        for dev, (lanes, *lane_args) in _lane_shards(
+            devices, pcm, c0, c1, h1, h2)]
+    blocks = _fetch_rows(blocks_dev)
     for idx, lane0, ch in spans:
         prep = preps[idx]
         payload = np.ascontiguousarray(
@@ -782,7 +930,7 @@ def adx_encode_batch(wav_blobs: Sequence[bytes], *, bit_depth: int = 4,
 
 def hca_encode_batch(wavs: Sequence[bytes], quality: int = 1,
                      force_not_looping: bool = False, *,
-                     device="cuda") -> List[bytes]:
+                     device="cuda", mesh: Optional[Mesh] = None) -> List[bytes]:
     """Encode many WAVs to HCA v2.0 on `device`; returns HCA bytes per WAV,
     byte-equal to pycricodecs_tpu.parallel.hca_encode_batch(wavs, quality,
     force_not_looping, device=True) and to the JAX package's
@@ -790,8 +938,11 @@ def hca_encode_batch(wavs: Sequence[bytes], quality: int = 1,
 
     Streams are grouped by (channels, sample rate); each group is one
     device encode. A WAV that does not parse raises before anything is
-    encoded."""
+    encoded. mesh (parallel.make_mesh; it replaces `device`): each group's
+    streams shard over its dp axis, padded with silent streams that are
+    dropped; each shard runs B6 and the packer on its device."""
     device = torch.device(device)
+    devices = None if mesh is None else check_mesh(mesh).stream_devices()
     parsed = [wavmod.parse_wav(bytes(b)) for b in wavs]
     groups: dict = {}
     for i, w in enumerate(parsed):
@@ -800,7 +951,7 @@ def hca_encode_batch(wavs: Sequence[bytes], quality: int = 1,
     for members in groups.values():
         encoded = hca_encode_device.encode_batch_device(
             [parsed[i] for i in members], quality, force_not_looping,
-            device=device)
+            device=device, devices=devices)
         for i, blob in zip(members, encoded):
             results[i] = blob
     return results
@@ -844,6 +995,7 @@ def _stack_mp2_frames(walks) -> np.ndarray:
 
 
 def ahx_decode_batch(blobs: Sequence[bytes], *, device="cuda",
+                     mesh: Optional[Mesh] = None,
                      on_error: str = "raise") -> List:
     """Decode many AHX (or bare MPEG Layer II) streams on `device`; returns
     WAV bytes per stream, byte-equal to pycricodecs_tpu.parallel.
@@ -858,18 +1010,23 @@ def ahx_decode_batch(blobs: Sequence[bytes], *, device="cuda",
 
     on_error: "raise" aborts on the first stream that does not parse (before
     anything is decoded) or has a truncated frame; "isolate" returns None for
-    such streams and decodes the rest."""
+    such streams and decodes the rest.
+
+    mesh (parallel.make_mesh; it replaces `device`): each group's streams
+    shard over its dp axis, padded with zero-frame rows that are dropped;
+    each shard runs B10 and the synthesis on its device."""
     return _ahx_decode(blobs, torch.device(device), on_error,
-                       zero_fill=False)
+                       zero_fill=False, mesh=mesh)
 
 
 def _ahx_decode(blobs: Sequence[bytes], device, on_error: str,
-                zero_fill: bool) -> List:
+                zero_fill: bool, mesh: Optional[Mesh] = None) -> List:
     """ahx_decode_batch; zero_fill=True pads a stream whose frames hold
     fewer samples than its declared total with zeros up to that total (the
     single-file AHX.decode's rule) where the batch trims."""
     if on_error not in ("raise", "isolate"):
         raise ValueError("on_error must be 'raise' or 'isolate'")
+    devices = [device] if mesh is None else check_mesh(mesh).stream_devices()
     parsed: List = [None] * len(blobs)
     for i, blob in enumerate(blobs):
         try:
@@ -885,15 +1042,20 @@ def _ahx_decode(blobs: Sequence[bytes], device, on_error: str,
     results: List = [None] * len(blobs)
     for nch, members in groups.items():
         frames_np = _stack_mp2_frames([parsed[i][1] for i in members])
-        B, fmax, fs_max = frames_np.shape
-        frames = torch.from_numpy(frames_np).to(device)
-        codes, levels, sfidx, err = mp2_unpack_device.mp2_unpack(
-            frames.view(B * fmax, fs_max), nch)
-        pcm_dev = mp2_kernels.mp2_decode_pcm(
-            codes.view(B, fmax, nch, 36, 32), levels.view(B, fmax, nch, 32),
-            sfidx.view(B, fmax, nch, 3, 32))
-        err = err.view(B, fmax).cpu().numpy()
-        pcm = pcm_dev.cpu().numpy()
+        _, fmax, fs_max = frames_np.shape
+        pcm_dev, err_dev = [], []
+        for dev, rows in zip(devices, shard_rows(frames_np, len(devices))):
+            B = rows.shape[0]
+            frames = torch.from_numpy(rows).to(dev)
+            codes, levels, sfidx, err = mp2_unpack_device.mp2_unpack(
+                frames.view(B * fmax, fs_max), nch)
+            pcm_dev.append(mp2_kernels.mp2_decode_pcm(
+                codes.view(B, fmax, nch, 36, 32),
+                levels.view(B, fmax, nch, 32),
+                sfidx.view(B, fmax, nch, 3, 32)))
+            err_dev.append(err.view(B, fmax))
+        err = _fetch_rows(err_dev)
+        pcm = _fetch_rows(pcm_dev)
         for row, idx in enumerate(members):
             _hdr, walk, total, rate = parsed[idx]
             if err[row, :len(walk)].any():
@@ -917,7 +1079,7 @@ def _ahx_decode(blobs: Sequence[bytes], device, on_error: str,
 
 def ahx_encode_batch(wavs: Sequence[bytes],
                      bitrate_kbps: Optional[int] = None, *, device="cuda",
-                     container: str = "auto",
+                     mesh: Optional[Mesh] = None, container: str = "auto",
                      joint_bound: Optional[int] = None) -> List[bytes]:
     """Encode many WAVs to AHX / raw MPEG Layer II on `device`; returns the
     bytes of pycricodecs_tpu.parallel.ahx_encode_batch(wavs, bitrate_kbps,
@@ -932,14 +1094,19 @@ def ahx_encode_batch(wavs: Sequence[bytes],
     device encode (ops/mp2_encode_device.encode_streams). Every WAV is
     parsed and every stream's configuration and container checked, in
     order, before anything is encoded, so a batch raises the JAX function's
-    first error. The JAX function's `mesh` (stream sharding) is not ported
-    yet, and its `max_workers` (the host lane's thread pool) has no
-    counterpart: each group is one launch of each kernel."""
+    first error. The JAX function's `max_workers` (the host lane's thread
+    pool) has no counterpart: each group is one launch of each kernel.
+
+    mesh (parallel.make_mesh; it replaces `device`): each group's streams
+    shard over its dp axis, padded with silent streams that are dropped;
+    each shard runs K1, K2 and K3 on its device (need_db stays numpy's on
+    the host, a shard at a time, after every shard's K1 is enqueued)."""
     from ..ops import mp2_encode_device, mp2_encode_host, mp2_tables
 
     if container not in ("auto", "ahx", "mp2"):
         raise ValueError("container must be 'auto', 'ahx' or 'mp2'")
-    device = torch.device(device)
+    devices = ([torch.device(device)] if mesh is None
+               else check_mesh(mesh).stream_devices())
     parsed = [wavmod.parse_wav(bytes(b)) for b in wavs]
 
     def use_ahx(w) -> bool:
@@ -971,8 +1138,10 @@ def ahx_encode_batch(wavs: Sequence[bytes],
         pcm = np.zeros((len(members), C, max(frames) * spf), np.int16)
         for row, (i, n) in enumerate(zip(members, lengths)):
             pcm[row, :, :n] = parsed[i].pcm16.reshape(n, C).T
-        streams = mp2_encode_device.encode_streams(
-            torch.from_numpy(pcm).to(device), configs[key], frames)
+        streams = mp2_encode_device.encode_streams_sharded(
+            [torch.from_numpy(p).to(d)
+             for d, p in zip(devices, shard_rows(pcm, len(devices)))],
+            configs[key], frames)
         for i, stream in zip(members, streams):
             w = parsed[i]
             results[i] = (ahx_model.ahx_container(stream, w.sample_rate,
@@ -985,13 +1154,15 @@ def ahx_encode_batch(wavs: Sequence[bytes],
 # AWB / ACB banks
 # ---------------------------------------------------------------------------
 
-def decode_awb(awb_or_bytes, key: int = 0, *, decode_non_hca: bool = True,
-               device="cuda") -> List[bytes]:
+def decode_awb(awb_or_bytes, key: int = 0, mesh: Optional[Mesh] = None, *,
+               decode_non_hca: bool = True, device="cuda") -> List[bytes]:
     """Decode every member of an AWB (AFS2) bank on `device`; returns one
     bytes object per member, byte-equal to pycricodecs_tpu.parallel.
-    decode_awb. `decode_non_hca` is keyword-only: the JAX function's third
-    positional parameter is its mesh, so a positional third argument
-    raises TypeError here instead of turning the non-HCA decode off.
+    decode_awb. mesh (parallel.make_mesh; it replaces `device`) is the
+    third positional parameter, as in the JAX function, and goes to the
+    HCA, AHX and ADX sub-batches alike; a third argument that is not None
+    or a Mesh raises TypeError (it is not `decode_non_hca`, which is
+    keyword-only).
 
     Members route by their first bytes, as in the JAX package:
     - HCA (`HCA\\0`, or the masked `\\xC8\\xC3\\xC1\\0`): one decode_batch
@@ -1007,6 +1178,8 @@ def decode_awb(awb_or_bytes, key: int = 0, *, decode_non_hca: bool = True,
     - anything else comes back raw."""
     from ..containers.awb import AWB
 
+    if mesh is not None:
+        check_mesh(mesh)
     device = torch.device(device)
     awb = awb_or_bytes if isinstance(awb_or_bytes, AWB) else AWB(awb_or_bytes)
     members = [bytes(m) for m in awb.getfiles()]
@@ -1026,29 +1199,33 @@ def decode_awb(awb_or_bytes, key: int = 0, *, decode_non_hca: bool = True,
             adx_idx.append(i)
     for i, wav in zip(hca_idx, decode_batch(
             [members[i] for i in hca_idx], key=key, subkey=awb.subkey,
-            device=device)):
+            device=device, mesh=mesh)):
         out[i] = wav
     for i, wav in zip(ahx_idx, ahx_decode_batch(
-            [members[i] for i in ahx_idx], device=device,
+            [members[i] for i in ahx_idx], device=device, mesh=mesh,
             on_error="isolate")):
         if wav is not None:
             out[i] = wav
     for i, wav in zip(adx_idx, _adx_decode_parsed(adx_parsed, device,
-                                                  wrap=False)):
+                                                  False, mesh)):
         out[i] = wav
     return out
 
 
-def decode_acb(acb_or_bytes_or_path, key: int = 0, *,
-               device="cuda") -> List[bytes]:
+def decode_acb(acb_or_bytes_or_path, key: int = 0,
+               mesh: Optional[Mesh] = None, *, device="cuda") -> List[bytes]:
     """Decode an ACB's waveform bank (embedded, or the sibling
-    `<Name>.awb` of an ACB opened by path) on `device`: decode_awb of it,
-    byte-equal to pycricodecs_tpu.parallel.decode_acb (BASELINE config 5)."""
+    `<Name>.awb` of an ACB opened by path) on `device`, or over `mesh`
+    (the third positional parameter, as in the JAX function): decode_awb
+    of it, byte-equal to pycricodecs_tpu.parallel.decode_acb (BASELINE
+    config 5)."""
     from ..containers.acb import ACB
 
+    if mesh is not None:
+        check_mesh(mesh)
     acb = acb_or_bytes_or_path if isinstance(acb_or_bytes_or_path, ACB) \
         else ACB(acb_or_bytes_or_path)
-    return decode_awb(acb.awb, key=key, device=device)
+    return decode_awb(acb.awb, key, mesh, device=device)
 
 
 def encode_batch(wavs: Sequence[bytes], **adx_kwargs) -> List[bytes]:

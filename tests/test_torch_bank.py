@@ -88,12 +88,14 @@ def test_mixed_acb_exercises_the_host_arithmetic(mixed):
         port.ADX.decode(loose, device="cpu")
 
 
-def test_decode_awb_refuses_a_positional_third_argument():
-    """The JAX decode_awb's third positional parameter is its mesh, so the
-    meshless JAX call decode_awb(awb, 0, None) would turn the port's
-    non-HCA decode off; the port takes decode_non_hca by keyword only."""
-    with pytest.raises(TypeError):
-        port.decode_awb(ACB(BLOBS["mixed"]).awb, 0, None, device="cpu")
+def test_decode_awb_refuses_a_positional_third_argument(mixed):
+    """The third positional parameter is the mesh, as in the JAX
+    decode_awb: the meshless JAX call decode_awb(awb, 0, None) works alike
+    (the non-HCA decode stays on), and a bool there, the old
+    decode_non_hca slot, raises TypeError (decode_non_hca is keyword-
+    only)."""
+    got = port.decode_awb(ACB(BLOBS["mixed"]).awb, 0, None, device="cpu")
+    assert got == mixed["jax"]
     with pytest.raises(TypeError):
         port.decode_awb(ACB(BLOBS["mixed"]).awb, 0, False, device="cpu")
 
