@@ -6,7 +6,8 @@ the batched ADX bank decode and encode, the batched HCA bank encode, the v3
 PNS decode, the AHX decode, the HCA key search, the AWB/ACB bank decode,
 the single-file surfaces and the CLI, the AHX encode, and the frame-range
 decode, the single-frame key test, the Layer II decode, the container
-builders and the graft entry.
+builders and the graft entry, the sharded paths, and the CPK / USM / IVF
+containers with CRILAYLA's kernels.
 
 HCA:
 
@@ -215,11 +216,36 @@ The sharded paths and the CriCodecs module:
    with and without the launch device guard (turns: guarded, bare, bare,
    guarded) and the guard's host time.
 
-Prints one compact JSON line of every bank call's and phases 17-18's timings
+CPK, USM and IVF, and CRILAYLA's kernels (tests/data/torch_port/containers/,
+hashes from the JAX package):
+19. (a) a 60 s, 30 fps cutscene (signals.movie_frames: 1,800 frames, a
+   48 KB keyframe every 30 frames, ~24 MB) built into an IVF, and
+   `USMBuilder` of it with two 60 s stereo 48 kHz tracks as enciphered HCA
+   (B6, hca_pack) with two subtitle languages, and with one track as masked
+   ADX (B8), under a key below 2^56; `USM.extract(decode=True)` of each
+   (B1-B3; B7's host instance): the IVF, the tracks, both USMs and every
+   extracted file (.ivf, .wav, .srt) held to the JAX package's sha256,
+   builds and extracts timed (median of 3); `USM._decode_audio` of the 10 s
+   AHX bank stream (B10, mp2_synth); (b) `CPKBuilder` in modes 0-3 over
+   bank.acb with its 256-track bank.awb, mixed.acb, subkey.awb and both
+   USMs (118 MB), each archive and each extracted tree held to the JAX
+   package's (modes 0 and 1 also to the sources), timed; `decode_acb` of
+   the extracted bank.acb to the bank's WAV hash (archive -> bank -> WAV,
+   timed); (c) `CPKBuilder(compress=True, encrypt=True)` over bank.acb,
+   mixed.acb, the 1 s ADX and HCA fixtures, the 10 s ADX stream and four
+   10 s WAVs: C2 `crilayla_compress` once for all 22 members, the archive
+   equal to the JAX package's (its native compress); `CPK.extract`: C1
+   `crilayla_decompress` once, every member equal to its source; C1 and C2
+   against `_decompress_py` / `_compress_py` (the compressed 1 s fixtures
+   and a malformed stream; payloads of 257 B - 8.7 KB at the matcher's
+   edges, and two it refuses); C1 and C2 timed at the archive's shape
+   (CUDA events), their plain versions once.
+
+Prints one compact JSON line of every bank call's and phases 17-19's timings
 (`banks`), then a JSON line of per-kernel results (launches on the main paths, max
 |kernel - twin|, kernel/twin ms, the bound from the bytes and operations of
-the timed call, and for B7 (each instance) and B8 from their dependent
-chain at the card's maximum SM clock; the library calls of B4, B5, B6,
+the timed call, and for B7 (each instance), B8, C1 and C2 from their
+dependent chain at the card's maximum SM clock; the library calls of B4, B5, B6,
 `mp2_synth` and K1), the card line, and last a JSON line
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; there
 is no CPU path.
@@ -229,6 +255,7 @@ Run from the repository root: python3 chip_smoke.py
 import hashlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -312,6 +339,13 @@ KERNELS = {
     "mp2_pack": dict(
         source="pycricodecs_tpu_torch/csrc/mp2_encode.cu",
         replaces="pycricodecs_tpu/ops/mp2_frame.py:367"),
+    # CRILAYLA: no Pallas kernel; the JAX package's native host lane
+    "crilayla_decompress": dict(
+        source="pycricodecs_tpu_torch/csrc/crilayla.cu",
+        replaces="pycricodecs_tpu/native/cricore.cpp:130"),
+    "crilayla_compress": dict(
+        source="pycricodecs_tpu_torch/csrc/crilayla.cu",
+        replaces="pycricodecs_tpu/native/cricore.cpp:174"),
 }
 
 # H100 SXM rates (NVIDIA data sheet and Hopper white paper: 132 SMs, 3.35
@@ -361,17 +395,22 @@ FP64_OPS_PER_S = 17e12
 #   its bytes: S and the part peaks, need_db and budgets in once, the four
 #   outputs;
 # - K3 (mp2_pack): three per quantised code written (field value, shift,
-#   shared-memory OR).
+#   shared-memory OR);
+# - C1 (crilayla_decompress): one per output byte (its store); C2
+#   (crilayla_compress): one per input byte (each is read and compared at
+#   least once). Both are bound by their serial chains (CHAIN_OPS).
 OPS = {"hca_side_info": 1, "hca_coefficients": 3, "hca_transform": 35,
        "adx_decode": 13, "adx_decode_host": 13, "adx_encode": 20, "hca_mdct": 23, "hca_pack": 3,
        "hca_transform_pns": 37, "mp2_unpack": 3, "mp2_synth": 164,
        "hca_imdct_ola": 31, "hca_imdct": 28, "mp2_analysis": 159,
-       "mp2_allocate": 7, "mp2_pack": 3}
+       "mp2_allocate": 7, "mp2_pack": 3, "crilayla_decompress": 1,
+       "crilayla_compress": 1}
 OPS_PER_S = {"mp2_synth": FP64_OPS_PER_S, "mp2_analysis": FP64_OPS_PER_S,
              "mp2_allocate": FP64_OPS_PER_S, "mp2_pack": INT32_OPS_PER_S,
              **dict.fromkeys(("hca_side_info", "hca_coefficients",
                               "hca_pack", "mp2_unpack", "adx_decode",
-                              "adx_decode_host", "adx_encode"),
+                              "adx_decode_host", "adx_encode",
+                              "crilayla_decompress", "crilayla_compress"),
                             INT32_OPS_PER_S)}
 # Dependent operations on the critical path of one step of a serial
 # recurrence (the third bound term, `chain`: steps per lane x these ops x
@@ -383,8 +422,14 @@ OPS_PER_S = {"mp2_synth": FP64_OPS_PER_S, "mp2_analysis": FP64_OPS_PER_S,
 #   formed a step early), shift, the dividend's clamp (min and max side by
 #   side), the rounding add, the select, the division's mask (r & add),
 #   multiply-high, shift and sign fix, the simulated decoder's multiply-add,
-#   shift and two clamps = 13 (14 in adx_encode_plain's order).
-CHAIN_OPS = {"adx_decode": 5, "adx_decode_host": 5, "adx_encode": 13}
+#   shift and two clamps = 13 (14 in adx_encode_plain's order);
+# - C1, a token: the flag bit's shift and mask, and the bit cursor's
+#   advance by the token's width = 3 (steps: the longest member's tokens);
+# - C2, a greedy step: the next position waits for the step's longest
+#   match, a max over 0x2000 candidates (13 levels of a 64-bit max) and the
+#   position's subtraction = 14 (steps: the longest member's greedy steps).
+CHAIN_OPS = {"adx_decode": 5, "adx_decode_host": 5, "adx_encode": 13,
+             "crilayla_decompress": 3, "crilayla_compress": 14}
 CHAIN_CYCLES_PER_OP = 4
 
 
@@ -830,6 +875,8 @@ def reset_launches() -> None:
     cuda_kernels.MP2_ANALYSIS_LAUNCHES = 0
     cuda_kernels.MP2_ALLOCATE_LAUNCHES = 0
     cuda_kernels.MP2_PACK_LAUNCHES = 0
+    cuda_kernels.CRILAYLA_DECOMPRESS_LAUNCHES = 0
+    cuda_kernels.CRILAYLA_COMPRESS_LAUNCHES = 0
 
 
 def read_launches() -> dict:
@@ -849,7 +896,9 @@ def read_launches() -> dict:
             "hca_imdct": cuda_kernels.IMDCT_LAUNCHES,
             "mp2_analysis": cuda_kernels.MP2_ANALYSIS_LAUNCHES,
             "mp2_allocate": cuda_kernels.MP2_ALLOCATE_LAUNCHES,
-            "mp2_pack": cuda_kernels.MP2_PACK_LAUNCHES}
+            "mp2_pack": cuda_kernels.MP2_PACK_LAUNCHES,
+            "crilayla_decompress": cuda_kernels.CRILAYLA_DECOMPRESS_LAUNCHES,
+            "crilayla_compress": cuda_kernels.CRILAYLA_COMPRESS_LAUNCHES}
 
 
 def drive(path: str, own, fn):
@@ -3297,6 +3346,420 @@ def mesh_phase(dev, card: str) -> None:
     BANKS["phase18_guard"] = guard_cost(dev, card)
 
 
+CONTAINER_FIXTURES = os.path.join(FIXTURES, "containers")
+CRILAYLA_KERNELS = ("crilayla_decompress", "crilayla_compress")
+
+
+def tree_sha256(root: str) -> dict:
+    """{relative path with "/": sha256} of every file under root (the
+    fixture tool's tree_sha256)."""
+    out = {}
+    for dirpath, _, names in os.walk(root):
+        for n in names:
+            p = os.path.join(dirpath, n)
+            with open(p, "rb") as f:
+                out[os.path.relpath(p, root).replace(os.sep, "/")] = \
+                    sha(f.read())
+    return dict(sorted(out.items()))
+
+
+def require_tree(what: str, got: dict, want: dict) -> None:
+    if got != want:
+        bad = sorted(k for k in set(got) | set(want)
+                     if got.get(k) != want.get(k))
+        raise AssertionError(f"{what}: files {bad[:8]} differ from the JAX "
+                             f"package's")
+
+
+def require_members(what: str, root: str, members: dict) -> None:
+    """Every extracted member under root equal to its source bytes, and
+    nothing else written."""
+    got = tree_sha256(root)
+    want = {n: sha(d) for n, d in members.items()}
+    if got != want:
+        bad = sorted(k for k in set(got) | set(want)
+                     if got.get(k) != want.get(k))
+        raise AssertionError(f"{what}: members {bad[:8]} differ from their "
+                             f"sources")
+
+
+def members_equal(what: str, got: list, want: list) -> int:
+    """A kernel's member outputs (bytes, or None where it refused or
+    flagged the member) held to its plain version's byte for byte, the
+    refusals and the sizes included; returns max |diff|."""
+    def column(f):
+        return torch.tensor([f(x) for x in got]), \
+            torch.tensor([f(x) for x in want])
+
+    def flat(xs):
+        return torch.from_numpy(np.frombuffer(
+            b"".join(x or b"" for x in xs), dtype=np.uint8).copy())
+
+    require_equal(what, [("refused", *column(lambda x: int(x is None))),
+                         ("size", *column(lambda x: len(x or b"")))])
+    return require_equal(what, [("bytes", flat(got), flat(want))])
+
+
+def crilayla_checks(dev, worst: dict, fixtures: dict) -> None:
+    """C1 against `_decompress_py` on the compressed 1 s fixtures and C2
+    against `_compress_py` on the edge payloads (257 B - 8.7 KB): each
+    through decompress_members / compress_members on the card and on the
+    CPU (the plain versions), byte for byte with the refusals."""
+    from pycricodecs_tpu_torch.models import crilayla
+    from pycricodecs_tpu_torch.utils import signals
+
+    payloads = signals.crilayla_edge_payloads()
+    payloads += [b"", b"x" * 0x100]                  # refused: too small
+    got = crilayla.compress_members(payloads, device=dev)
+    want = crilayla.compress_members(payloads, device="cpu")
+    worst["crilayla_compress"] = max(worst["crilayla_compress"], members_equal(
+        "C2 against _compress_py on the edge payloads", got, want))
+    if got[-1] is not None or got[-2] is not None:
+        raise AssertionError("C2 did not refuse a member of 0x100 bytes")
+    log(f"C2 crilayla_compress: {len(payloads)} edge payloads "
+        f"({[len(p) for p in payloads]} bytes) byte-equal to _compress_py, "
+        f"the two of 0x100 bytes or fewer refused by both")
+    small = [fixtures[n] for n in sorted(fixtures)
+             if n.endswith("_1s.adx") or n.endswith("_1s.hca")]
+    blobs = [b for b in crilayla.compress_members(small, device=dev)
+             if b is not None]
+    bad_blob = bytearray(blobs[0])
+    bad_blob[20] ^= 0xFF                              # a malformed stream
+    parsed = [crilayla.parse(b) for b in blobs + [bytes(bad_blob)]]
+    got = crilayla.decompress_members(parsed, device=dev)
+    want = crilayla.decompress_members(parsed, device="cpu")
+    worst["crilayla_decompress"] = max(
+        worst["crilayla_decompress"],
+        members_equal("C1 against _decompress_py on the compressed 1 s "
+                      "fixtures", got, want))
+    if got[-1] is not None:
+        raise AssertionError("C1 did not flag the malformed stream")
+    log(f"C1 crilayla_decompress: {len(blobs)} compressed 1 s fixtures and "
+        f"a malformed stream byte-equal to _decompress_py (the malformed "
+        f"one flagged by both)")
+
+
+def host_ms(fn) -> float:
+    """Milliseconds of one fn() on the host clock (a plain version that
+    runs on the CPU)."""
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def crilayla_timing(dev, card: str, named: dict, worst: dict) -> dict:
+    """C1 and C2 at the compressed archive's shape (CUDA events, median of
+    3), their plain versions once (C2's on the edge payloads: the Python
+    matcher would take hours at this shape), and the bounds. C1's output
+    at this shape is held to `_decompress_py`'s byte for byte, statuses
+    included; C2's is held to the JAX package's archive hash on the main
+    path."""
+    from pycricodecs_tpu_torch.models import crilayla
+    from pycricodecs_tpu_torch.ops import cuda_kernels as CK
+    from pycricodecs_tpu_torch.utils import signals
+
+    members = list(named.values())
+    src, meta, work_size = crilayla.pack_compress(members)
+    src_t = torch.from_numpy(src).to(dev)
+    work, start, status, steps = CK.crilayla_compress(src_t, meta, work_size)
+    caps = CK.crilayla_work_cap(meta[:, 1])
+    start, status = start.cpu().numpy(), status.cpu().numpy()
+    streams = [work[int(o + s):int(o + c)].cpu().numpy().tobytes()
+               if not st else None
+               for o, s, c, st in zip(meta[:, 2], start, caps, status)]
+    c2_steps = int(steps.max())
+    log("C2 blob bytes (member bytes -> header + stream + prefix, or "
+        "refused): " + ", ".join(
+            f"{n} {len(m)} -> {'refused' if x is None else len(x) + 0x110}"
+            for n, m, x in zip(named, members, streams)))
+    c2_ms = cuda_ms(lambda: CK.crilayla_compress(src_t, meta, work_size), 3)
+    edge = signals.crilayla_edge_payloads()
+    c2_plain_ms = host_ms(lambda: crilayla.compress_members(edge,
+                                                            device="cpu"))
+    esrc, emeta, ework = crilayla.pack_compress(edge)
+    esrc_t = torch.from_numpy(esrc).to(dev)
+    c2_edge_ms = cuda_ms(lambda: CK.crilayla_compress(esrc_t, emeta, ework),
+                         3)
+    c2 = bound("crilayla_compress",
+               int(meta[:, 1].sum()) + sum(len(x) for x in streams if x),
+               int(meta[:, 1].sum()), chain_steps=c2_steps)
+
+    # C1 at the main path's shape: the members the archive stores
+    # compressed (CPKBuilder stores a member raw where its blob is not
+    # smaller)
+    kept = [(m, x) for m, x in zip(members, streams)
+            if x is not None and len(x) + 0x110 < len(m)]
+    blobs = [crilayla.assemble(m, x) for m, x in kept]
+    parsed = [crilayla.parse(b) for b in blobs]
+    dsrc, dmeta, out_size = crilayla.pack_decompress(parsed)
+    dsrc_t = torch.from_numpy(dsrc).to(dev)
+    out, dstatus, dsteps = CK.crilayla_decompress(dsrc_t, dmeta, out_size)
+    c1_steps = int(dsteps.max())
+    t0 = time.perf_counter()
+    plain = crilayla.decompress_members(parsed, device="cpu")
+    c1_plain_ms = (time.perf_counter() - t0) * 1e3
+    worst["crilayla_decompress"] = max(
+        worst["crilayla_decompress"], require_equal(
+            "C1 against _decompress_py at the archive's compressed members",
+            [("status", dstatus.cpu(),
+              torch.tensor([int(p is None) for p in plain],
+                           dtype=torch.int32)),
+             ("out", out.cpu(), torch.from_numpy(np.frombuffer(
+                 b"".join(p or b"" for p in plain), dtype=np.uint8).copy()))]))
+    if bool(dstatus.any()):
+        raise AssertionError("C1 flagged a stream C2 wrote")
+    if plain != [m for m, _ in kept]:
+        raise AssertionError("C1 at the archive's members: a member differs "
+                             "from its source")
+    c1_ms = cuda_ms(lambda: CK.crilayla_decompress(dsrc_t, dmeta, out_size),
+                    3)
+    c1 = bound("crilayla_decompress", len(dsrc) + out_size, out_size,
+               chain_steps=c1_steps)
+    log(f"C2 crilayla_compress [{card}] at the compressed archive "
+        f"({len(members)} members, {int(meta[:, 1].sum())} bytes, longest "
+        f"chain {c2_steps} steps): kernel {c2_ms:.4f} ms (CUDA events, median "
+        f"of 3); at the edge payloads ({int(emeta[:, 1].sum())} bytes) "
+        f"kernel {c2_edge_ms:.4f} ms, plain {c2_plain_ms:.4f} ms; bound "
+        f"{c2['bound_ms']:.4f} ms by {c2['bound_by']}")
+    log(f"C1 crilayla_decompress [{card}] at the archive's "
+        f"{len(blobs)} compressed members ({len(dsrc)} bytes in, {out_size} "
+        f"out, longest chain {c1_steps} tokens): kernel {c1_ms:.4f} ms (CUDA "
+        f"events, median of 3), equal byte for byte to its plain version, "
+        f"plain {c1_plain_ms:.4f} ms (once); bound {c1['bound_ms']:.4f} ms "
+        f"by {c1['bound_by']}")
+    return {"crilayla_decompress": (c1_ms, c1_plain_ms, c1),
+            "crilayla_compress": (c2_ms, c2_plain_ms, c2)}
+
+
+def containers_phase(dev, card: str, worst: dict = None,
+                     launches: dict = None) -> dict:
+    """Phase 19: the 60 s cutscene through USMBuilder (HCA and ADX audio)
+    and USM.extract(decode=True), the sound archive through CPKBuilder in
+    modes 0-3, CPK.extract and decode_acb, the compressed archive through
+    C2 and C1; every output held to the JAX package's recorded sha256.
+    Returns the CRILAYLA kernels' results (ms, plain ms, bound)."""
+    import tempfile
+
+    import pycricodecs_tpu_torch as port
+    from pycricodecs_tpu_torch.containers.cpk import CPK, CPKBuilder
+    from pycricodecs_tpu_torch.containers.ivf import build_ivf
+    from pycricodecs_tpu_torch.containers.usm import USM, USMBuilder
+    from pycricodecs_tpu_torch.utils import signals as S
+    from pycricodecs_tpu_torch.utils.wav import write_wav
+
+    worst = dict.fromkeys(KERNELS, 0) if worst is None else worst
+    launches = {} if launches is None else launches
+    with open(os.path.join(CONTAINER_FIXTURES, "expected.json")) as f:
+        exp = json.load(f)
+    with open(os.path.join(FIXTURES, "expected.json")) as f:
+        hca_expected = json.load(f)
+    with open(os.path.join(BANK_FIXTURES, "expected.json")) as f:
+        bank_expected = json.load(f)
+    timings = {}
+    key = S.MOVIE_KEY
+
+    # -- (a) the movie: IVF, USMBuilder, USM.extract(decode=True) ----------
+    em = exp["movie"]
+    ivf = build_ivf(S.movie_frames(), fps_num=S.MOVIE["fps"], fps_den=1)
+    tracks = [S.movie_track(seed, write_wav) for seed in S.MOVIE_TRACK_SEEDS]
+    if sha(ivf) != em["ivf_sha256"] or \
+            [sha(t) for t in tracks] != em["track_sha256"]:
+        raise AssertionError("the rebuilt cutscene IVF or its tracks differ "
+                             "from their recorded hashes")
+    log(f"(a) movie: IVF of {S.MOVIE['seconds'] * S.MOVIE['fps']} frames, "
+        f"{len(ivf)} bytes, and two 60 s stereo 48 kHz tracks: sha256 equal "
+        f"to the recorded ones")
+    builds = {
+        "hca": (("hca_mdct", "hca_pack"), HCA_KERNELS,
+                lambda: USMBuilder(ivf, tracks, key=key, audio_codec="hca",
+                                   encryptAudio=True,
+                                   subtitles=S.MOVIE_SUBTITLES,
+                                   device=dev).build()),
+        "adx": (("adx_encode",), ("adx_decode_host",),
+                lambda: USMBuilder(ivf, [tracks[0]], key=key,
+                                   audio_codec="adx", encryptAudio=True,
+                                   device=dev).build()),
+    }
+    usms = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (own_build, own_extract, build) in builds.items():
+            usm, _ = drive(f"USMBuilder ({name} audio)", own_build, build)
+            if sha(usm) != em[name]["usm_sha256"]:
+                raise AssertionError(f"USMBuilder ({name}): the USM differs "
+                                     f"from the JAX package's")
+            usms[name] = usm
+            out = os.path.join(tmp, name)
+
+            def extract(out=out, usm=usm):
+                USM(usm, key=key, device=dev).extract(out, decode=True,
+                                                      key=key)
+
+            drive(f"USM.extract(decode=True) ({name})", own_extract, extract)
+            require_tree(f"USM.extract ({name})", tree_sha256(out),
+                         em[name]["extract"])
+            build_s, build_runs = median_wall(build)
+            extract_s, extract_runs = median_wall(extract)
+            timings[f"usm_{name}_build_s"] = build_s
+            timings[f"usm_{name}_extract_s"] = extract_s
+            log(f"{name} USM ({len(usm)} bytes): bytes and every extracted "
+                f"file ({sorted(em[name]['extract'])}) equal to the JAX "
+                f"package's; [{card}] build median of 3 {build_s:.4f} s "
+                f"(runs {[round(r, 4) for r in build_runs]}), "
+                f"extract(decode=True) {extract_s:.4f} s "
+                f"(runs {[round(r, 4) for r in extract_runs]})")
+        with open(os.path.join(AHX_FIXTURES, exp["ahx_decode"]["stream"]),
+                  "rb") as f:
+            ahx = f.read()
+        wav, _ = drive("USM._decode_audio (AHX)", ("mp2_unpack", "mp2_synth"),
+                       lambda: USM._decode_audio(ahx, device=dev))
+        if sha(wav) != exp["ahx_decode"]["wav_sha256"]:
+            raise AssertionError("USM._decode_audio of the AHX bank stream "
+                                 "differs from the JAX package's")
+        log("USM._decode_audio of the 10 s AHX bank stream: equal to the JAX "
+            "package's")
+
+    # -- (b) the sound archive: CPKBuilder modes 0-3, extract, decode_acb ----
+    ea = exp["archive"]
+    with tempfile.TemporaryDirectory() as tmp:
+        named, ids = os.path.join(tmp, "named"), os.path.join(tmp, "ids")
+        os.makedirs(named)
+        os.makedirs(ids)
+        write_bank_awb(named, bank_expected["bank"])
+        for n in ("mixed.acb", "subkey.awb"):
+            with open(os.path.join(BANK_FIXTURES, n), "rb") as f:
+                data = f.read()
+            with open(os.path.join(named, n), "wb") as f:
+                f.write(data)
+        for n, data in (("hca.usm", usms["hca"]), ("adx.usm", usms["adx"])):
+            with open(os.path.join(named, n), "wb") as f:
+                f.write(data)
+        members = {}
+        for i, n in enumerate(S.ARCHIVE_MEMBERS):
+            with open(os.path.join(named, n), "rb") as f:
+                members[n] = f.read()
+            os.link(os.path.join(named, n), os.path.join(ids, str(i)))
+        if {n: sha(d) for n, d in members.items()} != ea["members"]:
+            raise AssertionError("the sound archive's members differ from "
+                                 "their recorded hashes")
+        total = sum(len(d) for d in members.values())
+        for mode in (0, 1, 2, 3):
+            path = os.path.join(tmp, f"mode{mode}.cpk")
+            src = ids if mode == 0 else named
+
+            def build(path=path, src=src, mode=mode):
+                CPKBuilder(src, path, CpkMode=mode, device=dev)
+
+            build_s, runs = median_wall(build)
+            with open(path, "rb") as f:
+                if sha(f.read()) != ea["modes"][str(mode)]["sha256"]:
+                    raise AssertionError(f"CPKBuilder mode {mode}: the "
+                                         f"archive differs from the JAX "
+                                         f"package's")
+            out = os.path.join(tmp, f"out{mode}")
+
+            def extract(path=path, out=out):
+                CPK(path, device=dev).extract(out)
+
+            extract_s, xruns = median_wall(extract)
+            require_tree(f"CPK.extract mode {mode}", tree_sha256(out),
+                         ea["modes"][str(mode)]["extract"])
+            if mode in (0, 1):
+                require_members(f"CPK.extract mode {mode}", out, {
+                    (str(i) if mode == 0 else n): members[n]
+                    for i, n in enumerate(S.ARCHIVE_MEMBERS)})
+            timings[f"cpk_mode{mode}_build_s"] = build_s
+            timings[f"cpk_mode{mode}_extract_s"] = extract_s
+            log(f"CPK mode {mode} ({ea['modes'][str(mode)]['bytes']} bytes, "
+                f"{total} member bytes): equal to the JAX package's; every "
+                f"extracted file equal to the JAX extract's"
+                + (" and to its source member" if mode in (0, 1) else
+                   " (modes 2 and 3 read members at the TOC's FileOffset, "
+                   "which leaves out the ITOC or GTOC: the JAX package's "
+                   "bytes, not the sources)")
+                + f"; [{card}] build "
+                f"median of 3 {build_s:.4f} s (runs "
+                f"{[round(r, 4) for r in runs]}), extract {extract_s:.4f} s "
+                f"(runs {[round(r, 4) for r in xruns]})")
+            if mode == 1:
+                acb = os.path.join(out, "bank.acb")
+                wavs, _ = drive("decode_acb of the extracted bank.acb",
+                                HCA_KERNELS,
+                                lambda: port.decode_acb(acb, device=dev))
+                want = hca_expected[BANK]["wav_sha256"]
+                require_hashes("decode_acb of the extracted bank.acb", wavs,
+                               [want] * bank_expected["bank"]["tracks"])
+                del wavs
+
+                def pipeline(path=path, out=out):
+                    CPK(path, device=dev).extract(out)
+                    port.decode_acb(os.path.join(out, "bank.acb"),
+                                    device=dev)
+
+                pipe_s, pruns = median_wall(pipeline)
+                timings["cpk_extract_decode_acb_s"] = pipe_s
+                log(f"archive -> bank -> WAV: {bank_expected['bank']['tracks']}"
+                    f" WAVs of the extracted bank.acb equal to the JAX "
+                    f"package's; [{card}] CPK.extract + decode_acb median of "
+                    f"3 {pipe_s:.4f} s (runs {[round(r, 4) for r in pruns]})")
+            shutil.rmtree(out)
+            os.unlink(path)
+
+    # -- (c) the compressed archive: C2 and C1 on the main path --------------
+    ec = exp["compressed"]
+    fixtures = S.compressed_archive_members(FIXTURES, write_wav)
+    if {n: sha(d) for n, d in fixtures.items()} != ec["members"]:
+        raise AssertionError("the compressed archive's members differ from "
+                             "their recorded hashes")
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "in")
+        os.makedirs(src)
+        for n, data in fixtures.items():
+            with open(os.path.join(src, n), "wb") as f:
+                f.write(data)
+        path = os.path.join(tmp, "compressed.cpk")
+
+        def build():
+            CPKBuilder(src, path, compress=True, encrypt=True, device=dev)
+
+        _, counts = drive("CPKBuilder(compress=True, encrypt=True)",
+                          ("crilayla_compress",), build)
+        launches["crilayla_compress"] = counts["crilayla_compress"]
+        with open(path, "rb") as f:
+            if sha(f.read()) != ec["sha256"]:
+                raise AssertionError("CPKBuilder(compress=True): the archive "
+                                     "differs from the JAX package's")
+        toc = CPK(path, device=dev).tables["TOC"]
+        packed = sorted(CPK._cell(toc["FileName"], i)
+                        for i in range(len(toc["FileName"]))
+                        if CPK._cell(toc["ExtractSize"], i)
+                        > CPK._cell(toc["FileSize"], i))
+        if packed != ec["stored_compressed"]:
+            raise AssertionError("the compressed archive stores other "
+                                 "members compressed than the JAX package's")
+        out = os.path.join(tmp, "out")
+
+        def extract():
+            CPK(path, device=dev).extract(out)
+
+        _, counts = drive("CPK.extract (compressed)",
+                          ("crilayla_decompress",), extract)
+        launches["crilayla_decompress"] = counts["crilayla_decompress"]
+        require_members("CPK.extract (compressed)", out, fixtures)
+        build_s, runs = median_wall(build)
+        extract_s, xruns = median_wall(extract)
+        timings["cpk_compress_build_s"] = build_s
+        timings["cpk_compress_extract_s"] = extract_s
+        log(f"compressed CPK ({ec['bytes']} bytes, {len(fixtures)} members, "
+            f"{len(packed)} stored compressed): equal to the JAX package's "
+            f"(its native compress); every member extracted equal to its "
+            f"source; [{card}] build median of 3 {build_s:.4f} s (runs "
+            f"{[round(r, 4) for r in runs]}), extract {extract_s:.4f} s "
+            f"(runs {[round(r, 4) for r in xruns]})")
+    crilayla_checks(dev, worst, fixtures)
+    BANKS["phase19_s"] = timings
+    return crilayla_timing(dev, card, fixtures, worst)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -3582,6 +4045,9 @@ def main() -> None:
 
     # -- phase 18: the sharded paths and the CriCodecs module ------------------
     mesh_phase(dev, card)
+
+    # -- phase 19: CPK, USM and IVF; CRILAYLA's kernels -------------------------
+    results.update(containers_phase(dev, card, worst, launches))
 
     report = []
     for name, (ms, plain_ms, bd, *library) in results.items():

@@ -3,15 +3,20 @@
     python -m pycricodecs_tpu_torch decode music.hca -o music.wav --key 0x...
     python -m pycricodecs_tpu_torch encode music.wav -o music.hca --format hca
     python -m pycricodecs_tpu_torch extract bank.acb -o outdir --decode
+    python -m pycricodecs_tpu_torch extract archive.cpk -o outdir
+    python -m pycricodecs_tpu_torch extract movie.usm -o outdir --decode
     python -m pycricodecs_tpu_torch bank-decode bank.acb -o outdir
     python -m pycricodecs_tpu_torch find-key enc.hca --range 0x1000 65536
     python -m pycricodecs_tpu_torch info file.adx
     python -m pycricodecs_tpu_torch build tracks/ -o bank.acb
+    python -m pycricodecs_tpu_torch build gamedata/ -o data.cpk --compress
+    python -m pycricodecs_tpu_torch build movie.ivf -o movie.usm \
+        --audio voice.wav --codec hca --key 0x1234 --encrypt
 
-Every command but `build` takes --device (default cuda); work runs there and
-nowhere else (`build` of an AWB or ACB runs on the host alone). What the
-port does not carry refuses with SystemExit: extracting or describing CPK,
-USM and IVF, and building CPK and USM. An ACB is opened by
+Every command takes --device (default cuda); work runs there and nowhere
+else (`build` uses it for a USM's audio encoders and a CPK's CRILAYLA
+compress; a `build` of an AWB or ACB runs on the host alone). An ACB is
+opened by
 its path, so a sibling `<Name>.awb` resolves beside it from any working
 directory (the JAX package's CLI opens it from bytes, which resolves the
 sibling against the working directory); the files written are the same.
@@ -34,11 +39,6 @@ def _sniff(data: bytes) -> str:
         return sniff(data)
     except ValueError as exc:
         raise SystemExit(str(exc))
-
-
-def _not_ported(what: str) -> SystemExit:
-    return SystemExit(f"{what} is not ported to pycricodecs_tpu_torch; use "
-                      "the JAX package (python -m pycricodecs_tpu)")
 
 
 def _read(path: str) -> bytes:
@@ -102,18 +102,25 @@ def cmd_encode(args) -> None:
 def cmd_extract(args) -> None:
     from .containers.acb import ACB
     from .containers.awb import AWB
+    from .containers.cpk import CPK
+    from .containers.usm import USM
 
     data = _read(args.input)
     kind = _sniff(data)
     out = args.output or os.path.splitext(args.input)[0]
-    if kind == "acb":
+    if kind == "cpk":
+        CPK(args.input, device=args.device).extract(dirname=out)
+    elif kind == "acb":
         ACB(args.input).extract(decode=args.decode, key=args.key,
                                 dirname=out, device=args.device)
     elif kind == "awb":
         AWB(data).extract(decode=args.decode, key=args.key, dirname=out,
                           device=args.device)
-    elif kind in ("cpk", "usm"):
-        raise _not_ported(f"extract of {kind.upper()}")
+    elif kind == "usm":
+        usm = USM(args.input, key=args.key if args.key else False,
+                  device=args.device)
+        usm.extract(dirname=out, decode=args.decode, key=args.key,
+                    subkey=args.subkey)
     else:
         raise SystemExit(f"extract expects CPK/ACB/AWB/USM, got {kind}")
     print(out)
@@ -140,11 +147,15 @@ def cmd_bank_decode(args) -> None:
 
 
 def cmd_build(args) -> None:
-    """Build an AWB or ACB from a directory (the JAX package's build)."""
+    """Build a container from a directory (cpk/awb/acb) or video+audio
+    (usm): the JAX package's build."""
     ext = os.path.splitext(args.output)[1].lower().lstrip(".")
-    if ext in ("cpk", "usm"):
-        raise _not_ported(f"build of {ext.upper()}")
-    if ext == "awb":
+    if ext == "cpk":
+        from .containers.cpk import CPKBuilder
+        CPKBuilder(args.input, args.output, CpkMode=args.cpk_mode,
+                   encrypt=args.encrypt, compress=args.compress,
+                   device=args.device)
+    elif ext == "awb":
         from .containers.awb import AWBBuilder
         AWBBuilder(args.input, subkey=args.subkey).build(args.output)
     elif ext == "acb":
@@ -160,6 +171,18 @@ def cmd_build(args) -> None:
         blob = ACBBuilder(tracks, name=os.path.splitext(
             os.path.basename(args.output))[0], cue_names=names).build()
         _write(args.output, blob)
+    elif ext == "usm":
+        from .containers.usm import USMBuilder
+        if not args.audio:
+            builder = USMBuilder(args.input, key=args.key or False,
+                                 device=args.device)
+        else:
+            builder = USMBuilder(args.input, args.audio,
+                                 key=args.key or False,
+                                 audio_codec=args.codec,
+                                 encryptAudio=bool(args.key and args.encrypt),
+                                 device=args.device)
+        _write(args.output, builder.build())
     else:
         raise SystemExit("build output must end in .cpk/.awb/.acb/.usm")
     print(args.output)
@@ -210,8 +233,16 @@ def cmd_info(args) -> None:
     elif kind == "ahx":
         from .models.ahx import AHX
         print(json.dumps(AHX.info(data), default=str, indent=2))
-    elif kind in ("ivf", "usm", "cpk"):
-        raise _not_ported(f"info of {kind.upper()}")
+    elif kind == "ivf":
+        from .containers.ivf import IVF
+        print(json.dumps(IVF(data).info(), default=str, indent=2))
+    elif kind == "usm":
+        from .containers.usm import USM
+        u = USM(args.input, key=args.key if args.key else False,
+                device=args.device)
+        u.demux()
+        print(json.dumps([{k: str(v) for k, v in t.items()}
+                          for t in u.get_metadata()[:1]], indent=2))
     else:
         print(json.dumps({"format": kind, "size": len(data)}, indent=2))
 
@@ -249,23 +280,33 @@ def main(argv=None) -> None:
     p.add_argument("--mode", type=int, default=3, choices=(2, 3, 4))
     p.set_defaults(fn=cmd_encode)
 
-    p = sub.add_parser("extract", help="ACB/AWB -> files (CPK/USM are not "
-                                       "ported)")
+    p = sub.add_parser("extract", help="CPK/ACB/AWB/USM -> files")
     common(p)
     p.add_argument("--decode", action="store_true",
-                   help="decode HCA members to WAV while extracting")
+                   help="decode audio members to WAV while extracting")
     p.set_defaults(fn=cmd_extract)
 
     p = sub.add_parser("bank-decode", help="ACB/AWB -> WAVs (one GPU batch)")
     common(p)
     p.set_defaults(fn=cmd_bank_decode)
 
-    p = sub.add_parser("build", help="dir -> AWB/ACB (CPK/USM are not "
-                                     "ported)")
-    p.add_argument("input", help="directory of the members")
+    p = sub.add_parser("build", help="dir -> CPK/AWB/ACB, or IVF(+WAV) -> USM")
+    p.add_argument("input", help="directory (cpk/awb/acb) or IVF video (usm)")
     p.add_argument("-o", "--output", required=True,
                    help="output file; extension picks the container")
+    p.add_argument("--audio", help="audio track for USM (WAV/ADX/HCA)")
+    p.add_argument("--codec", default="adx", choices=["adx", "hca"],
+                   help="USM audio codec")
+    p.add_argument("--cpk-mode", type=int, default=1, choices=[0, 1, 2, 3])
+    p.add_argument("--compress", action="store_true",
+                   help="CRILAYLA-compress CPK members")
+    p.add_argument("--encrypt", action="store_true",
+                   help="encrypt CPK tables / USM streams")
+    p.add_argument("--key", type=_int0, default=0)
     p.add_argument("--subkey", type=_int0, default=0)
+    p.add_argument("--device", default="cuda",
+                   help="torch device of a USM's audio encoders and a CPK's "
+                        "compress (default cuda)")
     p.set_defaults(fn=cmd_build)
 
     p = sub.add_parser("find-key", help="batched keycode search")

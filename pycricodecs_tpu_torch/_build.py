@@ -69,6 +69,8 @@ SIGNATURES = {
                      _P, _P, _P],
     "mp2_pack": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _P, _L, _I,
                  _P, _P],
+    "crilayla_decompress": [_P, _P, _I, _P, _P, _P, _P],
+    "crilayla_compress": [_P, _P, _I, _P, _P, _P, _P, _P],
 }
 
 #: the Layer II quantisation classes n whose correctly rounded 1 / n the

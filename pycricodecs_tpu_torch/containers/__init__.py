@@ -1,3 +1,3 @@
-"""CRI containers the bank entry points open and the builders write:
-@UTF tables, AFS2 (AWB) banks and ACB cue databases (readers, build_afs2,
-UTFBuilder, AWBBuilder, ACBBuilder)."""
+"""CRI containers: @UTF tables, AFS2 (AWB) banks, ACB cue databases, CPK
+archives, USM movies and their IVF video (readers, build_afs2, build_ivf,
+UTFBuilder, AWBBuilder, ACBBuilder, CPKBuilder, USMBuilder)."""

@@ -4,15 +4,15 @@ on the port: the counterpart of pycricodecs_tpu/cricodecs.py.
 The same seven functions (CriCodecs.cpp:8-17) with the reference's
 positional signatures, so code written against `import CriCodecs` can
 switch to `from pycricodecs_tpu_torch import cricodecs as CriCodecs`.
-The five that reach a kernel also take a keyword-only `device` ("cuda" by
-default; "cpu" runs the kernels' plain PyTorch twins):
+All but HcaCrypt reach a kernel, and take a keyword-only `device` ("cuda"
+by default; "cpu" runs the kernels' plain versions):
 
     AdxDecode(data) / AdxEncode(data, bitdepth, blocksize, encoding,
                                 highpass, filter, adxver, force_no_looping)
     HcaDecode(data, header_size, keycode, subkey)
     HcaEncode(wav, force_not_looping, quality)
     HcaCrypt(buffer, crypt, header_size, type, keycode, subkey)   (host)
-    CriLaylaDecompress(data) / CriLaylaCompress(data)             (host)
+    CriLaylaDecompress(data) / CriLaylaCompress(data)   (kernels C1 / C2)
 """
 from __future__ import annotations
 
@@ -55,9 +55,9 @@ def HcaCrypt(buffer, crypt: int, header_size: int, type: int,
                       keycode, subkey)
 
 
-def CriLaylaDecompress(data: bytes) -> bytes:
-    return _crilayla.decompress(data)
+def CriLaylaDecompress(data: bytes, *, device="cuda") -> bytes:
+    return _crilayla.decompress(data, device=device)
 
 
-def CriLaylaCompress(data: bytes) -> bytes:
-    return _crilayla.compress(data)
+def CriLaylaCompress(data: bytes, *, device="cuda") -> bytes:
+    return _crilayla.compress(data, device=device)

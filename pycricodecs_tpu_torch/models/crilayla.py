@@ -1,22 +1,38 @@
 """CRILAYLA compression (LZ77 variant operating backwards from the buffer end).
 
-A copy of the pure-Python halves of pycricodecs_tpu/models/crilayla.py
-(`_decompress_py`, `_compress_py`, with `decompress`'s magic and size
-checks); the JAX package prefers its native C++ core, which this port does
-not carry, and the two agree byte for byte (tests hold them equal).
+Counterpart of pycricodecs_tpu/models/crilayla.py, whose `decompress` and
+`compress` run its native C++ core (cricore.cpp cri_layla_decompress and
+cri_layla_compress). Here they run on the card as kernels C1 and C2
+(csrc/crilayla.cu, ops/cuda_kernels.py): `decompress_batch` and
+`compress_batch` launch once for all the members of a call, and
+`decompress` / `compress` are one-member batches. The pure-Python
+`_decompress_py` and `_compress_py` (copies of the JAX package's fallbacks,
+decompress made linear) are the kernels' plain versions: a CPU device runs
+them member by member. All give the JAX package's bytes (tests hold them
+equal).
 
 Format (crilayla.cpp:19-23): 16-byte header {"CRILAYLA", u32 decompress_size,
 u32 compressed_size} + compressed bitstream + 256-byte raw prefix appended at
-the end (copied verbatim to the output head). Host code: the format is a
-serial bit stream read backwards, and a bank's CPK carries a few of them.
+the end (copied verbatim to the output head).
 """
 from __future__ import annotations
 
+import numpy as np
+import torch
+
+from ..ops import cuda_kernels
+
 MAGIC = b"CRILAYLA"
+MALFORMED = "Malformed CRILAYLA stream"
+TOO_SMALL = "CRILAYLA compression needs more than 256 bytes"
+# the JAX native's refusal text (its `return 0`)
+OVER_CAPACITY = ("CRILAYLA compression failed (input too small or "
+                 "incompressible beyond buffer)")
 
 
-def decompress(data: bytes) -> bytes:
-    """Parity with CriCodecs.CriLaylaDecompress: returns prefix + payload."""
+def parse(data: bytes) -> tuple:
+    """(payload, compressed_size, decompress_size) of a CRILAYLA blob, after
+    the JAX package's magic and size checks (ValueError)."""
     data = bytes(data)
     if data[:8] != MAGIC:
         # the reference doesn't validate the magic; uncompressed TOC entries
@@ -32,7 +48,69 @@ def decompress(data: bytes) -> bytes:
     # here keeps hostile archives from forcing multi-GiB allocations
     if decompress_size > 256 * max(compressed_size, 1) + 256:
         raise ValueError("Implausible CRILAYLA decompress size")
-    return _decompress_py(payload, compressed_size, decompress_size)
+    return payload, compressed_size, decompress_size
+
+
+def decompress(data: bytes, *, device="cuda") -> bytes:
+    """Parity with CriCodecs.CriLaylaDecompress: returns prefix + payload."""
+    return decompress_batch([data], device=device)[0]
+
+
+def decompress_batch(blobs, *, device="cuda") -> list:
+    """[decompress(b) for b in blobs] in one launch of C1 on `device`;
+    raises the error the first failing member raises alone."""
+    parsed, error = [], None
+    for blob in blobs:
+        try:
+            parsed.append(parse(blob))
+        except ValueError as exc:
+            error = exc
+            break
+    outs = decompress_members(parsed, device=device)
+    if None in outs:
+        raise ValueError(MALFORMED)
+    if error is not None:
+        raise error
+    return outs
+
+
+def decompress_members(parsed, *, device="cuda") -> list:
+    """C1 over parsed members [(payload, compressed_size, decompress_size)]
+    in one launch: each member's prefix + payload, or None where its
+    stream is malformed. A CPU device runs `_decompress_py` per member."""
+    if not parsed:
+        return []
+    if torch.device(device).type == "cpu":
+        outs = []
+        for p in parsed:
+            try:
+                outs.append(_decompress_py(*p))
+            except ValueError:
+                outs.append(None)
+        return outs
+    src, meta, out_size = pack_decompress(parsed)
+    out, status, _ = cuda_kernels.crilayla_decompress(
+        torch.from_numpy(src).to(torch.device(device)), meta, out_size)
+    out, status = out.cpu().numpy(), status.cpu().numpy()
+    return [None if status[m] else
+            out[o:o + ds + 256].tobytes()
+            for m, (o, ds) in enumerate(zip(meta[:, 3], meta[:, 2]))]
+
+
+def pack_decompress(parsed) -> tuple:
+    """C1's inputs for parsed members: (the payloads' bytes u8 [n], meta
+    int64 [M, 4], the output's size)."""
+    meta = np.zeros((len(parsed), 4), dtype=np.int64)
+    src_off = out_off = 0
+    for m, (payload, cs, ds) in enumerate(parsed):
+        meta[m] = (src_off, cs, ds, out_off)
+        src_off += cs + 256
+        out_off += ds + 256
+    src = np.empty(src_off, dtype=np.uint8)
+    for (payload, cs, _), off in zip(parsed, meta[:, 0]):
+        src[off:off + cs + 256] = np.frombuffer(payload, np.uint8,
+                                                count=cs + 256)
+    return src, meta, out_off
 
 
 def _decompress_py(payload: bytes, compressed_size: int,
@@ -47,12 +125,15 @@ def _decompress_py(payload: bytes, compressed_size: int,
         nonlocal pos, acc, nbits
         while nbits < n:
             if pos < 0:
-                raise ValueError("Malformed CRILAYLA stream")
+                raise ValueError(MALFORMED)
             acc = (acc << 8) | payload[pos]
             pos -= 1
             nbits += 8
         v = (acc >> (nbits - n)) & ((1 << n) - 1)
         nbits -= n
+        # keep only the unread bits: an unmasked accumulator grows as long
+        # as the stream, and every shift copies it (quadratic time)
+        acc &= (1 << nbits) - 1
         return v
 
     w = decompress_size + 256 - 1
@@ -76,7 +157,7 @@ def _decompress_py(payload: bytes, compressed_size: int,
                                 break
             r = w + offset + 3
             if r >= len(out):
-                raise ValueError("Malformed CRILAYLA stream")
+                raise ValueError(MALFORMED)
             length += 3
             while length and w >= base:
                 out[w] = out[r]
@@ -86,15 +167,71 @@ def _decompress_py(payload: bytes, compressed_size: int,
     return bytes(out)
 
 
-def compress(data: bytes) -> bytes:
+def compress(data: bytes, *, device="cuda") -> bytes:
     """Parity with CriCodecs.CriLaylaCompress (greedy backward matcher)."""
-    return _compress_py(bytes(data))
+    return compress_batch([data], device=device)[0]
+
+
+def compress_batch(datas, *, device="cuda") -> list:
+    """[compress(d) for d in datas] in one launch of C2 on `device`; raises
+    the ValueError of the first member it refuses."""
+    outs = compress_members(datas, device=device)
+    for out, data in zip(outs, datas):
+        if out is None:
+            raise ValueError(TOO_SMALL if len(data) < 0x101
+                             else OVER_CAPACITY)
+    return outs
+
+
+def compress_members(datas, *, device="cuda") -> list:
+    """C2 over the members in one launch: each one's CRILAYLA blob, or
+    None where the kernel refuses it (0x100 bytes or fewer, or over its
+    work buffer's capacity). A CPU device runs `_compress_py` per member."""
+    datas = [bytes(d) for d in datas]
+    if not datas:
+        return []
+    if torch.device(device).type == "cpu":
+        return [_compress_py(d) if len(d) >= 0x101 else None for d in datas]
+    src, meta, work_size = pack_compress(datas)
+    caps = cuda_kernels.crilayla_work_cap(meta[:, 1])
+    work, start, status, _ = cuda_kernels.crilayla_compress(
+        torch.from_numpy(src).to(torch.device(device)), meta, work_size)
+    work = work.cpu().numpy()
+    start, status = start.cpu().numpy(), status.cpu().numpy()
+    outs = []
+    for m, data in enumerate(datas):
+        if status[m]:
+            outs.append(None)
+            continue
+        outs.append(assemble(data, work[meta[m, 2] + start[m]:
+                                        meta[m, 2] + caps[m]].tobytes()))
+    return outs
+
+
+def assemble(data: bytes, stream: bytes) -> bytes:
+    """The CRILAYLA blob of `data` from its compressed stream: the header,
+    the stream and the 256-byte raw prefix."""
+    return (MAGIC + (len(data) - 0x100).to_bytes(4, "little")
+            + len(stream).to_bytes(4, "little") + stream + data[:0x100])
+
+
+def pack_compress(datas) -> tuple:
+    """C2's inputs for members (bytes): (their bytes u8 [n], meta int64
+    [M, 3], the work buffer's size)."""
+    lengths = np.array([len(d) for d in datas], dtype=np.int64)
+    caps = cuda_kernels.crilayla_work_cap(lengths)
+    starts = np.concatenate([[0], np.cumsum(lengths)[:-1]])
+    work = np.concatenate([[0], np.cumsum(caps)[:-1]])
+    meta = np.ascontiguousarray(np.stack([starts, lengths, work], 1),
+                                dtype=np.int64)
+    src = np.frombuffer(b"".join(datas), dtype=np.uint8).copy()
+    return src, meta, int(caps.sum())
 
 
 def _compress_py(data: bytes) -> bytes:
     src_len = len(data)
     if src_len < 0x101:
-        raise ValueError("CRILAYLA compression needs more than 256 bytes")
+        raise ValueError(TOO_SMALL)
     # backward greedy matcher; work buffer congruent to src_len mod 4 so the
     # stream padding matches the reference exactly
     cap = src_len + ((src_len // 2 + 0x403) & ~3)
@@ -165,7 +302,4 @@ def _compress_py(data: bytes) -> bytes:
     while (cap - m) & 3:
         m -= 1
         work[m] = 0
-    stream = bytes(work[m:])
-    header = (MAGIC + (src_len - 0x100).to_bytes(4, "little")
-              + len(stream).to_bytes(4, "little"))
-    return header + stream + data[:0x100]
+    return assemble(data, bytes(work[m:]))

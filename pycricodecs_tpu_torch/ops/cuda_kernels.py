@@ -14,7 +14,10 @@ pallas_kernels.imdct_ola_pallas and imdct_pallas), and the Layer II
 encoder's K1 `mp2_analysis` (csrc/mp2_analysis.cu; the spectra and their
 part and frame peaks), K2 `mp2_allocate` and K3 `mp2_pack`
 (csrc/mp2_encode.cu), which replace the JAX package's numpy host lane of
-the encode (no Pallas kernel).
+the encode (no Pallas kernel), and CRILAYLA's C1 `crilayla_decompress` and
+C2 `crilayla_compress` (csrc/crilayla.cu), which replace the JAX package's
+native host lane (cricore.cpp cri_layla_decompress and cri_layla_compress;
+no Pallas kernel).
 The unpack kernels B1/B2 are wrapped in
 hca_unpack_device.py with the helpers below. A wrapper checks its inputs,
 allocates the outputs, launches on the current stream of its input's
@@ -45,6 +48,8 @@ IMDCT_LAUNCHES = 0
 MP2_ANALYSIS_LAUNCHES = 0
 MP2_ALLOCATE_LAUNCHES = 0
 MP2_PACK_LAUNCHES = 0
+CRILAYLA_DECOMPRESS_LAUNCHES = 0
+CRILAYLA_COMPRESS_LAUNCHES = 0
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
@@ -528,3 +533,77 @@ def mp2_pack(alloc, scfsi, sfidx, codes, pads, offs, ctab, *, sblimit: int,
            ptr(ctab), int(total), int(max_frame), ptr(out))
     MP2_PACK_LAUNCHES += 1
     return out
+
+
+def check_crilayla_meta(src_size: int, meta: np.ndarray, spans,
+                        out_size: int) -> None:
+    """Raise unless every member's input span [off, off + in) lies in the
+    source and its output span [out, out + span) in the output; `spans` =
+    (in, out) per member, computed from meta by the caller."""
+    ins, outs = spans
+    if meta.dtype != np.int64 or meta.ndim != 2:
+        raise ValueError("meta: expected an int64 table [M, k]")
+    if (meta < 0).any():
+        raise ValueError("meta: negative offset or size")
+    if (meta[:, 0] + ins > src_size).any():
+        raise ValueError("meta: a member reads past the source")
+    out_off = meta[:, -1]
+    if (out_off + outs > out_size).any():
+        raise ValueError("meta: a member writes past the output")
+
+
+def crilayla_decompress(src, meta: np.ndarray, out_size: int):
+    """Kernel C1: the members' payloads in one u8 buffer src (CUDA) and a
+    host int64 table meta [M, 4] (payload offset, compressed size,
+    decompress size, output offset) -> (out u8 [out_size] with member m at
+    out[meta[m, 3]:][:decompress size + 256], status i32 [M] (0, or 1 for a
+    malformed stream), steps i64 [M] (tokens decoded))."""
+    global CRILAYLA_DECOMPRESS_LAUNCHES
+    check_cuda(src, "src", torch.uint8, (src.numel(),))
+    M = meta.shape[0]
+    check_crilayla_meta(src.numel(), meta, (meta[:, 1] + 256,
+                                            meta[:, 2] + 256), out_size)
+    dev = src.device
+    out = torch.empty(out_size, dtype=torch.uint8, device=dev)
+    status = torch.empty(M, dtype=torch.int32, device=dev)
+    steps = torch.empty(M, dtype=torch.int64, device=dev)
+    if M == 0:
+        return out, status, steps
+    meta_t = torch.from_numpy(np.ascontiguousarray(meta)).to(dev)
+    launch("crilayla_decompress", src, ptr(src), ptr(meta_t), M, ptr(out),
+           ptr(status), ptr(steps))
+    CRILAYLA_DECOMPRESS_LAUNCHES += 1
+    return out, status, steps
+
+
+def crilayla_work_cap(length):
+    """C2's work buffer for a member of `length` bytes: congruent to it mod
+    4 (the stream's padding), with room for 9 bits a byte."""
+    return length + ((length // 2 + 0x403) & ~3)
+
+
+def crilayla_compress(src, meta: np.ndarray, work_size: int):
+    """Kernel C2: the members in one u8 buffer src (CUDA) and a host int64
+    table meta [M, 3] (offset, length, work offset) -> (work u8
+    [work_size] with member m's stream at work[meta[m, 2] + start[m]:]
+    [:crilayla_work_cap(length) - start[m]], start i64 [M], status i32 [M]
+    (0; 1 for 0x100 bytes or fewer; 2 over capacity), steps i64 [M]
+    (greedy steps)). Bytes of work outside the streams are undefined."""
+    global CRILAYLA_COMPRESS_LAUNCHES
+    check_cuda(src, "src", torch.uint8, (src.numel(),))
+    M = meta.shape[0]
+    check_crilayla_meta(src.numel(), meta,
+                        (meta[:, 1], crilayla_work_cap(meta[:, 1])),
+                        work_size)
+    dev = src.device
+    work = torch.empty(work_size, dtype=torch.uint8, device=dev)
+    start = torch.empty(M, dtype=torch.int64, device=dev)
+    status = torch.empty(M, dtype=torch.int32, device=dev)
+    steps = torch.empty(M, dtype=torch.int64, device=dev)
+    if M == 0:
+        return work, start, status, steps
+    meta_t = torch.from_numpy(np.ascontiguousarray(meta)).to(dev)
+    launch("crilayla_compress", src, ptr(src), ptr(meta_t), M, ptr(work),
+           ptr(start), ptr(status), ptr(steps))
+    CRILAYLA_COMPRESS_LAUNCHES += 1
+    return work, start, status, steps

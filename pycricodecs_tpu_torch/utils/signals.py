@@ -2,12 +2,15 @@
 
 tools/make_torch_port_fixtures.py encodes these signals with the JAX
 package to write tests/data/torch_port/; chip_smoke.py rebuilds the HCA and
-ADX input WAVs from the same recipe on the GPU machine, which has no JAX,
+ADX input WAVs, and the container phase's cutscene (movie_frames,
+movie_track), from the same recipe on the GPU machine, which has no JAX,
 and holds them to the hashes recorded there. The AHX fixtures are only
 decoded there, so their signals (ahx_bank_pcm, tones) serve the fixture
 tool and its regeneration test.
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -127,3 +130,109 @@ def adx_wav(name: str, write_wav) -> bytes:
         return write_wav(pcm, channels, SAMPLE_RATE)
     return write_wav(pcm, channels, SAMPLE_RATE, looping=True,
                      loop_start=loop[0], loop_end=loop[1])
+
+
+# The container phase's cutscene: 60 s of VP9 at 30 fps as a game ships it
+# in a USM. The frames are pseudo-random bytes (no decoder reads them): a
+# 48 KB keyframe every 30 frames and 12 KB +- 2 KB otherwise, about 24 MB,
+# 3.2 Mbit/s, a typical cutscene bitrate.
+MOVIE = dict(seconds=60, fps=30, keyframe_every=30, keyframe_bytes=48 * 1024,
+             frame_bytes=12 * 1024, jitter=2 * 1024, seed=19)
+#: the USM key of the container phase's movies: below 2^56 (a 7-byte key)
+MOVIE_KEY = 0x0019C0FFEE5EED19
+#: the seeds of the movie's two 60 s, 48 kHz stereo voice tracks (tones())
+MOVIE_TRACK_SEEDS = (1, 2)
+#: the movie's subtitles, {language: [(start ms, duration ms, text)]}
+MOVIE_SUBTITLES = {
+    0: [(1000, 2500, "The gate is open."), (4000, 3000, "Run!"),
+        (30000, 2000, "Where are we?"), (58000, 1500, "Home.")],
+    1: [(1000, 2500, "Das Tor ist offen."), (4000, 3000, "Lauf!"),
+        (30000, 2000, "Wo sind wir?"), (58000, 1500, "Zuhause.")],
+}
+
+
+def movie_frames() -> list:
+    """The cutscene's frames (MOVIE), as bytes."""
+    m = MOVIE
+    n = m["seconds"] * m["fps"]
+    rng = np.random.default_rng(m["seed"])
+    sizes = m["frame_bytes"] + rng.integers(-m["jitter"], m["jitter"] + 1, n)
+    sizes[::m["keyframe_every"]] = m["keyframe_bytes"]
+    data = rng.bytes(int(sizes.sum()))
+    ends = np.cumsum(sizes)
+    return [data[e - s:e] for s, e in zip(sizes.tolist(), ends.tolist())]
+
+
+def movie_track(seed: int, write_wav) -> bytes:
+    """A voice track of the cutscene: tones(60 s, 2 channels, 48 kHz,
+    seed) as a WAV; `write_wav` is the JAX package's or the port's."""
+    pcm = tones(MOVIE["seconds"], 2, 48000, seed)
+    return write_wav(pcm.T.reshape(-1), 2, 48000)
+
+
+#: the container phase's sound archive: its members in the folder the
+#: CPKs are built from (mode 0 takes the same members named 0..5 in this
+#: order); bank.awb is 256 copies of the 10 s bank stream
+ARCHIVE_MEMBERS = ("adx.usm", "bank.acb", "bank.awb", "hca.usm",
+                   "mixed.acb", "subkey.awb")
+#: how many copies of the 10 s bank WAV (hca_wav(HCA_BANK)) the compressed
+#: archive holds
+COMPRESSED_WAVS = 4
+
+
+def compressed_archive_members(fixtures: str, write_wav) -> dict:
+    """The container phase's compressed archive, {name: bytes}: bank.acb
+    and mixed.acb, the 1 s ADX and HCA fixtures and the 10 s ADX bank
+    stream from the fixture directory `fixtures` (tests/data/torch_port),
+    and COMPRESSED_WAVS copies of the 10 s bank WAV."""
+    def read(*parts):
+        with open(os.path.join(fixtures, *parts), "rb") as f:
+            return f.read()
+
+    out = {name: read("bank", name) for name in ("bank.acb", "mixed.acb")}
+    for name in sorted(os.listdir(os.path.join(fixtures, "adx"))):
+        if name.endswith("_1s.adx") or name == ADX_BANK + ".adx":
+            out[name] = read("adx", name)
+    for name in sorted(os.listdir(fixtures)):
+        if name.endswith("_1s.hca"):
+            out[name] = read(name)
+    wav = hca_wav(HCA_BANK, write_wav)
+    for i in range(COMPRESSED_WAVS):
+        out[f"wav_{i}.wav"] = wav
+    return out
+
+
+def crilayla_edge_payloads(seed: int = 19) -> list:
+    """Small CRILAYLA inputs that reach the greedy matcher's edges: n at
+    0x100 (257 and 258 bytes), ties between equal matches, a zero run past
+    the 44 + 255 escapes, one repeat of every length escape (3-5, 6-12,
+    13-43, 44 and up with one and two 255-runs), matches cut at kmax, and
+    repeats at the window's edge (offset 0x1FFF, taken, and 0x2000, out of
+    reach) in one payload just past 0x2000 bytes."""
+    rng = np.random.default_rng(seed)
+
+    def rand(n, hi=256):
+        return bytearray(rng.integers(0, hi, n, dtype=np.uint8).tobytes())
+
+    out = [bytes(rand(257)), bytes(rand(258)), bytes(rand(300, 4)),
+           bytes(rand(4096, 3))]
+    z = rand(1200)
+    z[300:300 + 44 + 255 + 90] = bytes(44 + 255 + 90)
+    out.append(bytes(z))
+    esc = rand(300)
+    for length in (3, 5, 6, 12, 13, 43, 44, 298, 299, 553, 554):
+        block = rand(length)
+        esc += block + rand(7) + block + rand(5)
+    out.append(bytes(esc))
+    # a period-5 pattern reaching back to byte 0x100: matches end at kmax
+    out.append(bytes(rand(0x100) + bytearray(b"abcde" * 300)))
+    # period-7 filler keeps the payload's greedy steps few (the plain
+    # version's cost is a scan of the window per step); the two random
+    # blocks and their copies are the matches under test
+    edge = bytearray((b"0123456" * 1300)[:0x2000 + 700])
+    hi = len(edge) - 140
+    edge[hi - 60:hi + 40] = rand(100)
+    edge[hi - 0x2002:hi - 0x2002 + 40] = edge[hi:hi + 40]
+    edge[hi - 60 - 0x2003:hi - 60 - 0x2003 + 40] = edge[hi - 60:hi - 20]
+    out.append(bytes(edge))
+    return out

@@ -1,8 +1,10 @@
 """PyTorch port, the command line (`python -m pycricodecs_tpu_torch`, here
 in-process with --device cpu): decode, encode, extract, bank-decode,
 find-key and info write the same files and print the same text as the JAX
-package's CLI on the fixtures (encode --format ahx among them); what is not
-ported (CPK, USM and IVF, build) refuses with a SystemExit that names it.
+package's CLI on the fixtures (encode --format ahx among them), and so do
+the container paths: extract of a CPK and a USM, info of a CPK, a USM and
+an IVF, build of a CPK (the six cases that refused by name before the port
+carried CPK, USM and IVF, under their old ids).
 """
 import os
 
@@ -184,7 +186,43 @@ def test_find_key_ranks_the_true_key_first(capsys, tmp_path):
     assert code is None and stdout.startswith(f"0x{KEY:016X}")
 
 
-# each case's id fixed (argv1-argv6), whatever its place in the list
+USM_KEY = 0x0019C0FFEE5EED19
+
+
+def _container_inputs():
+    """A compressed CPK, a USM with an enciphered HCA track and subtitles,
+    and an IVF, all from the JAX package's builders."""
+    import tempfile
+
+    from pycricodecs_tpu.containers.cpk import CPKBuilder
+    from pycricodecs_tpu.containers.ivf import build_ivf
+    from pycricodecs_tpu.containers.usm import USMBuilder
+
+    ivf = build_ivf([b"\x82I\x83B" + bytes(range(256)) * 3, b"w" * 900,
+                     b"v" * 333], fps_num=2997, fps_den=100)
+    usm = USMBuilder(ivf, [H.wav(4000, 2, seed=6)], key=USM_KEY,
+                     audio_codec="hca", encryptAudio=True,
+                     subtitles=[(0, 900, "line")]).build()
+    with tempfile.TemporaryDirectory() as tmp:
+        _cpk_source(os.path.join(tmp, "src"))
+        CPKBuilder(os.path.join(tmp, "src"), os.path.join(tmp, "a.cpk"),
+                   compress=True)
+        with open(os.path.join(tmp, "a.cpk"), "rb") as fh:
+            cpk = fh.read()
+    return {"in.cpk": cpk, "in.usm": usm, "in.ivf": ivf}
+
+
+def _cpk_source(root):
+    os.makedirs(os.path.join(root, "sub"))
+    for name, data in (("a.txt", b"container path " * 40),
+                       ("sub/b.bin", bytes(range(256)) * 3),
+                       ("tiny", b"short")):
+        with open(os.path.join(root, name), "wb") as fh:
+            fh.write(data)
+
+
+# each case's id fixed (argv1-argv6), whatever its place in the list: these
+# six refused by name until the port carried CPK, USM and IVF
 @pytest.mark.parametrize("argv,what", [
     pytest.param(argv, what, id=f"argv{i}-{what}") for i, (argv, what) in
     enumerate([
@@ -195,15 +233,33 @@ def test_find_key_ranks_the_true_key_first(capsys, tmp_path):
         (["info", "in.ivf"], "info of IVF"),
         (["build", "somedir", "-o", "out.cpk"], "build"),
     ], start=1)])
-def test_what_is_not_ported_refuses_by_name(tmp_path, argv, what):
-    files = {"in.wav": H.wav(1000, 1), "in.cpk": b"CPK " + bytes(60),
-             "in.usm": b"CRID" + bytes(60), "in.ivf": b"DKIF" + bytes(60)}
-    for name, data in files.items():
-        (tmp_path / name).write_bytes(data)
-    argv = [str(tmp_path / a) if a in files else a for a in argv]
-    with pytest.raises(SystemExit) as exc:
-        port_cli.main(argv + ["--device", "cpu"] if argv[0] != "build"
-                      else argv)
-    msg = str(exc.value.code)
-    assert msg.startswith(what) and "not ported" in msg
-    assert sorted(os.listdir(tmp_path)) == sorted(files)
+def test_what_is_not_ported_refuses_by_name(capsys, tmp_path, argv, what):
+    """The CLI's container paths write and print what the JAX CLI does."""
+    if argv[0] == "build":
+        res = []
+        for tag, cli, extra in (("port", port_cli, ["--device", "cpu"]),
+                                ("jax", jax_cli, [])):
+            root = tmp_path / tag
+            _cpk_source(str(root / "somedir"))
+            stdout, code = _run(capsys, cli, [
+                "build", str(root / "somedir"), "-o", str(root / "out.cpk"),
+                "--compress", "--encrypt", "--cpk-mode", "2"] + extra)
+            res.append((stdout.replace(str(root), "{out}"), code,
+                        (root / "out.cpk").read_bytes()))
+        assert res[0] == res[1] and res[0][1] is None
+        return
+    inputs = _container_inputs()
+    if argv[0] == "extract":
+        argv = argv + ["-o", "{out}/x"]
+        if "in.usm" in argv:
+            argv += ["--decode", "--key", hex(USM_KEY)]
+    port, ref = _both(capsys, tmp_path, argv,
+                      {n: inputs[n] for n in argv if n in inputs})
+    assert port == ref
+    stdout, code, files = port
+    assert code is None
+    if argv[0] == "extract":
+        assert files and (what != "extract of USM"
+                          or any(n.endswith(".wav") for n in files))
+    else:
+        assert stdout.startswith(("{", "["))

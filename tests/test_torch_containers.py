@@ -360,6 +360,9 @@ def _port_sources():
 def test_no_port_module_imports_jax_or_the_jax_package():
     sources = _port_sources()
     assert len(sources) > 30
+    rel = {os.path.relpath(p, ROOT).replace(os.sep, "/") for p in sources}
+    assert {f"pycricodecs_tpu_torch/containers/{m}.py"
+            for m in ("cpk", "ivf", "usm")} <= rel
     for path in sources:
         with open(path) as fh:
             tree = ast.parse(fh.read(), path)

@@ -123,10 +123,41 @@ JAX package:
 - "graft_entry": __graft_entry__.entry()'s fn on its example args: the
   sha256 and shape of its pcm and whether any err is set.
 
+Containers (tests/data/torch_port/containers/expected.json, written by
+write_container_fixtures(); hashes only, never the large inputs, which
+chip_smoke.py's phase 19 rebuilds from pycricodecs_tpu_torch/utils/
+signals.py and holds to the input hashes recorded here), from the JAX
+package:
+- "movie": containers.ivf.build_ivf of signals.movie_frames() (1,800
+  frames, fps 30/1), the two voice tracks signals.movie_track(seed,
+  utils.wav.write_wav); containers.usm.USMBuilder(ivf, [both tracks],
+  key=MOVIE_KEY, audio_codec="hca", encryptAudio=True,
+  subtitles=MOVIE_SUBTITLES).build() and USMBuilder(ivf, [the first
+  track], key=MOVIE_KEY, audio_codec="adx", encryptAudio=True).build();
+  each USM's USM(usm, key=MOVIE_KEY).extract(dir, decode=True,
+  key=MOVIE_KEY) as {relative path: sha256} of every written file;
+- "ahx_decode": USM._decode_audio of the 10 s AHX bank stream;
+- "archive": containers.cpk.CPKBuilder over a folder of
+  signals.ARCHIVE_MEMBERS (bank.acb with bank.awb = containers.awb.
+  build_afs2 of 256 copies of the 10 s bank stream, mixed.acb,
+  subkey.awb, both USMs) in modes 1, 2 and 3, and in mode 0 over the same
+  members named 0..5: each archive's sha256, each member's, and the
+  tree CPK(archive).extract(dir) writes (modes 0 and 1 extract every
+  member as it went in; modes 2 and 3 read their members at the TOC's
+  FileOffset past 0x800, which the builder counts without the ITOC or
+  GTOC that precede the content, so they extract other bytes: the JAX
+  package's behaviour, held as it is);
+- "compressed": CPKBuilder(compress=True, encrypt=True) (mode 1) over
+  signals.compressed_archive_members (its CRILAYLA is the JAX package's
+  native compress): the archive's sha256, each member's, and which members
+  it stores compressed.
+
 Usage: python3 tools/make_torch_port_fixtures.py [--keysearch | --bank |
---surfaces] (--keysearch writes only the key search directory, --bank only
-the banks', --surfaces only the surfaces' expected.json; --bank and
---surfaces read the fixtures above, so run them after them.)
+--surfaces | --containers] (--keysearch writes only the key search
+directory, --bank only the banks', --surfaces only the surfaces'
+expected.json, --containers only the containers' expected.json (~1 min);
+--bank, --surfaces and --containers read the fixtures above, so run them
+after them.)
 """
 import hashlib
 import json
@@ -146,6 +177,7 @@ AHX_DIR = os.path.join(OUT_DIR, "ahx")
 KEYSEARCH_DIR = os.path.join(OUT_DIR, "keysearch")
 BANK_DIR = os.path.join(OUT_DIR, "bank")
 SURFACES_DIR = os.path.join(OUT_DIR, "surfaces")
+CONTAINERS_DIR = os.path.join(OUT_DIR, "containers")
 BANK_TRACKS = 256
 SUBKEY = 0x55AA
 ZERO_CODED = "zero_coded_v2_stereo_48k_1s"
@@ -276,6 +308,9 @@ def main() -> None:
     if "--surfaces" in sys.argv[1:]:
         write_surface_fixtures()
         return
+    if "--containers" in sys.argv[1:]:
+        write_container_fixtures()
+        return
     from pycricodecs_tpu import parallel
 
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -309,6 +344,7 @@ def main() -> None:
     write_keysearch_fixtures()
     write_bank_fixtures()
     write_surface_fixtures()
+    write_container_fixtures()
 
 
 def sha256(data: bytes) -> str:
@@ -636,6 +672,108 @@ def write_surface_fixtures() -> None:
     with open(os.path.join(SURFACES_DIR, "expected.json"), "w") as f:
         json.dump(out, f, indent=1, sort_keys=True)
         f.write("\n")
+
+def tree_sha256(root: str) -> dict:
+    """{relative path with "/": sha256} of every file under root."""
+    out = {}
+    for dirpath, _, names in os.walk(root):
+        for n in names:
+            p = os.path.join(dirpath, n)
+            with open(p, "rb") as f:
+                out[os.path.relpath(p, root).replace(os.sep, "/")] = \
+                    sha256(f.read())
+    return dict(sorted(out.items()))
+
+
+def write_container_fixtures() -> None:
+    import tempfile
+
+    from pycricodecs_tpu.containers.awb import build_afs2
+    from pycricodecs_tpu.containers.cpk import CPK, CPKBuilder
+    from pycricodecs_tpu.containers.ivf import build_ivf
+    from pycricodecs_tpu.containers.usm import USM, USMBuilder
+    from pycricodecs_tpu.utils.wav import write_wav
+    from pycricodecs_tpu_torch.utils import signals as S
+
+    os.makedirs(CONTAINERS_DIR, exist_ok=True)
+    key = S.MOVIE_KEY
+    ivf = build_ivf(S.movie_frames(), fps_num=S.MOVIE["fps"], fps_den=1)
+    tracks = [S.movie_track(seed, write_wav) for seed in S.MOVIE_TRACK_SEEDS]
+    usms = {
+        "hca": USMBuilder(ivf, tracks, key=key, audio_codec="hca",
+                          encryptAudio=True,
+                          subtitles=S.MOVIE_SUBTITLES).build(),
+        "adx": USMBuilder(ivf, [tracks[0]], key=key, audio_codec="adx",
+                          encryptAudio=True).build()}
+    movie = {"ivf_sha256": sha256(ivf), "ivf_bytes": len(ivf),
+             "track_sha256": [sha256(t) for t in tracks], "key": hex(key)}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, usm in usms.items():
+            out = os.path.join(tmp, name)
+            USM(usm, key=key).extract(out, decode=True, key=key)
+            movie[name] = {"usm_sha256": sha256(usm), "usm_bytes": len(usm),
+                           "extract": tree_sha256(out)}
+            print(name, movie[name])
+    with open(os.path.join(AHX_DIR, AHX_BANK + ".ahx"), "rb") as f:
+        ahx = USM._decode_audio(f.read())
+    out = {"movie": movie, "ahx_decode": {"stream": AHX_BANK + ".ahx",
+                                          "wav_sha256": sha256(ahx)}}
+
+    with open(os.path.join(BANK_DIR, "expected.json")) as f:
+        bank = json.load(f)["bank"]
+    with open(os.path.join(OUT_DIR, bank["member"]), "rb") as f:
+        members = {"bank.awb": build_afs2([f.read()] * bank["tracks"])}
+    for name in ("bank.acb", "mixed.acb", "subkey.awb"):
+        with open(os.path.join(BANK_DIR, name), "rb") as f:
+            members[name] = f.read()
+    members["hca.usm"], members["adx.usm"] = usms["hca"], usms["adx"]
+    archive = {"members": {n: sha256(members[n])
+                           for n in S.ARCHIVE_MEMBERS}, "modes": {}}
+    compressed_in = S.compressed_archive_members(OUT_DIR, write_wav)
+    with tempfile.TemporaryDirectory() as tmp:
+        named, numbered = os.path.join(tmp, "named"), os.path.join(tmp, "ids")
+        os.makedirs(named)
+        os.makedirs(numbered)
+        for i, n in enumerate(S.ARCHIVE_MEMBERS):
+            for path in (os.path.join(named, n), os.path.join(numbered,
+                                                             str(i))):
+                with open(path, "wb") as f:
+                    f.write(members[n])
+        for mode in (0, 1, 2, 3):
+            path = os.path.join(tmp, f"mode{mode}.cpk")
+            CPKBuilder(numbered if mode == 0 else named, path, CpkMode=mode)
+            with open(path, "rb") as f:
+                blob = f.read()
+            out_dir = os.path.join(tmp, f"out{mode}")
+            CPK(path).extract(out_dir)
+            archive["modes"][str(mode)] = {"sha256": sha256(blob),
+                                           "bytes": len(blob),
+                                           "extract": tree_sha256(out_dir)}
+            print("archive mode", mode, archive["modes"][str(mode)])
+        src = os.path.join(tmp, "compress_in")
+        os.makedirs(src)
+        for n, data in compressed_in.items():
+            with open(os.path.join(src, n), "wb") as f:
+                f.write(data)
+        path = os.path.join(tmp, "compressed.cpk")
+        CPKBuilder(src, path, compress=True, encrypt=True)
+        with open(path, "rb") as f:
+            blob = f.read()
+        toc = CPK(path).tables["TOC"]
+        packed = sorted(CPK._cell(toc["FileName"], i)
+                        for i in range(len(toc["FileName"]))
+                        if CPK._cell(toc["ExtractSize"], i)
+                        > CPK._cell(toc["FileSize"], i))
+    out["archive"] = archive
+    out["compressed"] = {"sha256": sha256(blob), "bytes": len(blob),
+                         "members": {n: sha256(d)
+                                     for n, d in compressed_in.items()},
+                         "stored_compressed": packed}
+    print("compressed", out["compressed"]["sha256"], len(blob), packed)
+    with open(os.path.join(CONTAINERS_DIR, "expected.json"), "w") as f:
+        json.dump(out, f, indent=1, sort_keys=True)
+        f.write("\n")
+
 
 if __name__ == "__main__":
     main()
