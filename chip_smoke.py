@@ -238,8 +238,11 @@ hashes from the JAX package):
    `crilayla_decompress` once, every member equal to its source; C1 and C2
    against `_decompress_py` / `_compress_py` (the compressed 1 s fixtures
    and a malformed stream; payloads of 257 B - 8.7 KB at the matcher's
-   edges, and two it refuses); C1 and C2 timed at the archive's shape
-   (CUDA events), their plain versions once.
+   edges, and two it refuses); a 1 MiB run of one byte and a 1 MiB
+   period-3 pattern (matches past 2^19 bytes: C2's 64-bit keys) through C2
+   to the JAX native's blob hashes and back through C1; C1 and C2 timed at
+   the archive's shape (CUDA events) with their stage splits (C2: search,
+   walk, emit; C1: parse, materialise), their plain versions once.
 
 Prints one compact JSON line of every bank call's and phases 17-19's timings
 (`banks`), then a JSON line of per-kernel results (launches on the main paths, max
@@ -398,7 +401,10 @@ FP64_OPS_PER_S = 17e12
 #   shared-memory OR);
 # - C1 (crilayla_decompress): one per output byte (its store); C2
 #   (crilayla_compress): one per input byte (each is read and compared at
-#   least once). Both are bound by their serial chains (CHAIN_OPS).
+#   least once). Neither has a chain term: C1's token parse and C2's
+#   greedy walk run speculatively in parallel pieces (chunks, tiles) that
+#   the true parse joins, so no serial chain of the function's length is
+#   one that every design must run.
 OPS = {"hca_side_info": 1, "hca_coefficients": 3, "hca_transform": 35,
        "adx_decode": 13, "adx_decode_host": 13, "adx_encode": 20, "hca_mdct": 23, "hca_pack": 3,
        "hca_transform_pns": 37, "mp2_unpack": 3, "mp2_synth": 164,
@@ -422,14 +428,8 @@ OPS_PER_S = {"mp2_synth": FP64_OPS_PER_S, "mp2_analysis": FP64_OPS_PER_S,
 #   formed a step early), shift, the dividend's clamp (min and max side by
 #   side), the rounding add, the select, the division's mask (r & add),
 #   multiply-high, shift and sign fix, the simulated decoder's multiply-add,
-#   shift and two clamps = 13 (14 in adx_encode_plain's order);
-# - C1, a token: the flag bit's shift and mask, and the bit cursor's
-#   advance by the token's width = 3 (steps: the longest member's tokens);
-# - C2, a greedy step: the next position waits for the step's longest
-#   match, a max over 0x2000 candidates (13 levels of a 64-bit max) and the
-#   position's subtraction = 14 (steps: the longest member's greedy steps).
-CHAIN_OPS = {"adx_decode": 5, "adx_decode_host": 5, "adx_encode": 13,
-             "crilayla_decompress": 3, "crilayla_compress": 14}
+#   shift and two clamps = 13 (14 in adx_encode_plain's order).
+CHAIN_OPS = {"adx_decode": 5, "adx_decode_host": 5, "adx_encode": 13}
 CHAIN_CYCLES_PER_OP = 4
 
 
@@ -3425,18 +3425,58 @@ def crilayla_checks(dev, worst: dict, fixtures: dict) -> None:
              if b is not None]
     bad_blob = bytearray(blobs[0])
     bad_blob[20] ^= 0xFF                              # a malformed stream
-    parsed = [crilayla.parse(b) for b in blobs + [bytes(bad_blob)]]
+    # more damage, as tests/test_torch_crilayla.py does it: three bytes
+    # flipped near the stream's end (where the parse starts), an all-ones
+    # stream (a back-reference past the end), a stream cut short (an
+    # underrun)
+    rng = np.random.default_rng(9)
+    damaged = []
+    for _ in range(24):
+        x = bytearray(blobs[1])
+        for _ in range(3):
+            x[16 + int(rng.integers(0, 40))] ^= int(rng.integers(1, 256))
+        damaged.append(bytes(x))
+    ones = blobs[2][:16] + b"\xff" * (len(blobs[2]) - 16)
+    cut = blobs[3][:8] + (700).to_bytes(4, "little") \
+        + (2).to_bytes(4, "little") + blobs[3][16:18] + blobs[3][-256:]
+    parsed = [crilayla.parse(b) for b in blobs + [bytes(bad_blob)] + damaged
+              + [ones, cut]]
     got = crilayla.decompress_members(parsed, device=dev)
     want = crilayla.decompress_members(parsed, device="cpu")
     worst["crilayla_decompress"] = max(
         worst["crilayla_decompress"],
         members_equal("C1 against _decompress_py on the compressed 1 s "
-                      "fixtures", got, want))
-    if got[-1] is not None:
-        raise AssertionError("C1 did not flag the malformed stream")
+                      "fixtures and damaged streams", got, want))
+    flagged = sum(x is None for x in got)
+    if got[len(blobs)] is not None or got[-1] is not None or \
+            got[-2] is not None:
+        raise AssertionError("C1 did not flag a malformed stream")
     log(f"C1 crilayla_decompress: {len(blobs)} compressed 1 s fixtures and "
-        f"a malformed stream byte-equal to _decompress_py (the malformed "
-        f"one flagged by both)")
+        f"{len(parsed) - len(blobs)} damaged streams byte-equal to "
+        f"_decompress_py, statuses included ({flagged} flagged by both)")
+    # matches past 2^19 bytes: C2's 64-bit keys; the plain matcher would take
+    # hours here, so the JAX native's blob hashes hold them
+    with open(os.path.join(CONTAINER_FIXTURES, "expected.json")) as f:
+        want_long = json.load(f)["long_matches"]
+    members = signals.crilayla_long_match_members()
+    for n, data in members.items():
+        if sha(data) != want_long[n]["member_sha256"]:
+            raise AssertionError(f"{n}: the member differs from its recorded "
+                                 f"hash")
+    blobs = crilayla.compress_members(list(members.values()), device=dev)
+    for n, blob in zip(members, blobs):
+        if blob is None or sha(blob) != want_long[n]["blob_sha256"]:
+            raise AssertionError(f"C2 at {n}: the blob differs from the JAX "
+                                 f"native's")
+    back = crilayla.decompress_members([crilayla.parse(b) for b in blobs],
+                                       device=dev)
+    if back != list(members.values()):
+        raise AssertionError("C1 did not give the long-match members back")
+    log(f"C2 / C1 at matches past 2^19 bytes: "
+        + ", ".join(f"{n} ({len(d)} bytes -> {len(b)})"
+                    for (n, d), b in zip(members.items(), blobs))
+        + ": each blob equal to the JAX native's, each decompressed back to "
+        f"its member")
 
 
 def host_ms(fn) -> float:
@@ -3447,9 +3487,54 @@ def host_ms(fn) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
+#: each CRILAYLA wrapper's stages, by the kernels (names) each launches
+CRILAYLA_STAGES = {
+    "crilayla_compress": {
+        "search": ("c2_summary_kernel", "c2_carry_kernel", "c2_search_kernel"),
+        "walk": ("c2_spec_kernel", "c2_repair_kernel"),
+        "emit": ("c2_count_kernel", "c2_offsets_kernel", "c2_place_kernel")},
+    "crilayla_decompress": {
+        "parse": ("c1_spec_kernel", "c1_repair_kernel", "c1_count_kernel",
+                  "c1_offsets_kernel", "c1_place_kernel", "c1_finish_kernel"),
+        "materialise": ("c1_resolve_kernel", "c1_jump_kernel",
+                        "c1_gather_kernel")}}
+
+
+def stage_device_ms(fn, stages: dict, reps: int = 3) -> dict:
+    """{stage: device milliseconds a call} of fn()'s kernels, summed by
+    the kernel names each stage lists (the call's other device work, its
+    table copies and the work buffer's fill, under "other"), from the
+    kernel records of a torch.profiler trace of `reps` calls after a
+    warm-up call. Raises where a stage's kernels left no record."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys([*stages, "other"], 0.0)
+    for e in prof.key_averages():
+        us = (getattr(e, "device_time_total", None)
+              or getattr(e, "cuda_time_total", 0))
+        stage = next((k for k, names in stages.items()
+                      if any(n in e.key for n in names)), "other")
+        out[stage] += us / reps / 1e3
+    empty = [k for k in stages if out[k] <= 0]
+    if empty:
+        raise AssertionError(f"no kernel record of the stages {empty} in "
+                             f"the profiler's trace")
+    return out
+
+
+def fmt_stages(stages: dict) -> str:
+    return ", ".join(f"{k} {v:.4f} ms" for k, v in stages.items())
+
+
 def crilayla_timing(dev, card: str, named: dict, worst: dict) -> dict:
     """C1 and C2 at the compressed archive's shape (CUDA events, median of
-    3), their plain versions once (C2's on the edge payloads: the Python
+    3; their stages by device time, `stage_device_ms`), their plain
+    versions once (C2's on the edge payloads: the Python
     matcher would take hours at this shape), and the bounds. C1's output
     at this shape is held to `_decompress_py`'s byte for byte, statuses
     included; C2's is held to the JAX package's archive hash on the main
@@ -3473,6 +3558,9 @@ def crilayla_timing(dev, card: str, named: dict, worst: dict) -> dict:
             f"{n} {len(m)} -> {'refused' if x is None else len(x) + 0x110}"
             for n, m, x in zip(named, members, streams)))
     c2_ms = cuda_ms(lambda: CK.crilayla_compress(src_t, meta, work_size), 3)
+    c2_stages = stage_device_ms(
+        lambda: CK.crilayla_compress(src_t, meta, work_size),
+        CRILAYLA_STAGES["crilayla_compress"])
     edge = signals.crilayla_edge_payloads()
     c2_plain_ms = host_ms(lambda: crilayla.compress_members(edge,
                                                             device="cpu"))
@@ -3482,7 +3570,7 @@ def crilayla_timing(dev, card: str, named: dict, worst: dict) -> dict:
                          3)
     c2 = bound("crilayla_compress",
                int(meta[:, 1].sum()) + sum(len(x) for x in streams if x),
-               int(meta[:, 1].sum()), chain_steps=c2_steps)
+               int(meta[:, 1].sum()))
 
     # C1 at the main path's shape: the members the archive stores
     # compressed (CPKBuilder stores a member raw where its blob is not
@@ -3513,20 +3601,26 @@ def crilayla_timing(dev, card: str, named: dict, worst: dict) -> dict:
                              "from its source")
     c1_ms = cuda_ms(lambda: CK.crilayla_decompress(dsrc_t, dmeta, out_size),
                     3)
-    c1 = bound("crilayla_decompress", len(dsrc) + out_size, out_size,
-               chain_steps=c1_steps)
+    c1_stages = stage_device_ms(
+        lambda: CK.crilayla_decompress(dsrc_t, dmeta, out_size),
+        CRILAYLA_STAGES["crilayla_decompress"])
+    c1 = bound("crilayla_decompress", len(dsrc) + out_size, out_size)
     log(f"C2 crilayla_compress [{card}] at the compressed archive "
         f"({len(members)} members, {int(meta[:, 1].sum())} bytes, longest "
-        f"chain {c2_steps} steps): kernel {c2_ms:.4f} ms (CUDA events, median "
-        f"of 3); at the edge payloads ({int(emeta[:, 1].sum())} bytes) "
+        f"member {c2_steps} tokens): kernel {c2_ms:.4f} ms (CUDA events, "
+        f"median of 3); at the edge payloads ({int(emeta[:, 1].sum())} bytes) "
         f"kernel {c2_edge_ms:.4f} ms, plain {c2_plain_ms:.4f} ms; bound "
-        f"{c2['bound_ms']:.4f} ms by {c2['bound_by']}")
+        f"{c2['bound_ms']:.4f} ms by {c2['bound_by']}; stages (device "
+        f"time, torch.profiler, mean of 3) {fmt_stages(c2_stages)}")
     log(f"C1 crilayla_decompress [{card}] at the archive's "
         f"{len(blobs)} compressed members ({len(dsrc)} bytes in, {out_size} "
-        f"out, longest chain {c1_steps} tokens): kernel {c1_ms:.4f} ms (CUDA "
+        f"out, longest member {c1_steps} tokens): kernel {c1_ms:.4f} ms (CUDA "
         f"events, median of 3), equal byte for byte to its plain version, "
         f"plain {c1_plain_ms:.4f} ms (once); bound {c1['bound_ms']:.4f} ms "
-        f"by {c1['bound_by']}")
+        f"by {c1['bound_by']}; stages (device time, torch.profiler, mean of "
+        f"3) {fmt_stages(c1_stages)}")
+    BANKS["crilayla_stages_ms"] = {"crilayla_compress": c2_stages,
+                                   "crilayla_decompress": c1_stages}
     return {"crilayla_decompress": (c1_ms, c1_plain_ms, c1),
             "crilayla_compress": (c2_ms, c2_plain_ms, c2)}
 

@@ -44,8 +44,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _U = ctypes.c_uint
-# C entry points: each launches one kernel on the given stream and returns
-# cudaGetLastError()
+# C entry points: each launches its kernel (CRILAYLA's: its stages' kernels,
+# in order) on the given stream and returns cudaGetLastError()
 SIGNATURES = {
     "hca_side_info": [_P, _I, _P, _P, _P, _P, _P, _P, _P],
     "hca_coefficients": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
@@ -69,8 +69,10 @@ SIGNATURES = {
                      _P, _P, _P],
     "mp2_pack": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _P, _L, _I,
                  _P, _P],
-    "crilayla_decompress": [_P, _P, _I, _P, _P, _P, _P],
-    "crilayla_compress": [_P, _P, _I, _P, _P, _P, _P, _P],
+    "crilayla_decompress": [_P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+                            _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _P],
+    "crilayla_compress": [_P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _P],
 }
 
 #: the Layer II quantisation classes n whose correctly rounded 1 / n the

@@ -5,8 +5,8 @@ A copy of `TOC`, `CPK` and `CPKBuilder` of pycricodecs_tpu/containers/cpk.py
 `CPK.extract` decompresses the compressed members of an archive in one
 launch of kernel C1 (`crilayla.decompress_members`) for each C1_BUDGET
 of their bytes, and
-`CPKBuilder(compress=True)` compresses every member in one launch of C2
-(`crilayla.compress_members`). Parity surface: PyCriCodecs.CPK /
+`CPKBuilder(compress=True)` compresses the members in one launch of C2
+(`crilayla.compress_members`) for each `crilayla.C2_BUDGET` of their bytes. Parity surface: PyCriCodecs.CPK /
 CPKBuilder (cpk.py:8-756) — same table walking, extraction layout, and
 byte-identical archives from the builder (same TOC size estimation,
 alignment, Tvers defaults and header payloads).
@@ -443,10 +443,10 @@ class CPKBuilder:
             for path in self.files:
                 with open(path, "rb") as fh:
                     raws.append(fh.read())
-            # one launch of C2 for every member; None is the kernel's own
-            # refusal (0x100 bytes or fewer, or over capacity), the JAX
-            # native's `return 0` that its caller stores raw. A build or
-            # launch failure raises.
+            # one launch of C2 a C2_BUDGET of members; None is the
+            # kernel's own refusal (0x100 bytes or fewer, or over
+            # capacity), the JAX native's `return 0` that its caller stores
+            # raw. A build or launch failure raises.
             comps = crilayla.compress_members(raws, device=self.device)
         for idx, path in enumerate(self.files):
             sz = sizes[idx]

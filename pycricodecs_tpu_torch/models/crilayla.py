@@ -3,8 +3,9 @@
 Counterpart of pycricodecs_tpu/models/crilayla.py, whose `decompress` and
 `compress` run its native C++ core (cricore.cpp cri_layla_decompress and
 cri_layla_compress). Here they run on the card as kernels C1 and C2
-(csrc/crilayla.cu, ops/cuda_kernels.py): `decompress_batch` and
-`compress_batch` launch once for all the members of a call, and
+(csrc/crilayla.cu, ops/cuda_kernels.py): `decompress_batch` makes one
+wrapper call for all the members of a call (its stages' kernels in order),
+`compress_batch` one for each C2_BUDGET of their bytes, and
 `decompress` / `compress` are one-member batches. The pure-Python
 `_decompress_py` and `_compress_py` (copies of the JAX package's fallbacks,
 decompress made linear) are the kernels' plain versions: a CPU device runs
@@ -28,6 +29,10 @@ TOO_SMALL = "CRILAYLA compression needs more than 256 bytes"
 # the JAX native's refusal text (its `return 0`)
 OVER_CAPACITY = ("CRILAYLA compression failed (input too small or "
                  "incompressible beyond buffer)")
+#: source bytes C2 takes in one wrapper call: its scratch on the card is
+#: about 19.5 bytes a source byte (`cuda_kernels.crilayla_compress`), so
+#: a call stays near 2.6 GB; a larger member is a call alone
+C2_BUDGET = 1 << 27
 
 
 def parse(data: bytes) -> tuple:
@@ -173,8 +178,8 @@ def compress(data: bytes, *, device="cuda") -> bytes:
 
 
 def compress_batch(datas, *, device="cuda") -> list:
-    """[compress(d) for d in datas] in one launch of C2 on `device`; raises
-    the ValueError of the first member it refuses."""
+    """[compress(d) for d in datas] through `compress_members` on `device`;
+    raises the ValueError of the first member it refuses."""
     outs = compress_members(datas, device=device)
     for out, data in zip(outs, datas):
         if out is None:
@@ -184,12 +189,25 @@ def compress_batch(datas, *, device="cuda") -> list:
 
 
 def compress_members(datas, *, device="cuda") -> list:
-    """C2 over the members in one launch: each one's CRILAYLA blob, or
-    None where the kernel refuses it (0x100 bytes or fewer, or over its
-    work buffer's capacity). A CPU device runs `_compress_py` per member."""
+    """C2 over the members, one wrapper call for each run of members in
+    order whose bytes stay within C2_BUDGET (a larger member alone): each
+    one's CRILAYLA blob, or None where the kernel refuses it (0x100 bytes
+    or fewer, or over its work buffer's capacity). A CPU device runs
+    `_compress_py` per member."""
     datas = [bytes(d) for d in datas]
-    if not datas:
-        return []
+    outs, i = [], 0
+    while i < len(datas):
+        j, held = i + 1, len(datas[i])
+        while j < len(datas) and held + len(datas[j]) <= C2_BUDGET:
+            held += len(datas[j])
+            j += 1
+        outs += _compress_call(datas[i:j], device)
+        i = j
+    return outs
+
+
+def _compress_call(datas, device) -> list:
+    """`compress_members` of one wrapper call."""
     if torch.device(device).type == "cpu":
         return [_compress_py(d) if len(d) >= 0x101 else None for d in datas]
     src, meta, work_size = pack_compress(datas)

@@ -552,26 +552,87 @@ def check_crilayla_meta(src_size: int, meta: np.ndarray, spans,
         raise ValueError("meta: a member writes past the output")
 
 
+#: C2's tile: positions a search CTA, a tile walk and an emission block
+#: take (kTile in csrc/crilayla.cu)
+CRILAYLA_TILE = 4096
+#: C2's offsets per position: delta in [3, 0x2002] (kWindow)
+CRILAYLA_WINDOW = 0x2000
+#: C1's chunk: stream bits a tile parse takes (kChunkBits), the tokens that
+#: can start in one (kChunkCap), its start bitmap's words, its int64 fields
+#: and a member's (kCFields, kMFields)
+CRILAYLA_CHUNK_BITS = 16384
+CRILAYLA_CHUNK_CAP = CRILAYLA_CHUNK_BITS // 9 + 2
+CRILAYLA_CHUNK_FIELDS = 8
+CRILAYLA_MEMBER_FIELDS = 3
+
+
+def _parts(counts: np.ndarray) -> tuple:
+    """(each member's first part i64 [M], the table i32 [P, 2] of (member,
+    part index)) for members of `counts` parts (C1's chunks, C2's tiles)."""
+    counts = np.asarray(counts, np.int64)
+    first = np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.int64)
+    member = np.repeat(np.arange(len(counts)), counts)
+    index = np.arange(int(counts.sum())) - np.repeat(first, counts)
+    return first, np.ascontiguousarray(np.stack([member, index], 1),
+                                       dtype=np.int32)
+
+
+def crilayla_chunks(compressed_sizes: np.ndarray) -> tuple:
+    """C1's chunks for members of these compressed sizes: (each member's
+    first chunk i64 [M], the table i32 [C, 2] of (member, chunk index))."""
+    bits = 8 * np.asarray(compressed_sizes, np.int64)
+    return _parts((bits + CRILAYLA_CHUNK_BITS - 1) // CRILAYLA_CHUNK_BITS)
+
+
 def crilayla_decompress(src, meta: np.ndarray, out_size: int):
     """Kernel C1: the members' payloads in one u8 buffer src (CUDA) and a
     host int64 table meta [M, 4] (payload offset, compressed size,
-    decompress size, output offset) -> (out u8 [out_size] with member m at
-    out[meta[m, 3]:][:decompress size + 256], status i32 [M] (0, or 1 for a
-    malformed stream), steps i64 [M] (tokens decoded))."""
+    decompress size, output offset; the output spans ascend) -> (out u8
+    [out_size] with member m at out[meta[m, 3]:][:decompress size + 256],
+    status i32 [M] (0, or 1 for a malformed stream), steps i64 [M] (tokens
+    decoded)). A member's output, decompress size + 256, is below 2^32
+    bytes (its token records hold output positions in 32 bits)."""
     global CRILAYLA_DECOMPRESS_LAUNCHES
     check_cuda(src, "src", torch.uint8, (src.numel(),))
     M = meta.shape[0]
     check_crilayla_meta(src.numel(), meta, (meta[:, 1] + 256,
                                             meta[:, 2] + 256), out_size)
+    if M > 1 and (meta[1:, 3] < meta[:-1, 3] + meta[:-1, 2] + 256).any():
+        raise ValueError("meta: the output spans must ascend without overlap")
+    if M and int(meta[:, 2].max()) + 256 >= 1 << 32:
+        raise ValueError("meta: C1 takes outputs below 2^32 bytes a member")
     dev = src.device
     out = torch.empty(out_size, dtype=torch.uint8, device=dev)
     status = torch.empty(M, dtype=torch.int32, device=dev)
     steps = torch.empty(M, dtype=torch.int64, device=dev)
     if M == 0:
         return out, status, steps
-    meta_t = torch.from_numpy(np.ascontiguousarray(meta)).to(dev)
-    launch("crilayla_decompress", src, ptr(src), ptr(meta_t), M, ptr(out),
-           ptr(status), ptr(steps))
+    first, chunks = crilayla_chunks(meta[:, 1])
+    C = chunks.shape[0]
+    meta_t = torch.from_numpy(np.ascontiguousarray(
+        np.concatenate([meta, first[:, None]], 1), dtype=np.int64)).to(dev)
+    chunks_t = torch.from_numpy(chunks).to(dev)
+
+    def alloc(n, dtype=torch.int64):
+        return torch.empty(max(n, 1), dtype=dtype, device=dev)
+
+    cap = max(C, 1) * CRILAYLA_CHUNK_CAP
+    words = max(C, 1) * (CRILAYLA_CHUNK_BITS // 32)
+    srec, send, rrec, rend = (alloc(cap) for _ in range(4))
+    bitmap, pre = alloc(words, torch.int32), alloc(words, torch.int32)
+    cv = alloc(C * CRILAYLA_CHUNK_FIELDS)
+    mv = alloc(M * CRILAYLA_MEMBER_FIELDS)
+    rec, ntok = alloc(out_size), alloc(M)
+    ptrs = alloc(out_size)
+    # pointer jumping: a chain visits each token once, so 2^rounds above the
+    # longest output is enough
+    rounds = max(1, int(meta[:, 2].max()).bit_length())
+    changed = alloc(rounds, torch.int32)
+    launch("crilayla_decompress", src, ptr(src), ptr(meta_t), M,
+           ptr(chunks_t), C, ptr(out), ptr(status), ptr(steps), ptr(srec),
+           ptr(send), ptr(rrec), ptr(rend), ptr(bitmap), ptr(pre), ptr(cv),
+           ptr(mv), ptr(rec), ptr(ntok), ptr(ptrs), ptr(changed),
+           int(out_size), rounds)
     CRILAYLA_DECOMPRESS_LAUNCHES += 1
     return out, status, steps
 
@@ -582,28 +643,55 @@ def crilayla_work_cap(length):
     return length + ((length // 2 + 0x403) & ~3)
 
 
+def crilayla_tiles(lengths: np.ndarray) -> tuple:
+    """C2's tiles for members of these lengths: (each member's first tile
+    i64 [M], the table i32 [G, 2] of (member, tile index)); a member of
+    0x100 bytes or fewer has none."""
+    lengths = np.asarray(lengths, np.int64)
+    return _parts(np.where(lengths > 0x100, (lengths - 0x100 + CRILAYLA_TILE
+                                             - 1) // CRILAYLA_TILE, 0))
+
+
 def crilayla_compress(src, meta: np.ndarray, work_size: int):
     """Kernel C2: the members in one u8 buffer src (CUDA) and a host int64
     table meta [M, 3] (offset, length, work offset) -> (work u8
     [work_size] with member m's stream at work[meta[m, 2] + start[m]:]
     [:crilayla_work_cap(length) - start[m]], start i64 [M], status i32 [M]
     (0; 1 for 0x100 bytes or fewer; 2 over capacity), steps i64 [M]
-    (greedy steps)). Bytes of work outside the streams are undefined."""
+    (tokens)). Bytes of work outside the streams are undefined. Members
+    are below 2^32 bytes (a run's carry is a u32). Scratch on the card:
+    about 19.5 bytes a source byte (`best` 8, `run` 8, `flags` 1, the
+    zeroed work buffer 1.5, the source 1); callers bound it by batching
+    (`models.crilayla.C2_BUDGET`)."""
     global CRILAYLA_COMPRESS_LAUNCHES
     check_cuda(src, "src", torch.uint8, (src.numel(),))
     M = meta.shape[0]
     check_crilayla_meta(src.numel(), meta,
                         (meta[:, 1], crilayla_work_cap(meta[:, 1])),
                         work_size)
+    if M and int(meta[:, 1].max()) >= 1 << 32:
+        raise ValueError("meta: C2 takes members below 2^32 bytes")
     dev = src.device
-    work = torch.empty(work_size, dtype=torch.uint8, device=dev)
+    # zeroed: the codes are ORed in; a 32-bit word past the last byte
+    work = torch.zeros(work_size + 4, dtype=torch.uint8,
+                       device=dev)[:work_size]
     start = torch.empty(M, dtype=torch.int64, device=dev)
     status = torch.empty(M, dtype=torch.int32, device=dev)
     steps = torch.empty(M, dtype=torch.int64, device=dev)
     if M == 0:
         return work, start, status, steps
-    meta_t = torch.from_numpy(np.ascontiguousarray(meta)).to(dev)
-    launch("crilayla_compress", src, ptr(src), ptr(meta_t), M, ptr(work),
-           ptr(start), ptr(status), ptr(steps))
+    first, tiles = crilayla_tiles(meta[:, 1])
+    G = tiles.shape[0]
+    meta_t = torch.from_numpy(np.ascontiguousarray(
+        np.concatenate([meta, first[:, None]], 1), dtype=np.int64)).to(dev)
+    tiles_t = torch.from_numpy(tiles).to(dev)
+    best = torch.empty(max(src.numel(), 1), dtype=torch.int64, device=dev)
+    run = torch.empty(max(G, 1) * CRILAYLA_WINDOW, dtype=torch.int32,
+                      device=dev)  # u32 to the kernel
+    flags = torch.empty(max(src.numel(), 1), dtype=torch.uint8, device=dev)
+    tilev = torch.empty(5 * max(G, 1), dtype=torch.int64, device=dev)
+    launch("crilayla_compress", src, ptr(src), ptr(meta_t), M, ptr(tiles_t),
+           G, ptr(work), ptr(start), ptr(status), ptr(steps), ptr(best),
+           ptr(run), ptr(flags), ptr(tilev))
     CRILAYLA_COMPRESS_LAUNCHES += 1
     return work, start, status, steps

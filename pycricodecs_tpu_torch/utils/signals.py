@@ -236,3 +236,12 @@ def crilayla_edge_payloads(seed: int = 19) -> list:
     edge[hi - 60 - 0x2003:hi - 60 - 0x2003 + 40] = edge[hi - 60:hi - 20]
     out.append(bytes(edge))
     return out
+
+
+def crilayla_long_match_members() -> dict:
+    """Two 1 MiB CRILAYLA inputs whose matches run past 2^19 bytes (C2's
+    64-bit keys), {name: bytes}: a run of one byte and a period-3 pattern,
+    each one match of nearly its whole length."""
+    size = 1 << 20
+    return {"run_1mib": b"\x5a" * size,
+            "period3_1mib": (b"\x01\x80\xfe" * (size // 3 + 1))[:size]}

@@ -151,6 +151,9 @@ package:
   signals.compressed_archive_members (its CRILAYLA is the JAX package's
   native compress): the archive's sha256, each member's, and which members
   it stores compressed.
+- "long_matches": models.crilayla.compress (the native) of each of
+  signals.crilayla_long_match_members (1 MiB, matches past 2^19 bytes):
+  the member's sha256 and size and the blob's sha256.
 
 Usage: python3 tools/make_torch_port_fixtures.py [--keysearch | --bank |
 --surfaces | --containers] (--keysearch writes only the key search
@@ -692,6 +695,7 @@ def write_container_fixtures() -> None:
     from pycricodecs_tpu.containers.cpk import CPK, CPKBuilder
     from pycricodecs_tpu.containers.ivf import build_ivf
     from pycricodecs_tpu.containers.usm import USM, USMBuilder
+    from pycricodecs_tpu.models import crilayla as jax_crilayla
     from pycricodecs_tpu.utils.wav import write_wav
     from pycricodecs_tpu_torch.utils import signals as S
 
@@ -770,6 +774,11 @@ def write_container_fixtures() -> None:
                                      for n, d in compressed_in.items()},
                          "stored_compressed": packed}
     print("compressed", out["compressed"]["sha256"], len(blob), packed)
+    out["long_matches"] = {
+        n: {"member_sha256": sha256(d), "bytes": len(d),
+            "blob_sha256": sha256(jax_crilayla.compress(d))}
+        for n, d in S.crilayla_long_match_members().items()}
+    print("long_matches", out["long_matches"])
     with open(os.path.join(CONTAINERS_DIR, "expected.json"), "w") as f:
         json.dump(out, f, indent=1, sort_keys=True)
         f.write("\n")

@@ -27,12 +27,15 @@ library; the baseline is the port's own build. Variants:
   `k3_no_store` (no frame bytes stored), `k3_skeleton` (the last three
   off at once), `k3_bare` (the walk alone, no frame packed),
   `k3_no_atomics` (each shared atomicOr a plain store), `k3_half_grid`
-  (half as many CTAs an SM).
+  (half as many CTAs an SM);
+- C2 (`crilayla_compress`): `c2_wide_keys` (every search tile on the
+  64-bit path, never the 32-bit keys; the output stays exact).
 A variant's output is wrong by design; only its time is read. Shapes: B3 at
 the HCA bank chunk (the bank's real spectra, and random PNS maps), the
 synthesis at the AHX bank, as tools/time_transform_synth.py, K1 and K3 at
 the AHX encode bank (256 x 192 frames of the bank PCM; K3 packs K2's
-outputs). --source limits the run to the variants of one source file (and
+outputs), C2 at chip_smoke.py phase 19's compressed archive (22 members,
+9.09 MB). --source limits the run to the variants of one source file (and
 its kernel's baseline); --root takes the sources and the baseline library
 from the port under DIR (default: this checkout). Each variant
 is timed in --rounds rounds (median of --reps CUDA-event runs each; K3
@@ -49,7 +52,8 @@ still counts) and whether it spilled. No CPU path.
 Run from the repository root:
     python3 tools/time_kernel_variants.py [--rounds N] [--reps N] [--sass]
         [--root DIR] [--variants NAME,...]
-        [--source hca_transform.cu|mp2_synth.cu|mp2_analysis.cu|mp2_encode.cu]
+        [--source hca_transform.cu|mp2_synth.cu|mp2_analysis.cu|mp2_encode.cu
+                  |crilayla.cu]
 """
 import argparse
 import ctypes
@@ -181,16 +185,21 @@ VARIANTS["k3_no_atomics"] = ("mp2_encode.cu", [
     ("      atomicOr(w + j, wv[j]);", "      w[j] = wv[j];")])
 VARIANTS["k3_half_grid"] = ("mp2_encode.cu", [(
     "    held = per_sm * sms;", "    held = (per_sm / 2) * sms;")])
+VARIANTS["c2_wide_keys"] = ("crilayla.cu", [(
+    "__syncthreads_or(cmax + (uint32_t)t.cnt > kNarrowMax);",
+    "__syncthreads_or(cmax + (uint32_t)t.cnt >= 0u);")])
 #: the entry point and the timed calls of each source's kernel
 ENTRY = {"hca_transform.cu": ("hca_transform", ("b3_ms", "b3_pns_ms")),
          "mp2_synth.cu": ("mp2_synth", ("synth_ms",)),
          "mp2_analysis.cu": ("mp2_analysis", ("k1_ms",)),
-         "mp2_encode.cu": ("mp2_pack", ("k3_ms",))}
+         "mp2_encode.cu": ("mp2_pack", ("k3_ms",)),
+         "crilayla.cu": ("crilayla_compress", ("c2_ms",))}
 #: the kernel (its name in the SASS) of each source
 KERNEL = {"hca_transform.cu": "hca_transform_kernel",
           "mp2_synth.cu": "mp2_synth_kernel",
           "mp2_analysis.cu": "mp2_analysis_kernel",
-          "mp2_encode.cu": "mp2_pack_kernel"}
+          "mp2_encode.cu": "mp2_pack_kernel",
+          "crilayla.cu": "c2_search_kernel"}
 
 
 def substitute(name: str, text: str) -> str:
@@ -324,13 +333,27 @@ def k3_device_ms(S, fn, reps: int) -> float:
         fn, "mp2_pack_kernel", reps)
 
 
+def crilayla_calls(S, dev) -> dict:
+    """C2's timed call at phase 19's compressed archive."""
+    from pycricodecs_tpu_torch.models import crilayla
+    from pycricodecs_tpu_torch.ops import cuda_kernels
+    from pycricodecs_tpu_torch.utils import signals
+    from pycricodecs_tpu_torch.utils.wav import write_wav
+    members = signals.compressed_archive_members(S.FIXTURES, write_wav)
+    src, meta, work_size = crilayla.pack_compress(list(members.values()))
+    src_t = torch.from_numpy(src).to(dev)
+    return {"c2_ms": lambda: cuda_kernels.crilayla_compress(src_t, meta,
+                                                            work_size)}
+
+
 #: how a timed call is timed, where not by CUDA events (`chip_smoke.cuda_ms`)
 TIMER = {"k3_ms": k3_device_ms}
 
 
 #: the builder of each source's timed calls
 CALLS = {"hca_transform.cu": hca_bank_calls, "mp2_synth.cu": synth_calls,
-         "mp2_analysis.cu": encode_calls, "mp2_encode.cu": encode_calls}
+         "mp2_analysis.cu": encode_calls, "mp2_encode.cu": encode_calls,
+         "crilayla.cu": crilayla_calls}
 
 
 def main() -> None:
