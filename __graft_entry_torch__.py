@@ -48,7 +48,7 @@ def entry(device="cuda"):
     arr = np.frombuffer(blob[hs:hs + F * fs], np.uint8).reshape(F, fs)
     frames = torch.from_numpy(
         np.broadcast_to(arr, (STREAMS, F, fs)).copy()).to(device)
-    up = hca_unpack_device.DeviceUnpacker(info, device)
+    up = hca_unpack_device.DeviceUnpacker(info, device=device)
 
     def fn(frames):
         return pipeline.decode_rows(up, frames, info)

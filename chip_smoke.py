@@ -1505,7 +1505,7 @@ def pns_phase(dev, card: str, worst: dict, launches: dict) -> dict:
             f"{cinfo.channels} ch): byte-equal to the twin")
         del pk, pt
     # the fixture's real maps: noise_maps on the card equals the CPU run
-    up = U.DeviceUnpacker(info, dev)
+    up = U.DeviceUnpacker(info, device=dev)
     n = info.frame_count
     frames = np.frombuffer(blob, np.uint8, count=n * info.frame_size,
                            offset=hs).reshape(n, info.frame_size)
@@ -1513,7 +1513,7 @@ def pns_phase(dev, card: str, worst: dict, launches: dict) -> dict:
     if bool(err.any()):
         raise AssertionError("B1/B2 flagged an error on the PNS fixture")
     maps = up.noise_maps(sf, res, 1)
-    cpu_maps = U.DeviceUnpacker(info, "cpu").noise_maps(sf.cpu(), res.cpu(),
+    cpu_maps = U.DeviceUnpacker(info, device="cpu").noise_maps(sf.cpu(), res.cpu(),
                                                         1)
     for label, a, b in zip(("src", "sci", "mask"), maps, cpu_maps):
         if not torch.equal(a.cpu(), b):
@@ -1932,7 +1932,7 @@ def keysearch_phase(dev, card: str, worst: dict, launches: dict) -> dict:
     C, F = info.channels, info.frame_count
 
     # B4 and B5 at the HCA bank chunk's shape, on its real spectra
-    up = U.DeviceUnpacker(info, dev)
+    up = U.DeviceUnpacker(info, device=dev)
     n = info.frame_count * info.frame_size
     frames = np.frombuffer(plain, np.uint8, count=n, offset=hs).reshape(
         F, info.frame_size)
@@ -3400,12 +3400,17 @@ def members_equal(what: str, got: list, want: list) -> int:
     return require_equal(what, [("bytes", flat(got), flat(want))])
 
 
-def crilayla_checks(dev, worst: dict, fixtures: dict) -> None:
+def crilayla_checks(dev, worst: dict, fixtures: dict, card: str) -> None:
     """C1 against `_decompress_py` on the compressed 1 s fixtures and C2
     against `_compress_py` on the edge payloads (257 B - 8.7 KB): each
     through decompress_members / compress_members on the card and on the
-    CPU (the plain versions), byte for byte with the refusals."""
+    CPU (the plain versions), byte for byte with the refusals. Then C1 on
+    a 1 MiB stream whose chunk parses never meet the true one (all zero
+    bits: `signals.crilayla_zero_blob`), held to its known output, with
+    its time, and on a copy whose u32 length wraps past 2^32
+    (`signals.crilayla_wrap_blob`), held to its known bytes."""
     from pycricodecs_tpu_torch.models import crilayla
+    from pycricodecs_tpu_torch.ops import cuda_kernels as CK
     from pycricodecs_tpu_torch.utils import signals
 
     payloads = signals.crilayla_edge_payloads()
@@ -3477,6 +3482,42 @@ def crilayla_checks(dev, worst: dict, fixtures: dict) -> None:
                     for (n, d), b in zip(members.items(), blobs))
         + ": each blob equal to the JAX native's, each decompressed back to "
         f"its member")
+    # all 9-bit zero literals: chunk k starts 4k bits mod 9 past a token
+    # start, so about 8 chunks in 9 never meet the true parse and the serial
+    # repair parses them
+    size = 1 << 20
+    zsrc, zmeta, zsize = crilayla.pack_decompress(
+        [crilayla.parse(signals.crilayla_zero_blob(size))])
+    zsrc_t = torch.from_numpy(zsrc).to(dev)
+    out, zstatus, zsteps = CK.crilayla_decompress(zsrc_t, zmeta, zsize)
+    if int(zstatus[0]) != 0 or out.numel() != size + 256 or bool(out.any()):
+        raise AssertionError("C1 on the all-zero stream: not status 0 and "
+                             f"{size + 256} zero bytes")
+    tokens = int(zsteps[0])
+    zero_ms = cuda_ms(lambda: CK.crilayla_decompress(zsrc_t, zmeta, zsize),
+                      3)
+    BANKS["c1_all_zero_1mib"] = dict(ms=zero_ms, tokens=tokens,
+                                     tokens_per_s=tokens / zero_ms * 1e3)
+    log(f"C1 crilayla_decompress [{card}] on the all-zero "
+        f"stream ({len(zsrc) - 256} stream bytes, {size} bytes out, "
+        f"{tokens} tokens, chunk parses off phase): {size + 256} zero "
+        f"bytes, status 0; kernel {zero_ms:.4f} ms (CUDA events, median of "
+        f"3), {tokens / zero_ms * 1e3:.0f} tokens/s")
+    # a 255-run of 16.84 MB that sums past 2^32: the copy's length wraps to
+    # 40 bytes, as the JAX native's u32, and the 16 literals after it count
+    tail = bytes(range(1, 17))
+    wblob = signals.crilayla_wrap_blob(40, tail, 0xAB)
+    t0 = time.perf_counter()
+    (wout,) = crilayla.decompress_members([crilayla.parse(wblob)],
+                                          device=dev)
+    wrap_s = time.perf_counter() - t0
+    if wout != bytes(256) + tail[::-1] + b"\xab" * 43:
+        raise AssertionError("C1 on the wrapping copy length: not its "
+                             "known bytes")
+    log(f"C1 crilayla_decompress on a copy whose length wraps past 2^32 "
+        f"({len(wblob) - 272} stream bytes, {len(wout) - 256} bytes out): "
+        f"its known bytes; {wrap_s:.4f} s on the host clock, copies "
+        f"included")
 
 
 def host_ms(fn) -> float:
@@ -3849,7 +3890,7 @@ def containers_phase(dev, card: str, worst: dict = None,
             f"source; [{card}] build median of 3 {build_s:.4f} s (runs "
             f"{[round(r, 4) for r in runs]}), extract {extract_s:.4f} s "
             f"(runs {[round(r, 4) for r in xruns]})")
-    crilayla_checks(dev, worst, fixtures)
+    crilayla_checks(dev, worst, fixtures, card)
     BANKS["phase19_s"] = timings
     return crilayla_timing(dev, card, fixtures, worst)
 
@@ -3913,7 +3954,7 @@ def main() -> None:
         "for byte (max |diff| 0)")
     worst = dict.fromkeys(KERNELS, 0)
     bank_info = infos[BANK]
-    up = U.DeviceUnpacker(bank_info, dev)
+    up = U.DeviceUnpacker(bank_info, device=dev)
     F = bank_info.frame_count
     chunk_frames = np.tile(frames_of(BANK), (CHUNK, 1))
     dec = up.decipher(torch.from_numpy(chunk_frames).to(dev))
@@ -3960,7 +4001,7 @@ def main() -> None:
                           dtype=np.uint8)
         fr[:, :2] = 0xFF
         fr[:16] = 0                      # zero padding frames decode cleanly
-        u = U.DeviceUnpacker(info, dev)
+        u = U.DeviceUnpacker(info, device=dev)
         d = torch.from_numpy(fr).to(dev)
         sk = u.side_info(d)
         st = u.side_info_plain(d)

@@ -28,6 +28,7 @@ import torch
 from ..models.adx import ADX, parse_adx_header
 from ..models.hca import HCA
 from ..utils.paths import anchored_join, safe_parts
+from ..utils.device import as_device
 from .chunk import (SBTChunkHeader, USMChunckHeaderType,
                     USMChunkHeader, UTFTypeValues, VideoType)
 from .ivf import IVF
@@ -400,7 +401,7 @@ class USM:
                                      device=device)
             if kind == "ahx":
                 # AHX.decode's call, a bad frame isolated (None)
-                return pipeline._ahx_decode([data], torch.device(device),
+                return pipeline._ahx_decode([data], as_device(device),
                                             "isolate", zero_fill=True)[0]
             return adxmod.decode(data, strict_cri_check=False, device=device)
         except (HcaError, WavError):

@@ -76,8 +76,9 @@
 //    c1_offsets and c1_place take each chunk's true tokens (its repair
 //    tokens, then its parse's from the meeting token), scan their counts
 //    and output bytes, and write one record a token that starts inside the
-//    output (its top output position; a literal's byte or a copy's
-//    distance D = offset + 3). Status 1, with the native's semantics: a
+//    output (its top output position, counted from the LZ region so that
+//    it fits 32 bits for any u32 decompress size; a literal's byte or a
+//    copy's distance D = offset + 3). Status 1, with the native's semantics: a
 //    back-reference whose source is at or past the output's end among
 //    those tokens, or an underrun (the token that fills the output, or the
 //    stream's last, reads past the stream: zeros there end a 255-run).
@@ -725,11 +726,13 @@ struct StreamMap {
 };
 
 // One token from the 32 bits v at its start (the top bit first): its width
-// before a long length's 255-run, its length code (41: a 255-run follows),
-// and its record's low word (0x80000000 | byte, or the distance).
+// before a long length's 255-run, its length code (41: a 255-run follows;
+// a u32 that wraps as the native's does), and its record's low word
+// (0x80000000 | byte, or the distance).
 struct Token {
   bool lit;
-  int width, len;
+  int width;
+  uint32_t len;
   uint32_t info;
 };
 
@@ -739,16 +742,16 @@ __device__ __forceinline__ Token decode(uint32_t v) {
   const uint32_t l2 = (v >> 16) & 3, l3 = (v >> 13) & 7;
   const bool e2 = l2 == 3, e3 = l3 == 7;
   k.width = k.lit ? 9 : (!e2 ? 16 : (!e3 ? 19 : 24));
-  k.len = k.lit ? 0 : (!e2 ? (int)l2
-                          : (!e3 ? 3 + (int)l3 : 10 + (int)((v >> 8) & 31)));
+  k.len = k.lit ? 0u : (!e2 ? l2 : (!e3 ? 3u + l3 : 10u + ((v >> 8) & 31)));
   k.info = k.lit ? 0x80000000u | ((v >> 23) & 0xFF)
                  : ((v >> 18) & 0x1FFF) + 3;
   return k;
 }
 
-// a record: (output bytes << 32) | info; the token's end bit beside it
+// a record: (output bytes << 32) | info, the output bytes a u32 as the
+// native's length (len + 3 wraps with it); the token's end bit beside it
 __device__ __forceinline__ unsigned long long token_rec(const Token& k) {
-  return ((unsigned long long)(k.lit ? 1 : k.len + 3) << 32) | k.info;
+  return ((unsigned long long)(k.lit ? 1u : k.len + 3u) << 32) | k.info;
 }
 
 // Each chunk's tile parse (a thread a chunk): tokens from the chunk's first
@@ -810,7 +813,7 @@ c1_spec_kernel(const uint8_t* __restrict__ src,
         x = __funnelshift_l(wb, wa, o) >> 24;
         consume(8);
         width += 8;
-        t.len += (int)x;
+        t.len += x;
       } while (x == 255);
     }
     b += width;
@@ -911,7 +914,7 @@ c1_repair_kernel(const uint8_t* __restrict__ src,
           do {
             x = bits32(b + width) >> 24;
             width += 8;
-            t.len += (int)x;
+            t.len += x;
           } while (x == 255);
         }
         b += width;
@@ -1020,7 +1023,9 @@ c1_place_kernel(const int64_t* __restrict__ meta,
     if (!(info & 0x80000000u) && w + info >= end)
       atomicMin(reinterpret_cast<unsigned long long*>(v + kMBad),
                 (unsigned long long)idx);
-    out[idx] = ((unsigned long long)w << 32) | info;
+    // the top position counted from the LZ region: below the decompress
+    // size, a u32
+    out[idx] = ((unsigned long long)(w - 256) << 32) | info;
     w -= (int64_t)(r >> 32);
     if (w < 256) {  // this token fills the output
       v[kMNtok] = idx + 1;
@@ -1052,9 +1057,10 @@ c1_finish_kernel(const uint8_t* __restrict__ src,
 
 // Each output byte: its member (a binary search of the output offsets,
 // which ascend), its token (a binary search of the records, whose top
-// positions descend), then a literal's byte, or a pointer to p + k D, the
-// first source above the copy's own token. Bytes outside a token (the
-// prefix, gaps, flagged members) point at themselves.
+// positions, counted from the LZ region, descend), then a literal's byte,
+// or a pointer to p + k D, the first source above the copy's own token.
+// Bytes outside a token (the prefix, gaps, flagged members) point at
+// themselves.
 __global__ void __launch_bounds__(256)
 c1_resolve_kernel(const int64_t* __restrict__ meta, int M,
                   const unsigned long long* __restrict__ rec,
@@ -1077,13 +1083,14 @@ c1_resolve_kernel(const int64_t* __restrict__ meta, int M,
     return;
   }
   const unsigned long long* r = rec + base;
+  const int64_t q = p - 256;  // p in the LZ region
   int64_t lo = 0, hi = ntok[m] - 1;
   while (lo < hi) {
     const int64_t mid = (lo + hi + 1) >> 1;
-    if ((int64_t)(r[mid] >> 32) >= p) lo = mid; else hi = mid - 1;
+    if ((int64_t)(r[mid] >> 32) >= q) lo = mid; else hi = mid - 1;
   }
   const unsigned long long e = r[lo];
-  const int64_t wt = (int64_t)(e >> 32);
+  const int64_t wt = (int64_t)(e >> 32) + 256;
   const uint32_t info = (uint32_t)e;
   if (info & 0x80000000u) {
     out[g] = (uint8_t)info;

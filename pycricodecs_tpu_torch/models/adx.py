@@ -378,24 +378,44 @@ def _assemble_stream(prep: _EncodePrep, payload: np.ndarray, *,
     return bytes(out) + payload.tobytes() + bytes(eof_block)
 
 
-def decode(data: bytes, strict_cri_check: bool = True, *,
+def decode(data: bytes, use_jax=None, strict_cri_check: bool = True, *,
            device="cuda") -> bytes:
     """ADX -> WAV (PCM16) on `device`, truncated or zero-padded to the
-    header's sample count: pycricodecs_tpu.models.adx.decode's bytes (the
-    JAX host decoders' arithmetic). strict_cri_check=False skips the
-    reference's 7th-signature-byte check."""
+    header's sample count: pycricodecs_tpu.models.adx.decode(data,
+    use_jax, strict_cri_check)'s bytes. strict_cri_check=False skips the
+    reference's 7th-signature-byte check.
+
+    use_jax is the JAX function's choice of engine, and the answer is that
+    engine's: None or false, its host decoders' arithmetic (B7's host
+    instance); true, its device scan's int32 wrap (B7's wrap=True), which
+    differs on mode 4 blocks whose scale times code leaves int32. The
+    device scan's host demux raises IndexError on a mode 2 block with
+    predictor 4-7, and so does this function with use_jax true (the host
+    arithmetic predicts such a block from zero coefficients)."""
     from ..parallel import pipeline
+    data = bytes(data)
+    if use_jax:
+        h = parse_adx_header(data, strict_cri_check=strict_cri_check)
+        if h.encoding_mode == 2:
+            predictor = _payload_blocks(data, h)[:, :, 0] >> 5
+            if (predictor >= 4).any():
+                raise IndexError(
+                    f"ADX mode 2 predictor {int(predictor.max())} has no "
+                    "coefficients (the JAX device scan's table has 4)")
     return pipeline.adx_decode_batch([data], device=device,
-                                     strict_cri_check=strict_cri_check)[0]
+                                     strict_cri_check=strict_cri_check,
+                                     wrap=bool(use_jax))[0]
 
 
 def encode(data: bytes, bit_depth: int = 4, block_size: int = 0x12,
            encoding_mode: int = 3, highpass_frequency: int = 0x1F4,
            filter_: int = 0, version: int = 4,
-           force_not_looping: bool = False, scale_fix: bool = False, *,
-           device="cuda") -> bytes:
+           force_not_looping: bool = False, use_jax=None,
+           scale_fix: bool = False, *, device="cuda") -> bytes:
     """WAV -> ADX on `device`: pycricodecs_tpu.models.adx.encode's bytes
-    for the same keywords (one stream through adx_encode_batch)."""
+    for the same arguments (one stream through adx_encode_batch). use_jax
+    is the JAX function's choice of engine; its engines give the same
+    bytes, and so does this function for every value."""
     from ..parallel import pipeline
     return pipeline.adx_encode_batch(
         [data], bit_depth=bit_depth, block_size=block_size,

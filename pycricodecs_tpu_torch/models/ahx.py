@@ -22,6 +22,7 @@ import torch
 
 from ..ops import mp2_frame
 from ..ops import mp2_tables
+from ..utils.device import as_device
 
 CRI_STRING = b"(c)CRI"
 AHX_TYPES = (0x10, 0x11)
@@ -67,7 +68,7 @@ def decode_mp2(data: bytes, offset: int = 0, *, device="cuda",
     C = hdr0.nch
     frames_np = pipeline._stack_mp2_frames([walk])
     _, F, fs_max = frames_np.shape
-    frames = torch.from_numpy(frames_np).to(torch.device(device))
+    frames = torch.from_numpy(frames_np).to(as_device(device))
     codes, levels, sfidx, err = mp2_unpack_device.mp2_unpack(
         frames.view(F, fs_max), C)
     pcm = mp2_kernels.mp2_decode_pcm(
@@ -79,11 +80,17 @@ def decode_mp2(data: bytes, offset: int = 0, *, device="cuda",
 
 
 def encode_mp2(pcm, sample_rate: int, bitrate_kbps: Optional[int] = None,
-               joint_bound: Optional[int] = None, *,
+               *, joint_bound: Optional[int] = None,
                device="cuda") -> bytes:
     """Encode int16 PCM ([N] mono or [C, N]) to MPEG Layer II on `device`:
     the bytes of pycricodecs_tpu.models.ahx.encode_mp2(pcm, sample_rate,
     bitrate_kbps, joint_bound=joint_bound) (its f64 host lane).
+
+    joint_bound is keyword-only: the JAX function's fourth parameter is
+    `device`, its bool choice between the f64 host lane and an f32 device
+    lane whose bytes differ on some inputs, and a JAX call that passes it
+    by position raises TypeError here (by keyword too: `device` is the
+    torch device).
 
     MPEG-2 LSF for 16/22.05/24 kHz, MPEG-1 for 32/44.1/48 kHz; stereo as
     independent channels (mode 0) or, with joint_bound in {4, 8, 12, 16},
@@ -102,7 +109,7 @@ def encode_mp2(pcm, sample_rate: int, bitrate_kbps: Optional[int] = None,
     x = np.zeros((1, C, F * mp2_frame.SAMPLES_PER_FRAME), np.int16)
     x[0, :, :N] = pcm
     return mp2_encode_device.encode_streams(
-        torch.from_numpy(x).to(torch.device(device)), cfg)[0]
+        torch.from_numpy(x).to(as_device(device)), cfg)[0]
 
 
 def is_ahx(data: bytes) -> bool:
@@ -150,7 +157,7 @@ class AHX:
         from ..parallel import pipeline
         data = _read(data)
         parse_header(data)
-        return pipeline._ahx_decode([data], torch.device(device), "raise",
+        return pipeline._ahx_decode([data], as_device(device), "raise",
                                     zero_fill=True)[0]
 
     @staticmethod

@@ -8,9 +8,9 @@ wrapper call for all the members of a call (its stages' kernels in order),
 `compress_batch` one for each C2_BUDGET of their bytes, and
 `decompress` / `compress` are one-member batches. The pure-Python
 `_decompress_py` and `_compress_py` (copies of the JAX package's fallbacks,
-decompress made linear) are the kernels' plain versions: a CPU device runs
-them member by member. All give the JAX package's bytes (tests hold them
-equal).
+decompress made linear and its copy length a u32, as in the native) are
+the kernels' plain versions: a CPU device runs them member by member. All
+give the JAX package's bytes (tests hold them equal).
 
 Format (crilayla.cpp:19-23): 16-byte header {"CRILAYLA", u32 decompress_size,
 u32 compressed_size} + compressed bitstream + 256-byte raw prefix appended at
@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..ops import cuda_kernels
+from ..utils.device import as_device
 
 MAGIC = b"CRILAYLA"
 MALFORMED = "Malformed CRILAYLA stream"
@@ -85,7 +86,7 @@ def decompress_members(parsed, *, device="cuda") -> list:
     stream is malformed. A CPU device runs `_decompress_py` per member."""
     if not parsed:
         return []
-    if torch.device(device).type == "cpu":
+    if as_device(device).type == "cpu":
         outs = []
         for p in parsed:
             try:
@@ -95,7 +96,7 @@ def decompress_members(parsed, *, device="cuda") -> list:
         return outs
     src, meta, out_size = pack_decompress(parsed)
     out, status, _ = cuda_kernels.crilayla_decompress(
-        torch.from_numpy(src).to(torch.device(device)), meta, out_size)
+        torch.from_numpy(src).to(as_device(device)), meta, out_size)
     out, status = out.cpu().numpy(), status.cpu().numpy()
     return [None if status[m] else
             out[o:o + ds + 256].tobytes()
@@ -157,13 +158,14 @@ def _decompress_py(payload: bytes, compressed_size: int,
                     if length == 41:
                         while True:
                             byte = get(8)
-                            length += byte
+                            # a u32, as the JAX native's length
+                            length = (length + byte) & 0xFFFFFFFF
                             if byte != 255:
                                 break
             r = w + offset + 3
             if r >= len(out):
                 raise ValueError(MALFORMED)
-            length += 3
+            length = (length + 3) & 0xFFFFFFFF
             while length and w >= base:
                 out[w] = out[r]
                 w -= 1
@@ -208,12 +210,12 @@ def compress_members(datas, *, device="cuda") -> list:
 
 def _compress_call(datas, device) -> list:
     """`compress_members` of one wrapper call."""
-    if torch.device(device).type == "cpu":
+    if as_device(device).type == "cpu":
         return [_compress_py(d) if len(d) >= 0x101 else None for d in datas]
     src, meta, work_size = pack_compress(datas)
     caps = cuda_kernels.crilayla_work_cap(meta[:, 1])
     work, start, status, _ = cuda_kernels.crilayla_compress(
-        torch.from_numpy(src).to(torch.device(device)), meta, work_size)
+        torch.from_numpy(src).to(as_device(device)), meta, work_size)
     work = work.cpu().numpy()
     start, status = start.cpu().numpy(), status.cpu().numpy()
     outs = []

@@ -89,7 +89,7 @@ def decode_range(data: bytes, start_frame: int, end_frame: int = -1,
 
 
 def decode_frames_to_pcm(info: hca_frame.HcaInfo, frames: bytes,
-                         random_state: int = 1, *,
+                         random_state: int = 1, use_jax: bool = None, *,
                          device="cuda") -> np.ndarray:
     """Decode raw frame bytes of `info`'s stream (len(frames) // frame_size
     whole frames, deciphered with info.cipher) on `device` to interleaved
@@ -97,7 +97,9 @@ def decode_frames_to_pcm(info: hca_frame.HcaInfo, frames: bytes,
     decode_frames_to_pcm's samples. The first frame has a zero overlap
     carry; the PNS noise generator of a v3 stream with min_resolution 0
     starts at `random_state`. A frame with a bad sync word or CRC, or one
-    the unpacker flags, raises HcaError."""
+    the unpacker flags, raises HcaError. use_jax is the JAX function's
+    choice of engine; its engines give the same samples, and so does this
+    function for every value."""
     import torch
 
     from ..ops import hca_unpack_device
@@ -113,7 +115,7 @@ def decode_frames_to_pcm(info: hca_frame.HcaInfo, frames: bytes,
         raise hca_frame.HcaError("Frame sync lost")
     if crc16_batch(arr).any():
         raise hca_frame.HcaError("Frame checksum mismatch")
-    up = hca_unpack_device.DeviceUnpacker(info, torch.device(device))
+    up = hca_unpack_device.DeviceUnpacker(info, device=device)
     pcm, err = pipeline.decode_rows(up, torch.from_numpy(arr.copy())[None],
                                     info, seed=random_state)
     if bool(err.any()):

@@ -590,8 +590,11 @@ def crilayla_decompress(src, meta: np.ndarray, out_size: int):
     decompress size, output offset; the output spans ascend) -> (out u8
     [out_size] with member m at out[meta[m, 3]:][:decompress size + 256],
     status i32 [M] (0, or 1 for a malformed stream), steps i64 [M] (tokens
-    decoded)). A member's output, decompress size + 256, is below 2^32
-    bytes (its token records hold output positions in 32 bits)."""
+    decoded)). Any u32 decompress size: a token record holds its output
+    position counted from the LZ region, in 32 bits. Scratch on the card:
+    about 17 bytes an output byte (`rec` 8, `ptrs` 8, `out` 1) and 31 a
+    stream byte; `CPK.extract` bounds it by batching
+    (`containers.cpk.C1_BUDGET`)."""
     global CRILAYLA_DECOMPRESS_LAUNCHES
     check_cuda(src, "src", torch.uint8, (src.numel(),))
     M = meta.shape[0]
@@ -599,8 +602,6 @@ def crilayla_decompress(src, meta: np.ndarray, out_size: int):
                                             meta[:, 2] + 256), out_size)
     if M > 1 and (meta[1:, 3] < meta[:-1, 3] + meta[:-1, 2] + 256).any():
         raise ValueError("meta: the output spans must ascend without overlap")
-    if M and int(meta[:, 2].max()) + 256 >= 1 << 32:
-        raise ValueError("meta: C1 takes outputs below 2^32 bytes a member")
     dev = src.device
     out = torch.empty(out_size, dtype=torch.uint8, device=dev)
     status = torch.empty(M, dtype=torch.int32, device=dev)

@@ -40,6 +40,8 @@ from . import hca_frame
 from . import hca_pack_device
 from . import hca_tables as T
 from .hca_kernels import _table
+from ..utils import wav as wavmod
+from ..utils.device import as_device
 
 f32 = torch.float32
 i32 = torch.int32
@@ -576,25 +578,40 @@ def assemble(cfgs, frames: np.ndarray) -> List[bytes]:
             for b, cfg in enumerate(cfgs)]
 
 
-def encode_batch_device(wavs: Sequence, quality: int = 1,
+def encode_batch_device(wav_blobs: Sequence, quality: int = 1,
                         force_not_looping: bool = False, *,
                         device="cuda", devices=None) -> List[bytes]:
-    """Encode parsed WAVs (utils.wav.WavFile) that share (channels,
-    sample_rate), as hca_encode_batch groups them, to HCA v2.0 bytes on
-    `device`, or over `devices` (a mesh's dp axis): the streams shard in
-    order, one equal shard a device, silent streams padding the last ones
-    (as the JAX function pads its stream axis to the mesh), and every
-    shard's kernels are enqueued before the first fetch.
+    """Encode WAV blobs that share (channels, sample_rate) to HCA v2.0
+    bytes on `device`, or over `devices` (a mesh's dp axis): the JAX
+    package's encode_batch_device, byte for byte, and its ValueError for
+    mixed formats. Its `mesh` and `pack` are not carried: `devices` takes
+    the mesh's place (keyword-only), and the frames are packed on the
+    device. hca_encode_batch calls `encode_wavs` with the WAVs it parsed."""
+    wavs = [wavmod.parse_wav(bytes(b)) for b in wav_blobs]
+    return encode_wavs(wavs, quality, force_not_looping, device=device,
+                       devices=devices)
 
-    Byte-equal to the JAX package's encode_batch_device and
-    hca_encode_host.encode. Streams of different lengths are frame-padded;
-    only the packed frames come back from the device."""
+
+def encode_wavs(wavs: Sequence, quality: int = 1,
+                force_not_looping: bool = False, *, device="cuda",
+                devices=None) -> List[bytes]:
+    """encode_batch_device of parsed WAVs (utils.wav.WavFile): the streams
+    shard over `devices` in order, one equal shard a device, silent
+    streams padding the last ones (as the JAX function pads its stream
+    axis to the mesh), and every shard's kernels are enqueued before the
+    first fetch. Streams of different lengths are frame-padded; only the
+    packed frames come back from the device."""
     from ..parallel.mesh import shard_rows
 
-    devices = [torch.device(device)] if devices is None else list(devices)
+    devices = [as_device(device)] if devices is None else list(devices)
     cfgs = [H.init_encode(w, quality, w.looping and not force_not_looping)
             for w in wavs]
-    kw = encode_config(cfgs[0].info, cfgs[0])
+    info0 = cfgs[0].info
+    if any((c.info.channels, c.info.sample_rate)
+           != (info0.channels, info0.sample_rate) for c in cfgs[1:]):
+        raise ValueError("encode_batch_device requires uniform channel "
+                         "count and sample rate")
+    kw = encode_config(info0, cfgs[0])
     pcm = stack_timelines(cfgs, wavs)
     frames = [hca_encode_frames(torch.from_numpy(p).to(d), **kw)
               for d, p in zip(devices, shard_rows(pcm, len(devices)))]

@@ -327,7 +327,7 @@ def _score_rows(info: HcaInfo, fb: np.ndarray, pre: np.ndarray,
         return np.zeros(0, np.int64), states
     # raises HcaError for a scalefactor count of 128 with the v3 HFR
     # extension, where the JAX test has no defined answer (IndexError)
-    up = hca_unpack_device.DeviceUnpacker(info, device)
+    up = hca_unpack_device.DeviceUnpacker(info, device=device)
     dev = up.device
     table = torch.from_numpy(up.cipher[None].copy()).to(dev)
     zero = torch.zeros(1, dtype=torch.int64, device=dev)

@@ -46,6 +46,7 @@ import torch
 from . import cuda_kernels as ck
 from . import hca_tables as T
 from .hca_frame import HcaError
+from ..utils.device import as_device
 
 VERSION_V200 = 0x0200
 
@@ -175,8 +176,8 @@ class DeviceUnpacker:
     already checked); returns (qc i16 [N, C, 8, 128], sf u8 [N, C, 128],
     res u8 [N, C, 128], inten u8 [N, C, 8], err bool [N]) on `device`."""
 
-    def __init__(self, info, device):
-        self.device = torch.device(device)
+    def __init__(self, info, *, device):
+        self.device = as_device(device)
         C = int(info.channels)
         self.C = C
         self.fs = int(info.frame_size)

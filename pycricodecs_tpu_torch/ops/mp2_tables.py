@@ -75,10 +75,10 @@ def synth_window(dtype=np.float64) -> np.ndarray:
     return np.asarray(SYNTH_WINDOW_INT, dtype=dtype) / dtype(65536.0)
 
 
-def analysis_window() -> np.ndarray:
-    """ISO Table 3-C.1 analysis window C[i] = D[i] / 32, float64 [512]
-    (exact: the integers over 2^21)."""
-    return np.asarray(SYNTH_WINDOW_INT, dtype=np.float64) / (65536.0 * 32.0)
+def analysis_window(dtype=np.float64) -> np.ndarray:
+    """ISO Table 3-C.1 analysis window C[i] = D[i] / 32, [512] of `dtype`
+    (exact in float64: the integers over 2^21)."""
+    return np.asarray(SYNTH_WINDOW_INT, dtype=dtype) / dtype(65536.0 * 32.0)
 
 
 # --- Layer II bit-allocation tables -----------------------------------------
@@ -136,22 +136,24 @@ def code_bits(levels: int) -> int:
     return b
 
 
-def scalefactors() -> np.ndarray:
+def scalefactors(dtype=np.float64) -> np.ndarray:
     """ISO Table 3-B.1: sf[idx] = 2**(1 - idx/3), idx 0..62 (63 unused),
-    float64 [64]."""
-    return _mp2_data.SCALEFACTORS.copy()
+    [64] of `dtype` (the float64 values rounded to it)."""
+    return _mp2_data.SCALEFACTORS.astype(dtype)
 
 
-def synthesis_matrixing() -> np.ndarray:
-    """N[64, 32] = cos((16 + i)(2k + 1) pi / 64), float64: the ISO
-    matrixing the synthesis applies once per 32-sample granule row."""
-    return _mp2_data.SYNTHESIS_MATRIXING.copy()
+def synthesis_matrixing(dtype=np.float64) -> np.ndarray:
+    """N[64, 32] = cos((16 + i)(2k + 1) pi / 64), float64 rounded to
+    `dtype`: the ISO matrixing the synthesis applies once per 32-sample
+    granule row."""
+    return _mp2_data.SYNTHESIS_MATRIXING.astype(dtype)
 
 
-def analysis_matrix() -> np.ndarray:
-    """M[32, 64] = cos((2k + 1)(q - 16) pi / 64), float64: S = M @ Y with
-    Y the windowed and folded input (X[0] the newest sample)."""
-    return _mp2_data.ANALYSIS_MATRIX.copy()
+def analysis_matrix(dtype=np.float64) -> np.ndarray:
+    """M[32, 64] = cos((2k + 1)(q - 16) pi / 64), float64 rounded to
+    `dtype`: S = M @ Y with Y the windowed and folded input (X[0] the
+    newest sample)."""
+    return _mp2_data.ANALYSIS_MATRIX.astype(dtype)
 
 
 #: 20 log10(n) of every quantisation class n, as the JAX package's

@@ -22,6 +22,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils.device import as_device
+
 
 @dataclass(frozen=True, eq=False)
 class Mesh:
@@ -69,7 +71,7 @@ def make_mesh(shape: Optional[Sequence[int]] = None,
                                "devices= (e.g. ['cpu'] * 8)")
         devices = [torch.device("cuda", i)
                    for i in range(torch.cuda.device_count())]
-    devs = [torch.device(d) for d in devices]
+    devs = [as_device(d) for d in devices]
     for d in devs:
         if d.type == "cuda" and d.index is None:
             raise ValueError("make_mesh: give CUDA devices with an index "

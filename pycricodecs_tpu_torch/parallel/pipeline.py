@@ -106,7 +106,9 @@ from ..ops import (adx_kernels, hca_encode_device, hca_frame, hca_kernels,
 from ..utils import hca_crypt
 from ..utils import wav as wavmod
 from ..utils.crc import crc16_batch
-from .mesh import Mesh, check_mesh, shard_rows
+from ..utils.device import as_device
+# make_mesh: the JAX package defines it in this module
+from .mesh import Mesh, check_mesh, make_mesh, shard_rows  # noqa: F401
 
 SAMPLES_PER_FRAME = hca_model.SAMPLES_PER_FRAME
 CHUNK_STREAMS = 64
@@ -179,7 +181,7 @@ def measure_d2h_bandwidth(nbytes: int = 8 << 20, *, device="cuda") -> float:
     of an nbytes float32 buffer after a small warm-up copy, measured once
     per process and device. A failed probe raises (the JAX package reports
     0 there, which would hide a broken device)."""
-    device = torch.device(device)
+    device = as_device(device)
     if str(device) in _d2h_mbps:
         return _d2h_mbps[str(device)]
     x = torch.ones(max(nbytes // 4, 1), dtype=torch.float32, device=device)
@@ -227,7 +229,7 @@ def decode_batch(blobs: Sequence[bytes], key: int = 0, subkey: int = 0,
     """
     if on_error not in ("raise", "isolate"):
         raise ValueError("on_error must be 'raise' or 'isolate'")
-    devices = ([torch.device(device)] if mesh is None
+    devices = ([as_device(device)] if mesh is None
                else list(dict.fromkeys(check_mesh(mesh).flat_devices())))
     t_start = time.perf_counter()
     infos: List = []
@@ -264,7 +266,7 @@ def decode_batch(blobs: Sequence[bytes], key: int = 0, subkey: int = 0,
         try:
             # one unpacker a device of the mesh (or the one device)
             unpackers[gk] = {d: hca_unpack_device.DeviceUnpacker(
-                infos[group[0]][0], d) for d in devices}
+                infos[group[0]][0], device=d) for d in devices}
         except hca_frame.HcaError as exc:
             if on_error == "raise":
                 raise
@@ -522,7 +524,7 @@ def _key_tables(info, candidates, subkey: int, device, zero_is_plain=False):
         factor = np.uint64(hca_crypt.scramble_subkey(1, subkey))
         with np.errstate(over="ignore"):
             keys = keys * factor
-    tables = hca_crypt.cipher_tables_56_batch(keys, device)
+    tables = hca_crypt.cipher_tables_56_batch(keys, device=device)
     if zero_is_plain:
         plain = torch.from_numpy(keys == 0).to(device)
         tables[plain] = torch.arange(256, device=device).to(torch.uint8)
@@ -617,7 +619,7 @@ def _score_keys(up, info, frames, pre, tables, tix, F: int,
 
 def _find_key(data, candidates, subkey: int, max_frames: int, device,
               stats: Optional[dict], zero_is_plain: bool) -> np.ndarray:
-    device = torch.device(device)
+    device = as_device(device)
     t0 = time.perf_counter()
     data = bytes(data)
     hs = int.from_bytes(data[6:8], "big")
@@ -631,7 +633,7 @@ def _find_key(data, candidates, subkey: int, max_frames: int, device,
     scores = np.full(K, -1, dtype=np.int64)
     if K == 0 or F == 0:
         return scores
-    up = hca_unpack_device.DeviceUnpacker(info, device)
+    up = hca_unpack_device.DeviceUnpacker(info, device=device)
     # key-independent prechecks (hca_frame.test_frames_native): silent
     # first (score 0), then sync and CRC (-1)
     fb = np.frombuffer(raw, np.uint8, count=F * fs).reshape(F, fs)
@@ -790,7 +792,7 @@ def adx_decode_batch(blobs: Sequence[bytes], *, device="cuda",
     same either way, and a mesh does not change the arithmetic: the JAX
     meshed call is its device engine, whose answer is wrap=True's."""
     parsed = [_parse_adx(bytes(b), strict_cri_check) for b in blobs]
-    return _adx_decode_parsed(parsed, torch.device(device), wrap, mesh)
+    return _adx_decode_parsed(parsed, as_device(device), wrap, mesh)
 
 
 def _fetch_rows(parts) -> np.ndarray:
@@ -886,7 +888,7 @@ def adx_encode_batch(wav_blobs: Sequence[bytes], *, bit_depth: int = 4,
     the lanes shard over every device of the mesh (one B8 launch each,
     silent lanes padding the last shards) and the blocks are not split:
     B8's chains are serial per lane. The bytes are the meshless call's."""
-    devices = ([torch.device(device)] if mesh is None
+    devices = ([as_device(device)] if mesh is None
                else check_mesh(mesh).flat_devices())
     preps = [adx_model._encode_prep(
         bytes(b), bit_depth=bit_depth, block_size=block_size,
@@ -941,7 +943,7 @@ def hca_encode_batch(wavs: Sequence[bytes], quality: int = 1,
     encoded. mesh (parallel.make_mesh; it replaces `device`): each group's
     streams shard over its dp axis, padded with silent streams that are
     dropped; each shard runs B6 and the packer on its device."""
-    device = torch.device(device)
+    device = as_device(device)
     devices = None if mesh is None else check_mesh(mesh).stream_devices()
     parsed = [wavmod.parse_wav(bytes(b)) for b in wavs]
     groups: dict = {}
@@ -949,7 +951,7 @@ def hca_encode_batch(wavs: Sequence[bytes], quality: int = 1,
         groups.setdefault((w.channels, w.sample_rate), []).append(i)
     results: List = [None] * len(wavs)
     for members in groups.values():
-        encoded = hca_encode_device.encode_batch_device(
+        encoded = hca_encode_device.encode_wavs(
             [parsed[i] for i in members], quality, force_not_looping,
             device=device, devices=devices)
         for i, blob in zip(members, encoded):
@@ -1015,7 +1017,7 @@ def ahx_decode_batch(blobs: Sequence[bytes], *, device="cuda",
     mesh (parallel.make_mesh; it replaces `device`): each group's streams
     shard over its dp axis, padded with zero-frame rows that are dropped;
     each shard runs B10 and the synthesis on its device."""
-    return _ahx_decode(blobs, torch.device(device), on_error,
+    return _ahx_decode(blobs, as_device(device), on_error,
                        zero_fill=False, mesh=mesh)
 
 
@@ -1105,7 +1107,7 @@ def ahx_encode_batch(wavs: Sequence[bytes],
 
     if container not in ("auto", "ahx", "mp2"):
         raise ValueError("container must be 'auto', 'ahx' or 'mp2'")
-    devices = ([torch.device(device)] if mesh is None
+    devices = ([as_device(device)] if mesh is None
                else check_mesh(mesh).stream_devices())
     parsed = [wavmod.parse_wav(bytes(b)) for b in wavs]
 
@@ -1154,7 +1156,7 @@ def ahx_encode_batch(wavs: Sequence[bytes],
 # AWB / ACB banks
 # ---------------------------------------------------------------------------
 
-def decode_awb(awb_or_bytes, key: int = 0, mesh: Optional[Mesh] = None, *,
+def decode_awb(awb_obj_or_bytes, key: int = 0, mesh: Optional[Mesh] = None, *,
                decode_non_hca: bool = True, device="cuda") -> List[bytes]:
     """Decode every member of an AWB (AFS2) bank on `device`; returns one
     bytes object per member, byte-equal to pycricodecs_tpu.parallel.
@@ -1180,8 +1182,9 @@ def decode_awb(awb_or_bytes, key: int = 0, mesh: Optional[Mesh] = None, *,
 
     if mesh is not None:
         check_mesh(mesh)
-    device = torch.device(device)
-    awb = awb_or_bytes if isinstance(awb_or_bytes, AWB) else AWB(awb_or_bytes)
+    device = as_device(device)
+    awb = awb_obj_or_bytes if isinstance(awb_obj_or_bytes, AWB) \
+        else AWB(awb_obj_or_bytes)
     members = [bytes(m) for m in awb.getfiles()]
     out: List = list(members)
     hca_idx, ahx_idx, adx_idx, adx_parsed = [], [], [], []
@@ -1212,7 +1215,7 @@ def decode_awb(awb_or_bytes, key: int = 0, mesh: Optional[Mesh] = None, *,
     return out
 
 
-def decode_acb(acb_or_bytes_or_path, key: int = 0,
+def decode_acb(acb_obj_or_bytes, key: int = 0,
                mesh: Optional[Mesh] = None, *, device="cuda") -> List[bytes]:
     """Decode an ACB's waveform bank (embedded, or the sibling
     `<Name>.awb` of an ACB opened by path) on `device`, or over `mesh`
@@ -1223,8 +1226,8 @@ def decode_acb(acb_or_bytes_or_path, key: int = 0,
 
     if mesh is not None:
         check_mesh(mesh)
-    acb = acb_or_bytes_or_path if isinstance(acb_or_bytes_or_path, ACB) \
-        else ACB(acb_or_bytes_or_path)
+    acb = acb_obj_or_bytes if isinstance(acb_obj_or_bytes, ACB) \
+        else ACB(acb_obj_or_bytes)
     return decode_awb(acb.awb, key, mesh, device=device)
 
 

@@ -84,7 +84,7 @@ def _cipher56(keycode: int) -> np.ndarray:
     return table
 
 
-def cipher_tables_56_batch(keycodes, device) -> torch.Tensor:
+def cipher_tables_56_batch(keycodes, *, device) -> torch.Tensor:
     """Type-56 tables of K keycodes (uint64, subkey already applied) ->
     uint8 [K, 256] on `device`: the numpy branch of the JAX package's
     cipher_tables_56_batch (utils/hca_crypt.py:106-141) in int64 PyTorch

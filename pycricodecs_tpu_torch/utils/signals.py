@@ -245,3 +245,60 @@ def crilayla_long_match_members() -> dict:
     size = 1 << 20
     return {"run_1mib": b"\x5a" * size,
             "period3_1mib": (b"\x01\x80\xfe" * (size // 3 + 1))[:size]}
+
+
+def crilayla_zero_blob(size: int) -> bytes:
+    """A hand-made CRILAYLA blob of `size` output bytes whose stream is all
+    zero bits: 9-bit zero literals, so it decompresses to size + 256 zero
+    bytes (the prefix is zeros too). C1 parses chunks of 16,384 stream
+    bits from their first bit; chunk k starts 16,384 k = 4k bits mod 9 past
+    a token start, so about 8 chunks in 9 never meet the true parse, and
+    C1's serial repair parses them."""
+    cs = -(-9 * size // 8)
+    return (b"CRILAYLA" + size.to_bytes(4, "little")
+            + cs.to_bytes(4, "little") + bytes(cs + 256))
+
+
+def crilayla_fill_blob(size: int, byte: int = 0xAB) -> bytes:
+    """A hand-made CRILAYLA blob of `size` output bytes (47 to 2^32 - 1,
+    the u32 decompress size): three literals of `byte`, then one copy at
+    distance 3 of the other size - 3 bytes, its length a 255-run of about
+    size / 255 stream bytes. It decompresses to the 256 zero bytes of its
+    prefix and then size copies of `byte`."""
+    if not 47 <= size < 1 << 32:
+        raise ValueError("crilayla_fill_blob: size must be in [47, 2^32)")
+    return _crilayla_copy_blob(size, byte, size - 47, b"")
+
+
+def crilayla_wrap_blob(copy: int = 40, tail: bytes = bytes(range(1, 17)),
+                       byte: int = 0xAB) -> bytes:
+    """A hand-made CRILAYLA blob whose copy length passes 2^32 and wraps,
+    as the JAX native's u32 length does: three literals of `byte`, one
+    copy at distance 3 whose 255-run (about 16.84 MB of stream) sums to
+    2^32 + copy - 44, so that the copy writes `copy` bytes (3 or more),
+    then the literals of `tail`. Decompress size 3 + copy + len(tail); it
+    decompresses to 256 zero bytes, `tail` reversed (the stream writes
+    from the top down) and copy + 3 bytes of `byte`. A length that did not
+    wrap would fill the output with `byte`."""
+    if copy < 3:
+        raise ValueError("crilayla_wrap_blob: a copy is 3 bytes or more")
+    return _crilayla_copy_blob(3 + copy + len(tail), byte,
+                               (1 << 32) + copy - 44, tail)
+
+
+def _crilayla_copy_blob(size: int, byte: int, run: int, tail: bytes) -> bytes:
+    """Three literals of `byte`, one copy at distance 3 whose length is
+    44 + `run` (a 255-run and its last byte), then 9-bit literals of
+    `tail`, as a CRILAYLA blob of `size` output bytes and a zero prefix."""
+    q, r = divmod(run, 255)                # the 255-run: q bytes, then r
+    lits = (byte << 18) | (byte << 9) | byte   # three '0' + 8-bit literals
+    copy = (1 << 23) | 0x3FF       # '1', offset 0, length codes 3, 7, 31
+    v = ((lits << 24 | copy) << 8 * q | ((1 << 8 * q) - 1)) << 8 | r
+    for t in tail:
+        v = v << 9 | t
+    bits = 27 + 24 + 8 * q + 8 + 9 * len(tail)
+    pad = -bits % 8
+    stream = (v << pad).to_bytes((bits + pad) // 8, "big")[::-1]  # read
+    # from the end
+    return (b"CRILAYLA" + size.to_bytes(4, "little")
+            + len(stream).to_bytes(4, "little") + stream + bytes(256))

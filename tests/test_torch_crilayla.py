@@ -129,8 +129,9 @@ def c1_parse(payload: bytes, cs: int, ds: int, base: int = 0,
     (repair tokens, then its parse's from the meeting token), scanned for
     their first index and output position; the records of the tokens that
     start inside the output, the first back-reference past its end, the
-    token that fills it and whether it read past the stream. Returns
-    (records [(top position, literal byte or None, distance or None)],
+    token that fills it and whether it read past the stream. Lengths are
+    u32s, as the native's. Returns (records [(top position counted from
+    the LZ region, literal byte or None, distance or None)],
     status, steps); `trace` gets the repair's own tokens and the chunks."""
     word, sk = c1_words(payload, cs, base)
     bits = 8 * cs
@@ -148,10 +149,10 @@ def c1_parse(payload: bytes, cs: int, ds: int, base: int = 0,
             while True:
                 x = more(width) >> 24
                 width += 8
-                length += x
+                length = (length + x) & 0xFFFFFFFF
                 if x != 255:
                     break
-        return ((1 if lit else length + 3), info), width
+        return ((1 if lit else (length + 3) & 0xFFFFFFFF), info), width
 
     spec = []
     for k in range(nc):
@@ -182,11 +183,11 @@ def c1_parse(payload: bytes, cs: int, ds: int, base: int = 0,
                     x = view() >> 24
                     consume(8)
                     width += 8
-                    length += x
+                    length = (length + x) & 0xFFFFFFFF
                     if x != 255:
                         break
             b += width
-            recs.append(((1 if lit else length + 3), info, b))
+            recs.append(((1 if lit else (length + 3) & 0xFFFFFFFF), info, b))
         pre = list(np.cumsum([0] + [bin(x).count("1") for x in bm[:-1]]))
         spec.append(dict(recs=recs, bm=bm, pre=pre, exit=b, conv=-1,
                          rep=[]))
@@ -223,8 +224,8 @@ def c1_parse(payload: bytes, cs: int, ds: int, base: int = 0,
                 break
             if not info & 0x80000000 and w + info >= end:
                 first_bad = idx if first_bad is None else min(first_bad, idx)
-            recs[idx] = (w, info & 0xFF, None) if info & 0x80000000 else \
-                (w, None, info)
+            recs[idx] = (w - 256, info & 0xFF, None) \
+                if info & 0x80000000 else (w - 256, None, info)
             w -= out
             if w < 256:
                 ntok = idx + 1
@@ -250,9 +251,10 @@ def c1_materialise(payload: bytes, cs: int, ds: int, recs, trace=None):
     ptrs = np.arange(end)
     tops = np.array([-r[0] for r in recs])    # ascending for searchsorted
     p = np.arange(256, end)
-    t = np.searchsorted(tops, -p, side="right") - 1
+    t = np.searchsorted(tops, -(p - 256), side="right") - 1
     for pi, ti in zip(p, t):
         w, lit, dist = recs[ti]
+        w += 256
         if dist is None:
             assert pi == w
             out[pi] = lit

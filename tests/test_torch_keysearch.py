@@ -150,7 +150,7 @@ def test_frame_status_matches_native_tester(name):
         ~fb[:, 2:fs - 2].any(axis=1), 1,
         np.where(crc16_batch(fb) != 0, -1, 0)).astype(np.int64))
     tables, tix = port_pipeline._key_tables(pi, keys, 0, "cpu")
-    up = port_unpack.DeviceUnpacker(pi, "cpu")
+    up = port_unpack.DeviceUnpacker(pi, device="cpu")
     got, _ = port_pipeline._frame_status(
         up, torch.from_numpy(fb.copy()), pre, tables, tix, F, False)
     np.testing.assert_array_equal(got.numpy(), ref[0])
@@ -191,7 +191,7 @@ def test_cipher_tables_56_batch_matches_jax():
         np.uint64) * np.uint64(3)
     keys[:4] = [0, 1, 2, 0xFFFFFFFFFFFFFFFF]
     keys[4] = H.KEY
-    got = port_crypt.cipher_tables_56_batch(keys, "cpu")
+    got = port_crypt.cipher_tables_56_batch(keys, device="cpu")
     assert got.dtype == torch.uint8 and got.shape == (300, 256)
     np.testing.assert_array_equal(got.numpy(),
                                   jax_crypt.cipher_tables_56_batch(keys))

@@ -246,7 +246,7 @@ def test_noise_maps_with_draws_before_equal_the_unsharded_rows():
     fr = H.frames_of(blob, info)
     F = fr.shape[0]
     frames = np.stack([fr, np.roll(fr, 17, axis=0)])            # [2, F, fs]
-    up = hca_unpack_device.DeviceUnpacker(info, "cpu")
+    up = hca_unpack_device.DeviceUnpacker(info, device="cpu")
     _, sf, res, _, err = up(frames.reshape(2 * F, -1))
     assert not bool(err.any())
     whole = up.noise_maps(sf, res, 2)

@@ -37,7 +37,7 @@ def pns():
     ji, pi = H.parse_both(blob)
     assert pi.version == 0x0300 and pi.min_resolution == 0
     frames = H.frames_of(blob, pi)
-    up = port_unpack.DeviceUnpacker(pi, "cpu")
+    up = port_unpack.DeviceUnpacker(pi, device="cpu")
     qc, sf, res, inten, err = up(frames)
     assert not err.any()
     ref = jax_frame._unpack_frames_py(

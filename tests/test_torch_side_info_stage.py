@@ -355,7 +355,7 @@ def port_info(ji):
 def check_all(what, ji, dec, addr=0, jax_too=True, host=False):
     """Model against the twin, the JAX side-info phases and (frames with
     sync and CRC, no err) the host reference."""
-    up = U.DeviceUnpacker(port_info(ji), "cpu")
+    up = U.DeviceUnpacker(port_info(ji), device="cpu")
     got = model_side_info(up, dec, addr)
     twin = up.side_info_plain(torch.from_numpy(dec))
     assert_side_info_equal(f"{what} vs the twin", got, twin)
@@ -404,18 +404,18 @@ def test_geometry_matches_the_source():
     assert re.search(r"constexpr int kSfStride = 132;", src)
     assert re.search(r"constexpr int kB1SmemMax = 227 \* 1024 - 1024;", src)
     assert "b1_geometry(checked ? fs : (max_bits + 7) >> 3)" in src
-    up = U.DeviceUnpacker(port_info(CONFIGS["q2"]()), "cpu")
+    up = U.DeviceUnpacker(port_info(CONFIGS["q2"]()), device="cpu")
     # the bank's side info reaches 272 of its 512 bytes: 18 chunks a row
     assert geometry(up) == dict(frames=32, chunks=18, checked=False)
     assert up.side_info_reach == 272
     for make in CONFIGS.values():
-        up = U.DeviceUnpacker(port_info(make()), "cpu")
+        up = U.DeviceUnpacker(port_info(make()), device="cpu")
         assert up.side_info_max_bits() == max_bits(up)
         assert up.side_info_reach == min(up.fs, (max_bits(up) + 7) >> 3)
 
 
 def test_layout_parts_are_aligned():
-    up = U.DeviceUnpacker(port_info(CONFIGS["q4"]()), "cpu")
+    up = U.DeviceUnpacker(port_info(CONFIGS["q4"]()), device="cpu")
     for N in (0, 1, 13, 77):
         offsets = up.side_info_layout(N)
         assert all(o % 16 == 0 for o in offsets[:-1])
@@ -474,7 +474,7 @@ def test_key_search_rows():
     keys = np.random.default_rng(spec["seed"]).integers(
         1, 1 << 63, 256).astype(np.uint64)
     ji, pi = H.parse_both(enc)
-    up = U.DeviceUnpacker(pi, "cpu")
+    up = U.DeviceUnpacker(pi, device="cpu")
     tables, tix = P._key_tables(pi, keys, 0, "cpu")
     first = torch.from_numpy(np.frombuffer(enc, np.uint8, count=2 * pi.
                                            frame_size, offset=hs).copy())
@@ -569,7 +569,7 @@ def test_v3_intensity(db2):
     with escapes, values that leave [0, 15] (err), and v4 = 15 (all 7s)."""
     ji = relabel("q4_stereo_48k_1s", version=0x0300)
     coded = [int(x) for x in ji.coded_count]
-    up = U.DeviceUnpacker(port_info(ji), "cpu")
+    up = U.DeviceUnpacker(port_info(ji), device="cpu")
     rng = np.random.default_rng(db2)
     frames, bad = [], []
     for case in range(12):
@@ -619,7 +619,7 @@ def test_escape_at_the_frame_end(code_crosses):
     0 while the cursor moves on by 11; at bit 317 (one earlier escape) the
     code itself crosses and reads as a delta of 0."""
     ji = relabel("q2_mono_48k_1s", frame_size=40, coded=[56])
-    up = U.DeviceUnpacker(port_info(ji), "cpu")
+    up = U.DeviceUnpacker(port_info(ji), device="cpu")
     assert geometry(up)["checked"]
     rng = np.random.default_rng(int(code_crosses))
     frames = []

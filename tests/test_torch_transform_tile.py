@@ -215,7 +215,7 @@ def test_model_with_the_fixtures_real_maps():
     name = "pns_v3_mono_48k_1s"
     ji, pi, hfr, cfg = _config(name)
     blob = H.load_fixtures()[1][name]
-    up = U.DeviceUnpacker(pi, "cpu")
+    up = U.DeviceUnpacker(pi, device="cpu")
     n = pi.frame_count
     frames = torch.from_numpy(H.frames_of(blob, pi).copy())
     qc, sf, res, inten, err = up(frames)

@@ -21,7 +21,7 @@ from tests import torch_port_helpers as H
 
 
 def _port_unpack(pi, frames):
-    up = port_unpack.DeviceUnpacker(pi, "cpu")
+    up = port_unpack.DeviceUnpacker(pi, device="cpu")
     qc, sf, res, inten, err = up(frames)
     return qc.numpy(), sf.numpy(), res.numpy(), inten.numpy(), err.numpy()
 
@@ -100,7 +100,7 @@ def test_unpack_random_bytes_matches_jax_device_unpacker(name):
 def test_decipher_is_a_table_lookup():
     blob = H.encode(2, 2, seed=9, key=H.KEY)
     _, pi = H.parse_both(blob, key=H.KEY)
-    up = port_unpack.DeviceUnpacker(pi, "cpu")
+    up = port_unpack.DeviceUnpacker(pi, device="cpu")
     frames = H.frames_of(blob, pi)
     got = up.decipher(torch.from_numpy(frames.copy()))
     np.testing.assert_array_equal(got.numpy(), pi.cipher[frames])
@@ -122,9 +122,9 @@ def test_unpacker_rejects_like_jax():
         with pytest.raises(ValueError) as ref:
             jax_unpack.DeviceUnpacker(ji)
         if "zero coded_count" in str(ref.value):
-            up = port_unpack.DeviceUnpacker(pi, "cpu")
+            up = port_unpack.DeviceUnpacker(pi, device="cpu")
             assert up.coded == [0, 32]
             continue
         with pytest.raises(port_frame.HcaError) as got:
-            port_unpack.DeviceUnpacker(pi, "cpu")
+            port_unpack.DeviceUnpacker(pi, device="cpu")
         assert str(got.value) == str(ref.value)

@@ -304,7 +304,7 @@ def test_b2_model_equals_twin_and_host_reference(channels, quality):
     blob = H.encode(channels, quality, seed=5 + channels, samples=5000)
     ji, pi = H.parse_both(blob)
     frames = H.frames_of(blob, pi).copy()
-    up = U.DeviceUnpacker(pi, "cpu")
+    up = U.DeviceUnpacker(pi, device="cpu")
     dec = torch.from_numpy(frames)
     _, res, _, cur, err = up.side_info(dec)
     assert not err.any()
@@ -328,7 +328,7 @@ def test_b2_model_equals_twin_on_random_frames(fs):
     blob = H.encode(2, 4, seed=11, samples=3000)
     _, pi = H.parse_both(blob)
     pi.frame_size = fs
-    up = U.DeviceUnpacker(pi, "cpu")
+    up = U.DeviceUnpacker(pi, device="cpu")
     frames = _random_frames(np.random.default_rng(fs), 45, fs)
     dec = torch.from_numpy(frames)
     _, res, _, cur, _ = up.side_info(dec)

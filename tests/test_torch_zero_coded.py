@@ -56,7 +56,7 @@ def test_unpack_zero_coded_matches_host_reference(zero_coded):
     ji, pi = H.parse_both(blob)
     ref = jax_frame._unpack_frames_py(
         ji, blob[H.header_size(blob):][:ji.frame_count * ji.frame_size])
-    up = port_unpack.DeviceUnpacker(pi, "cpu")
+    up = port_unpack.DeviceUnpacker(pi, device="cpu")
     qc, sf, res, inten, err = up(H.frames_of(blob, pi))
     assert not err.any()
     np.testing.assert_array_equal(qc.numpy(), ref.qc)
@@ -96,7 +96,7 @@ def test_cs128_with_the_v3_extension_is_refused_per_stream():
     ji, pi = H.parse_both(bad)
     assert ji.hfr_group_count == 28 and int(ji.coded_count[0]) == 100
     with pytest.raises(port_frame.HcaError, match="cs_count == 128"):
-        port_unpack.DeviceUnpacker(pi, "cpu")
+        port_unpack.DeviceUnpacker(pi, device="cpu")
     with pytest.raises(port_frame.HcaError, match="cs_count == 128"):
         port.decode_batch([bad], device="cpu")
     # no defined answer in the JAX package: its Python unpacker copies
@@ -121,4 +121,4 @@ def test_scalefactor_count_past_128_is_an_hca_error():
     pi.init_derived()
     with pytest.raises(port_frame.HcaError,
                        match=r"Unpack error \(scalefactor count\)"):
-        port_unpack.DeviceUnpacker(pi, "cpu")
+        port_unpack.DeviceUnpacker(pi, device="cpu")

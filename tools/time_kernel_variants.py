@@ -287,7 +287,7 @@ def hca_bank_calls(S, dev) -> dict:
     F, C, B = info.frame_count, info.channels, P.CHUNK_STREAMS
     frames = np.frombuffer(blob, np.uint8, count=F * info.frame_size,
                            offset=hs).reshape(F, -1)
-    qc, sf, res, inten, _ = U.DeviceUnpacker(info, dev)(
+    qc, sf, res, inten, _ = U.DeviceUnpacker(info, device=dev)(
         torch.from_numpy(np.tile(frames, (B, 1))).to(dev))
     spec = (qc.view(B, F, C, 8, 128), sf.view(B, F, C, 128),
             res.view(B, F, C, 128), inten.view(B, F, C, 8))

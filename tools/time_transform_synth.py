@@ -127,7 +127,7 @@ def main() -> None:
     F, C, B = info.frame_count, info.channels, P.CHUNK_STREAMS
     frames = np.frombuffer(blob, np.uint8, count=F * info.frame_size,
                            offset=hs).reshape(F, -1)
-    up = U.DeviceUnpacker(info, dev)
+    up = U.DeviceUnpacker(info, device=dev)
     qc, sf, res, inten, _ = up(torch.from_numpy(np.tile(frames, (B, 1)))
                                .to(dev))
     spec = (qc.view(B, F, C, 8, 128), sf.view(B, F, C, 128),

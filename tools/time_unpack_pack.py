@@ -156,7 +156,7 @@ def main() -> None:
     fs = info.frame_size
     frames = np.frombuffer(plain, np.uint8, count=info.frame_count * fs,
                            offset=hs).reshape(-1, fs)
-    up = U.DeviceUnpacker(info, dev)
+    up = U.DeviceUnpacker(info, device=dev)
     dec = up.decipher(torch.from_numpy(
         np.tile(frames, (P.CHUNK_STREAMS, 1))).to(dev))
     _, res, _, cur, _ = up.side_info(dec)
