@@ -17,6 +17,7 @@ import os
 from io import BytesIO, FileIO
 
 from ..models import crilayla
+from ..utils import tracing
 from ..utils.paths import anchored_join
 from .chunk import CPKChunkHeader, CPKChunkHeaderType, UTFTypeValues
 from .utf import UTF, UTFBuilder
@@ -123,19 +124,23 @@ class CPK:
         i = 0
         while i < len(jobs):
             parsed, bad, held, j = [], None, 0, i
-            while j < len(jobs) and held < C1_BUDGET:
-                _, pos, size, compressed, _ = jobs[j]
-                if compressed:
-                    try:
-                        p = crilayla.parse(self._read_at(pos, size))
-                    except Exception as exc:  # raised at its member below
-                        bad = exc
-                        break
-                    parsed.append(p)
-                    held += p[1] + p[2] + 512
-                j += 1
-            outs = iter(crilayla.decompress_members(parsed,
-                                                    device=self.device))
+            # spans as `crilayla.decompress_batch` makes them; the parse's
+            # span holds the members' reads too
+            with tracing.span("crilayla.decompress"):
+                with tracing.span("crilayla.parse"):
+                    while j < len(jobs) and held < C1_BUDGET:
+                        _, pos, size, compressed, _ = jobs[j]
+                        if compressed:
+                            try:
+                                p = crilayla.parse(self._read_at(pos, size))
+                            except Exception as exc:  # raised at its member
+                                bad = exc
+                                break
+                            parsed.append(p)
+                            held += p[1] + p[2] + 512
+                        j += 1
+                outs = iter(crilayla.decompress_members(parsed,
+                                                        device=self.device))
             for target, pos, size, compressed, makedir in jobs[i:j]:
                 if makedir:
                     os.makedirs(os.path.dirname(target) or ".",

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..ops import cuda_kernels
+from ..utils import tracing
 from ..utils.device import as_device
 
 MAGIC = b"CRILAYLA"
@@ -64,15 +65,25 @@ def decompress(data: bytes, *, device="cuda") -> bytes:
 
 def decompress_batch(blobs, *, device="cuda") -> list:
     """[decompress(b) for b in blobs] in one launch of C1 on `device`;
-    raises the error the first failing member raises alone."""
-    parsed, error = [], None
-    for blob in blobs:
-        try:
-            parsed.append(parse(blob))
-        except ValueError as exc:
-            error = exc
-            break
-    outs = decompress_members(parsed, device=device)
+    raises the error the first failing member raises alone. Spans (while
+    a profiler runs, `utils.tracing`): `crilayla.decompress` around the
+    call, `crilayla.parse` around the blobs' checks."""
+    with tracing.span("crilayla.decompress"):
+        parsed, error = [], None
+        with tracing.span("crilayla.parse"):
+            on, copied = tracing.enabled(), 0
+            for blob in blobs:
+                try:
+                    parsed.append(parse(blob))
+                except ValueError as exc:
+                    error = exc
+                    break
+                if on:  # `parse`'s copies: bytes() of a blob not bytes,
+                    # the payload's slice
+                    copied += len(parsed[-1][0]) + (
+                        0 if isinstance(blob, bytes) else len(blob))
+            tracing.count("host_bytes", copied)
+        outs = decompress_members(parsed, device=device)
     if None in outs:
         raise ValueError(MALFORMED)
     if error is not None:
@@ -83,10 +94,15 @@ def decompress_batch(blobs, *, device="cuda") -> list:
 def decompress_members(parsed, *, device="cuda") -> list:
     """C1 over parsed members [(payload, compressed_size, decompress_size)]
     in one launch: each member's prefix + payload, or None where its
-    stream is malformed. A CPU device runs `_decompress_py` per member."""
+    stream is malformed. A CPU device runs `_decompress_py` per member.
+    Spans on a CUDA device: `crilayla.pack`, `crilayla.h2d`, C1's
+    `c1.prepare` and `c1.launch`, `crilayla.wait` (the host blocked until
+    C1 ends), `crilayla.d2h`, `crilayla.collect` (the members' bytes
+    out)."""
     if not parsed:
         return []
-    if as_device(device).type == "cpu":
+    device = as_device(device)
+    if device.type == "cpu":
         outs = []
         for p in parsed:
             try:
@@ -94,13 +110,26 @@ def decompress_members(parsed, *, device="cuda") -> list:
             except ValueError:
                 outs.append(None)
         return outs
-    src, meta, out_size = pack_decompress(parsed)
-    out, status, _ = cuda_kernels.crilayla_decompress(
-        torch.from_numpy(src).to(as_device(device)), meta, out_size)
-    out, status = out.cpu().numpy(), status.cpu().numpy()
-    return [None if status[m] else
-            out[o:o + ds + 256].tobytes()
-            for m, (o, ds) in enumerate(zip(meta[:, 3], meta[:, 2]))]
+    with tracing.span("crilayla.pack"):
+        src, meta, out_size = pack_decompress(parsed)
+        tracing.count("host_bytes", src.nbytes)
+    with tracing.span("crilayla.h2d", h2d_bytes=src.nbytes):
+        src = torch.from_numpy(src).to(device)
+    out, status, _ = cuda_kernels.crilayla_decompress(src, meta, out_size)
+    with tracing.span("crilayla.wait"):
+        torch.cuda.current_stream(out.device).synchronize()
+    with tracing.span("crilayla.d2h"):
+        out, status = out.cpu().numpy(), status.cpu().numpy()
+        if tracing.enabled():
+            tracing.count("d2h_bytes", out.nbytes + status.nbytes)
+            tracing.count("d2h_kept_bytes",
+                          int((meta[:, 2] + 256)[status == 0].sum()))
+    with tracing.span("crilayla.collect"):
+        outs = [None if status[m] else out[o:o + ds + 256].tobytes()
+                for m, (o, ds) in enumerate(zip(meta[:, 3], meta[:, 2]))]
+        if tracing.enabled():
+            tracing.count("host_bytes", sum(len(o) for o in outs if o))
+    return outs
 
 
 def pack_decompress(parsed) -> tuple:
@@ -195,36 +224,73 @@ def compress_members(datas, *, device="cuda") -> list:
     order whose bytes stay within C2_BUDGET (a larger member alone): each
     one's CRILAYLA blob, or None where the kernel refuses it (0x100 bytes
     or fewer, or over its work buffer's capacity). A CPU device runs
-    `_compress_py` per member."""
-    datas = [bytes(d) for d in datas]
-    outs, i = [], 0
-    while i < len(datas):
-        j, held = i + 1, len(datas[i])
-        while j < len(datas) and held + len(datas[j]) <= C2_BUDGET:
-            held += len(datas[j])
-            j += 1
-        outs += _compress_call(datas[i:j], device)
-        i = j
+    `_compress_py` per member. Spans (while a profiler runs,
+    `utils.tracing`): `crilayla.compress` around the call, counting its
+    `members` and `source_bytes`; on a CUDA device, for each wrapper
+    call, those `_compress_call` names."""
+    with tracing.span("crilayla.compress"):
+        datas = [bytes(d) for d in datas]
+        if tracing.enabled():
+            tracing.count("members", len(datas))
+            tracing.count("source_bytes", sum(map(len, datas)))
+        outs, i = [], 0
+        while i < len(datas):
+            j, held = i + 1, len(datas[i])
+            while j < len(datas) and held + len(datas[j]) <= C2_BUDGET:
+                held += len(datas[j])
+                j += 1
+            outs += _compress_call(datas[i:j], device)
+            i = j
     return outs
 
 
+#: bytes `assemble` makes a member besides two copies of its stream: the
+#: size fields (4 + 4), the prefix slice (0x100) and its four
+#: concatenations' results less the stream (12, 16, 16, 16 + 0x100)
+ASSEMBLE_BYTES = 8 + 0x100 + 12 + 16 + 16 + 16 + 0x100
+
+
 def _compress_call(datas, device) -> list:
-    """`compress_members` of one wrapper call."""
-    if as_device(device).type == "cpu":
+    """`compress_members` of one wrapper call. Spans on a CUDA device:
+    `crilayla.pack`, `crilayla.h2d`, C2's `c2.prepare` and `c2.launch`,
+    `crilayla.wait` (the host blocked until C2 ends), `crilayla.d2h` (the
+    whole work buffer, of which the streams are kept) and
+    `crilayla.collect` (the streams' slices and `assemble`)."""
+    device = as_device(device)
+    if device.type == "cpu":
         return [_compress_py(d) if len(d) >= 0x101 else None for d in datas]
-    src, meta, work_size = pack_compress(datas)
-    caps = cuda_kernels.crilayla_work_cap(meta[:, 1])
-    work, start, status, _ = cuda_kernels.crilayla_compress(
-        torch.from_numpy(src).to(as_device(device)), meta, work_size)
-    work = work.cpu().numpy()
-    start, status = start.cpu().numpy(), status.cpu().numpy()
-    outs = []
-    for m, data in enumerate(datas):
-        if status[m]:
-            outs.append(None)
-            continue
-        outs.append(assemble(data, work[meta[m, 2] + start[m]:
-                                        meta[m, 2] + caps[m]].tobytes()))
+    with tracing.span("crilayla.pack"):
+        src, meta, work_size = pack_compress(datas)
+        caps = cuda_kernels.crilayla_work_cap(meta[:, 1])
+        # the join and its copy
+        tracing.count("host_bytes", 2 * src.nbytes)
+    with tracing.span("crilayla.h2d", h2d_bytes=src.nbytes):
+        src = torch.from_numpy(src).to(device)
+    work, start, status, _ = cuda_kernels.crilayla_compress(src, meta,
+                                                            work_size)
+    with tracing.span("crilayla.wait"):
+        torch.cuda.current_stream(work.device).synchronize()
+    with tracing.span("crilayla.d2h"):
+        work = work.cpu().numpy()
+        start, status = start.cpu().numpy(), status.cpu().numpy()
+        if tracing.enabled():
+            tracing.count("d2h_bytes",
+                          work.nbytes + start.nbytes + status.nbytes)
+            tracing.count("d2h_kept_bytes",
+                          int((caps - start)[status == 0].sum()))
+    with tracing.span("crilayla.collect"):
+        outs = []
+        for m, data in enumerate(datas):
+            if status[m]:
+                outs.append(None)
+                continue
+            outs.append(assemble(data, work[meta[m, 2] + start[m]:
+                                            meta[m, 2] + caps[m]].tobytes()))
+        if tracing.enabled():
+            ok = status == 0
+            # `.tobytes()` and `assemble`: each stream three times
+            tracing.count("host_bytes", 3 * int((caps - start)[ok].sum())
+                          + ASSEMBLE_BYTES * int(ok.sum()))
     return outs
 
 

@@ -33,6 +33,7 @@ import torch
 
 from .. import _build
 from ..models.adx import STATIC_COEFFICIENTS, samples_per_block
+from ..utils import tracing
 
 #: launches since import (or the last reset), per kernel
 TRANSFORM_LAUNCHES = 0
@@ -594,46 +595,52 @@ def crilayla_decompress(src, meta: np.ndarray, out_size: int):
     position counted from the LZ region, in 32 bits. Scratch on the card:
     about 17 bytes an output byte (`rec` 8, `ptrs` 8, `out` 1) and 31 a
     stream byte; `CPK.extract` bounds it by batching
-    (`containers.cpk.C1_BUDGET`)."""
+    (`containers.cpk.C1_BUDGET`). Spans (`utils.tracing`): `c1.prepare`
+    (checks, tables, allocations), `c1.launch`."""
     global CRILAYLA_DECOMPRESS_LAUNCHES
-    check_cuda(src, "src", torch.uint8, (src.numel(),))
-    M = meta.shape[0]
-    check_crilayla_meta(src.numel(), meta, (meta[:, 1] + 256,
-                                            meta[:, 2] + 256), out_size)
-    if M > 1 and (meta[1:, 3] < meta[:-1, 3] + meta[:-1, 2] + 256).any():
-        raise ValueError("meta: the output spans must ascend without overlap")
-    dev = src.device
-    out = torch.empty(out_size, dtype=torch.uint8, device=dev)
-    status = torch.empty(M, dtype=torch.int32, device=dev)
-    steps = torch.empty(M, dtype=torch.int64, device=dev)
-    if M == 0:
-        return out, status, steps
-    first, chunks = crilayla_chunks(meta[:, 1])
-    C = chunks.shape[0]
-    meta_t = torch.from_numpy(np.ascontiguousarray(
-        np.concatenate([meta, first[:, None]], 1), dtype=np.int64)).to(dev)
-    chunks_t = torch.from_numpy(chunks).to(dev)
+    with tracing.span("c1.prepare"):
+        check_cuda(src, "src", torch.uint8, (src.numel(),))
+        M = meta.shape[0]
+        check_crilayla_meta(src.numel(), meta, (meta[:, 1] + 256,
+                                                meta[:, 2] + 256), out_size)
+        if M > 1 and (meta[1:, 3] < meta[:-1, 3] + meta[:-1, 2]
+                      + 256).any():
+            raise ValueError("meta: the output spans must ascend without "
+                             "overlap")
+        dev = src.device
+        out = torch.empty(out_size, dtype=torch.uint8, device=dev)
+        status = torch.empty(M, dtype=torch.int32, device=dev)
+        steps = torch.empty(M, dtype=torch.int64, device=dev)
+        if M == 0:
+            return out, status, steps
+        first, chunks = crilayla_chunks(meta[:, 1])
+        C = chunks.shape[0]
+        meta_t = torch.from_numpy(np.ascontiguousarray(
+            np.concatenate([meta, first[:, None]], 1),
+            dtype=np.int64)).to(dev)
+        chunks_t = torch.from_numpy(chunks).to(dev)
 
-    def alloc(n, dtype=torch.int64):
-        return torch.empty(max(n, 1), dtype=dtype, device=dev)
+        def alloc(n, dtype=torch.int64):
+            return torch.empty(max(n, 1), dtype=dtype, device=dev)
 
-    cap = max(C, 1) * CRILAYLA_CHUNK_CAP
-    words = max(C, 1) * (CRILAYLA_CHUNK_BITS // 32)
-    srec, send, rrec, rend = (alloc(cap) for _ in range(4))
-    bitmap, pre = alloc(words, torch.int32), alloc(words, torch.int32)
-    cv = alloc(C * CRILAYLA_CHUNK_FIELDS)
-    mv = alloc(M * CRILAYLA_MEMBER_FIELDS)
-    rec, ntok = alloc(out_size), alloc(M)
-    ptrs = alloc(out_size)
-    # pointer jumping: a chain visits each token once, so 2^rounds above the
-    # longest output is enough
-    rounds = max(1, int(meta[:, 2].max()).bit_length())
-    changed = alloc(rounds, torch.int32)
-    launch("crilayla_decompress", src, ptr(src), ptr(meta_t), M,
-           ptr(chunks_t), C, ptr(out), ptr(status), ptr(steps), ptr(srec),
-           ptr(send), ptr(rrec), ptr(rend), ptr(bitmap), ptr(pre), ptr(cv),
-           ptr(mv), ptr(rec), ptr(ntok), ptr(ptrs), ptr(changed),
-           int(out_size), rounds)
+        cap = max(C, 1) * CRILAYLA_CHUNK_CAP
+        words = max(C, 1) * (CRILAYLA_CHUNK_BITS // 32)
+        srec, send, rrec, rend = (alloc(cap) for _ in range(4))
+        bitmap, pre = alloc(words, torch.int32), alloc(words, torch.int32)
+        cv = alloc(C * CRILAYLA_CHUNK_FIELDS)
+        mv = alloc(M * CRILAYLA_MEMBER_FIELDS)
+        rec, ntok = alloc(out_size), alloc(M)
+        ptrs = alloc(out_size)
+        # pointer jumping: a chain visits each token once, so 2^rounds above
+        # the longest output is enough
+        rounds = max(1, int(meta[:, 2].max()).bit_length())
+        changed = alloc(rounds, torch.int32)
+    with tracing.span("c1.launch"):
+        launch("crilayla_decompress", src, ptr(src), ptr(meta_t), M,
+               ptr(chunks_t), C, ptr(out), ptr(status), ptr(steps),
+               ptr(srec), ptr(send), ptr(rrec), ptr(rend), ptr(bitmap),
+               ptr(pre), ptr(cv), ptr(mv), ptr(rec), ptr(ntok), ptr(ptrs),
+               ptr(changed), int(out_size), rounds)
     CRILAYLA_DECOMPRESS_LAUNCHES += 1
     return out, status, steps
 
@@ -663,36 +670,42 @@ def crilayla_compress(src, meta: np.ndarray, work_size: int):
     are below 2^32 bytes (a run's carry is a u32). Scratch on the card:
     about 19.5 bytes a source byte (`best` 8, `run` 8, `flags` 1, the
     zeroed work buffer 1.5, the source 1); callers bound it by batching
-    (`models.crilayla.C2_BUDGET`)."""
+    (`models.crilayla.C2_BUDGET`). Spans (`utils.tracing`): `c2.prepare`
+    (checks, tables, allocations), `c2.launch`."""
     global CRILAYLA_COMPRESS_LAUNCHES
-    check_cuda(src, "src", torch.uint8, (src.numel(),))
-    M = meta.shape[0]
-    check_crilayla_meta(src.numel(), meta,
-                        (meta[:, 1], crilayla_work_cap(meta[:, 1])),
-                        work_size)
-    if M and int(meta[:, 1].max()) >= 1 << 32:
-        raise ValueError("meta: C2 takes members below 2^32 bytes")
-    dev = src.device
-    # zeroed: the codes are ORed in; a 32-bit word past the last byte
-    work = torch.zeros(work_size + 4, dtype=torch.uint8,
-                       device=dev)[:work_size]
-    start = torch.empty(M, dtype=torch.int64, device=dev)
-    status = torch.empty(M, dtype=torch.int32, device=dev)
-    steps = torch.empty(M, dtype=torch.int64, device=dev)
-    if M == 0:
-        return work, start, status, steps
-    first, tiles = crilayla_tiles(meta[:, 1])
-    G = tiles.shape[0]
-    meta_t = torch.from_numpy(np.ascontiguousarray(
-        np.concatenate([meta, first[:, None]], 1), dtype=np.int64)).to(dev)
-    tiles_t = torch.from_numpy(tiles).to(dev)
-    best = torch.empty(max(src.numel(), 1), dtype=torch.int64, device=dev)
-    run = torch.empty(max(G, 1) * CRILAYLA_WINDOW, dtype=torch.int32,
-                      device=dev)  # u32 to the kernel
-    flags = torch.empty(max(src.numel(), 1), dtype=torch.uint8, device=dev)
-    tilev = torch.empty(5 * max(G, 1), dtype=torch.int64, device=dev)
-    launch("crilayla_compress", src, ptr(src), ptr(meta_t), M, ptr(tiles_t),
-           G, ptr(work), ptr(start), ptr(status), ptr(steps), ptr(best),
-           ptr(run), ptr(flags), ptr(tilev))
+    with tracing.span("c2.prepare"):
+        check_cuda(src, "src", torch.uint8, (src.numel(),))
+        M = meta.shape[0]
+        check_crilayla_meta(src.numel(), meta,
+                            (meta[:, 1], crilayla_work_cap(meta[:, 1])),
+                            work_size)
+        if M and int(meta[:, 1].max()) >= 1 << 32:
+            raise ValueError("meta: C2 takes members below 2^32 bytes")
+        dev = src.device
+        # zeroed: the codes are ORed in; a 32-bit word past the last byte
+        work = torch.zeros(work_size + 4, dtype=torch.uint8,
+                           device=dev)[:work_size]
+        start = torch.empty(M, dtype=torch.int64, device=dev)
+        status = torch.empty(M, dtype=torch.int32, device=dev)
+        steps = torch.empty(M, dtype=torch.int64, device=dev)
+        if M == 0:
+            return work, start, status, steps
+        first, tiles = crilayla_tiles(meta[:, 1])
+        G = tiles.shape[0]
+        meta_t = torch.from_numpy(np.ascontiguousarray(
+            np.concatenate([meta, first[:, None]], 1),
+            dtype=np.int64)).to(dev)
+        tiles_t = torch.from_numpy(tiles).to(dev)
+        best = torch.empty(max(src.numel(), 1), dtype=torch.int64,
+                           device=dev)
+        run = torch.empty(max(G, 1) * CRILAYLA_WINDOW, dtype=torch.int32,
+                          device=dev)  # u32 to the kernel
+        flags = torch.empty(max(src.numel(), 1), dtype=torch.uint8,
+                            device=dev)
+        tilev = torch.empty(5 * max(G, 1), dtype=torch.int64, device=dev)
+    with tracing.span("c2.launch"):
+        launch("crilayla_compress", src, ptr(src), ptr(meta_t), M,
+               ptr(tiles_t), G, ptr(work), ptr(start), ptr(status),
+               ptr(steps), ptr(best), ptr(run), ptr(flags), ptr(tilev))
     CRILAYLA_COMPRESS_LAUNCHES += 1
     return work, start, status, steps

@@ -103,7 +103,7 @@ from ..models import hca as hca_model
 from ..ops import (adx_kernels, hca_encode_device, hca_frame, hca_kernels,
                    hca_unpack_device, mp2_frame, mp2_kernels,
                    mp2_unpack_device)
-from ..utils import hca_crypt
+from ..utils import hca_crypt, tracing
 from ..utils import wav as wavmod
 from ..utils.crc import crc16_batch
 from ..utils.device import as_device
@@ -142,12 +142,16 @@ class trace:
 
     Records CPU activity, and CUDA activity where a GPU is present, and
     writes a Chrome trace (`trace_<pid>_<n>.json`, view it in Perfetto or
-    chrome://tracing) into log_dir on exit; its path is `self.path`. A
-    no-op, with `path` None, only where the profiler cannot start."""
+    chrome://tracing) into log_dir on exit; its path is `self.path`. The
+    port's own spans and counts of the traced calls (`utils.tracing`:
+    CRILAYLA's stages) are `self.spans` after exit,
+    `tracing.summary()`'s dict. A no-op, with `path` and `spans` None,
+    only where the profiler cannot start."""
 
     def __init__(self, log_dir: str):
         self.log_dir = log_dir
         self.path: Optional[str] = None
+        self.spans: Optional[dict] = None
         self._prof = None
 
     def __enter__(self):
@@ -155,6 +159,7 @@ class trace:
         activities = [ProfilerActivity.CPU]
         if torch.cuda.is_available():
             activities.append(ProfilerActivity.CUDA)
+        tracing.reset()
         try:
             self._prof = profile(activities=activities)
             self._prof.__enter__()
@@ -166,6 +171,7 @@ class trace:
         if self._prof is None:
             return False
         self._prof.__exit__(*exc)
+        self.spans = tracing.summary()
         os.makedirs(self.log_dir, exist_ok=True)
         self.path = os.path.join(
             self.log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json")

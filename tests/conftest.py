@@ -58,6 +58,8 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: jit-compile-heavy device-kernel test; core tier "
         "deselects these with -m 'not slow'")
+    config.addinivalue_line(
+        "markers", "card: needs a CUDA device (skips without one)")
 
 
 def pytest_collection_modifyitems(config, items):
